@@ -1,0 +1,507 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+
+1. device -- the card's name and power limit (nvidia-smi), and a build of
+   the CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per source,
+   started together);
+2. kernels -- each kernel against its plain PyTorch version on the card,
+   bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's update
+   vector) and 22,253,615 (the ResNet50 stand-in's); then CUDA-event times
+   (median of 20 back-to-back launches after warm-up) of the kernel, its
+   plain version and, for top-k, the ``torch.topk`` selection of tau;
+3. path -- the simulator's training path on ``device="cuda"`` through the
+   platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
+   at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
+   GA-SGD, 5 sync rounds) and the pinned ``parity_pod`` case.  Launch
+   counters are zeroed right before each run and read right after; every
+   merged vector and parameter tensor must live on the card; FaaS and IaaS
+   int8 losses must be bitwise equal; ``parity_pod``'s metered fields must
+   equal the pinned fixture; each card loss history must match the same
+   run on the CPU within a stated tolerance;
+3a. control -- the int8 spec once more with TF32 matrix products left on:
+   its losses must fall outside that tolerance, which shows the tolerance
+   catches a card-side precision fault;
+3b. profile -- torch.profiler over one more run of the int8 and top-k
+   specs: device busy seconds, idle share, device time by kernel class;
+3c. presets -- every trial of every ported preset (quick sizes) through
+   ``run_experiment`` on the card and on the CPU, records compared;
+4. summary -- one JSON line listing every ported kernel.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
+without the repository around it, the script exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+MOBILENET_N = 3_000_007        # (3072, 777, 777, 10) MLP parameters
+RESNET50_N = 22_253_615        # (3072, 3421, 3421, 10) MLP parameters
+SHAPES = (1000, 33 * 70, MOBILENET_N, RESNET50_N)
+PATH_SPECS = ("comm_s3_scatter_reduce_int8",
+              "comm_s3_scatter_reduce_topk0.01",
+              "comm_iaas_nic_ring_int8")
+#: card vs CPU loss tolerance: the card's fp32 matrix products sum in
+#: another order than the CPU's, and one ulp of gradient difference can
+#: move an int8 code by a step or swap a top-k survivor.  It lies between
+#: the sound readings (at most 1.7e-6 relative on an H100) and the TF32
+#: control of phase 3a, which must exceed it.
+CARD_VS_CPU_RTOL = 1e-5
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    raise SystemExit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ------------------------------------------------------------ 1. device ----
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch/ beside {Path(__file__).name}: run it "
+             f"from a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    from repro_torch.kernels import build
+    t0 = time.time()
+    libs = build.build(["quant8", "topk_ef"])
+    print(f"build: {time.time() - t0:.2f} s, "
+          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    return card
+
+
+# ----------------------------------------------------------- 2. kernels ----
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _max_err(outs, refs) -> float:
+    import torch
+    err = 0.0
+    for a, b in zip(outs, refs):
+        if a.dtype == torch.float32 and a.numel():
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call: events around each of ``reps``
+    back-to-back calls, queued behind a spin kernel so that host overhead
+    does not leave gaps between them."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(200_000_000)
+    ev[0].record()
+    for i in range(reps):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(ev[i].elapsed_time(ev[i + 1])
+                             for i in range(reps))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels() -> dict:
+    import torch
+    from repro_torch.kernels.quant8 import kernel as qk
+    from repro_torch.kernels.quant8 import ops as qo
+    from repro_torch.kernels.topk_ef import kernel as tk
+    from repro_torch.kernels.topk_ef.ref import topk_ef_ref, topk_tau_ref
+
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+
+    def record(name, n, kernel_fn, plain_fn, nbytes, ops, extra=None,
+               library_fn=None):
+        b, by = bound_ms(nbytes, ops)
+        row = {"n": n, "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+               "bound_ms": b, "bound_by": by,
+               "library_ms": time_ms(library_fn) if library_fn else None}
+        row.update(extra or {})
+        rows.setdefault(name, {})[n] = row
+        shown = {**(extra or {}), **({"library_ms": row["library_ms"]}
+                                     if library_fn else {})}
+        print(f"  {name:13s} n={n:>10d} ms={row['ms']:.5f} "
+              f"bound_ms={b:.5f} ({by}) plain_ms={row['plain_ms']:.5f}"
+              + "".join(f" {k}={v:.5f}" for k, v in shown.items()))
+
+    errs = {k: 0.0 for k in ("quantize8_ef", "quantize8", "dequantize8",
+                             "topk_ef")}
+    for n in SHAPES:
+        x = (torch.randn(n, generator=gen) * 3.0).cuda()
+        x[: min(n, 5)] = 0.0
+        blocks = -(-n // 256)
+        # 1: fused EF quantize
+        out, ref = qk.quantize8_ef_kernel(x), qo.quantize8_ef_plain(x)
+        torch.cuda.synchronize()
+        check(all(map(_bits_equal, out, ref)), f"quantize8_ef n={n} differs")
+        errs["quantize8_ef"] = max(errs["quantize8_ef"], _max_err(out, ref))
+        # 3: quantize
+        out3, ref3 = qk.quantize8_kernel(x), qo.quantize8_plain(x)
+        torch.cuda.synchronize()
+        check(all(map(_bits_equal, out3, ref3)), f"quantize8 n={n} differs")
+        errs["quantize8"] = max(errs["quantize8"], _max_err(out3, ref3))
+        # 4: dequantize
+        q, s = out[0], out[1]
+        out4, ref4 = qk.dequantize8_kernel(q, s, n), qo.dequantize8_plain(q, s, n)
+        torch.cuda.synchronize()
+        check(_bits_equal(out4, ref4), f"dequantize8 n={n} differs")
+        errs["dequantize8"] = max(errs["dequantize8"], _max_err([out4], [ref4]))
+        # the one library call that computes dequantize8: int8 * fp32 promotes
+        # the codes exactly and rounds one product, so it is bitwise equal too
+        lib4 = torch.mul(q, s)
+        check(_bits_equal(lib4.reshape(-1)[:n], ref4),
+              f"torch.mul dequantize n={n} differs from the plain version")
+        # 2: top-k EF at the codec's 1% fraction
+        k = max(1, round(0.01 * n))
+        tau = topk_tau_ref(x, k)
+        out2, ref2 = tk.topk_ef_kernel(x, tau), topk_ef_ref(x, tau)
+        torch.cuda.synchronize()
+        check(all(map(_bits_equal, out2, ref2)), f"topk_ef n={n} differs")
+        check(_bits_equal(out2[0] + out2[1], x), f"topk_ef n={n}: kept+res!=x")
+        errs["topk_ef"] = max(errs["topk_ef"], _max_err(out2, ref2))
+        print(f"  n={n}: quantize8_ef, quantize8, dequantize8, topk_ef "
+              f"bitwise equal to their plain versions")
+        if n < MOBILENET_N:
+            continue
+        record("quantize8_ef", n, lambda: qk.quantize8_ef_kernel(x),
+               lambda: qo.quantize8_ef_plain(x),
+               4 * n + 256 * blocks + 4 * blocks + 8 * n, 6 * n)
+        record("quantize8", n, lambda: qk.quantize8_kernel(x),
+               lambda: qo.quantize8_plain(x),
+               4 * n + 256 * blocks + 4 * blocks, 4 * n)
+        record("dequantize8", n, lambda: qk.dequantize8_kernel(q, s, n),
+               lambda: qo.dequantize8_plain(q, s, n),
+               256 * blocks + 4 * blocks + 4 * n, n,
+               library_fn=lambda: torch.mul(q, s))
+        record("topk_ef", n, lambda: tk.topk_ef_kernel(x, tau),
+               lambda: topk_ef_ref(x, tau), 4 * n + 4 + 8 * n, 2 * n,
+               {"topk_tau_ms": time_ms(lambda: topk_tau_ref(x, k))})
+        del x, out, ref, out2, ref2, out3, ref3, out4, ref4, lib4, q, s, tau
+        torch.cuda.empty_cache()
+    return {"rows": rows, "errs": errs}
+
+
+# -------------------------------------------------------------- 3. path ----
+
+def _history_losses(res):
+    return [loss for _, loss in res.history]
+
+
+def _drive(spec, device: str):
+    """One run through the platform's train() on ``device``; returns the
+    result, the launch counts of the run, the devices seen at every merge,
+    and the wall seconds."""
+    import torch
+    from repro_torch.kernels.quant8 import kernel as qk
+    from repro_torch.kernels.topk_ef import kernel as tk
+    model, algo, tr, va = spec.build_workload()
+    seen = set()
+    apply_merged = algo.apply_merged
+
+    def checked(model_, st, merged, w):
+        seen.add(("merged", merged.device.type))
+        apply_merged(model_, st, merged, w)
+        seen.add(("params", st.params.device.type))
+
+    algo.apply_merged = checked
+    qk.reset_launches()
+    tk.reset_launches()
+    t0 = time.time()
+    res = spec.build_runtime().train(
+        model, algo, tr, va, target_loss=spec.target_loss,
+        max_epochs=spec.max_epochs, eval_every=spec.eval_every,
+        data_local=spec.data_local, trace=spec.trace, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**qk.launches, **tk.launches}
+    return res, launches, seen, wall
+
+
+def phase_path() -> dict:
+    from repro_torch.experiments import ExperimentSpec, get_preset
+    preset = {s.name: s for s in get_preset("comm_axis").build(False)}
+    fixture = json.loads((ROOT / "tests" / "fixtures"
+                          / "trace_parity_pr9.json").read_text())
+    pod_case = next(c for c in fixture["cases"]
+                    if c["spec"]["name"] == "parity_pod")
+    specs = [preset[name] for name in PATH_SPECS]
+    specs.append(ExperimentSpec.from_dict(pod_case["spec"]))
+    totals = {}
+    losses = {}
+    cpu_losses = {}
+    for spec in specs:
+        res, launches, seen, wall = _drive(spec, "cuda")
+        check(not res.error, f"{spec.name}: {res.error}")
+        check(seen == {("merged", "cuda"), ("params", "cuda")},
+              f"{spec.name}: merges/params not all on the card: {seen}")
+        w = spec.fleet.workers
+        if spec.name == "parity_pod":
+            syncs = -(-res.rounds // 2)            # local:2 boundaries
+            check(launches["quantize8_ef"] == w * syncs,
+                  f"parity_pod: quantize8_ef launches {launches}")
+        elif "int8" in spec.name:
+            check(launches["quantize8_ef"] == w * res.rounds,
+                  f"{spec.name}: quantize8_ef launches {launches}, "
+                  f"want {w} per round x {res.rounds}")
+        else:
+            check(launches["topk_ef"] == w * res.rounds,
+                  f"{spec.name}: topk_ef launches {launches}, "
+                  f"want {w} per round x {res.rounds}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        ref, _, _, cpu_wall = _drive(spec, "cpu")
+        card_l, cpu_l = _history_losses(res), _history_losses(ref)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        check(len(card_l) == len(cpu_l) and rel <= CARD_VS_CPU_RTOL,
+              f"{spec.name}: card losses {card_l} vs cpu {cpu_l}")
+        check([t for t, _ in res.history] == [t for t, _ in ref.history],
+              f"{spec.name}: card and cpu timestamps differ")
+        losses[spec.name] = card_l
+        cpu_losses[spec.name] = cpu_l
+        print(f"  {spec.name}: rounds={res.rounds} sim_time={res.sim_time!r} "
+              f"final_loss={res.final_loss!r} wall_s={wall:.3f} "
+              f"launches={launches} cpu_wall_s={cpu_wall:.3f} "
+              f"max_rel_loss_vs_cpu={rel:.3e}")
+        if spec.name == "parity_pod":
+            exp = pod_case["result"]
+            got = {"system": res.system, "rounds": res.rounds,
+                   "sim_time": res.sim_time, "cost": res.cost,
+                   "comm_bytes": res.comm_bytes, "comm_cost": res.comm_cost,
+                   "ckpt_bytes": res.ckpt_bytes, "ckpt_time": res.ckpt_time,
+                   "ckpt_cost": res.ckpt_cost,
+                   "preemptions": res.preemptions,
+                   "max_staleness": res.max_staleness,
+                   "breakdown": res.breakdown}
+            for key, val in got.items():
+                check(val == exp[key], f"parity_pod {key}: {val!r} != "
+                                       f"{exp[key]!r}")
+            check([t for t, _ in res.history]
+                  == [t for t, _ in exp["history"]],
+                  "parity_pod: history timestamps differ from the fixture")
+            print("  parity_pod: metered fields equal the pinned fixture")
+    check(losses["comm_s3_scatter_reduce_int8"]
+          == losses["comm_iaas_nic_ring_int8"],
+          "FaaS (s3 scatter-reduce) and IaaS (NIC ring) int8 losses differ")
+    print("  FaaS == IaaS: int8 loss columns bitwise equal on the card")
+    return totals, preset, cpu_losses
+
+
+# ------------------------------------------------------------ 3a. control ---
+
+def phase_control(preset, cpu_losses) -> float:
+    """The int8 comm spec on the card with TF32 matrix products left on (the
+    fault :func:`repro_torch.resolve_device` exists to prevent): its losses
+    must differ from the CPU's by more than CARD_VS_CPU_RTOL, else that
+    tolerance would not catch such a fault."""
+    import torch
+    from repro_torch.core import engine
+    name = PATH_SPECS[0]
+    resolve = engine.resolve_device
+
+    def with_tf32(device=None):
+        dev = resolve(device)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return dev
+
+    engine.resolve_device = with_tf32
+    try:
+        res, _launches, _seen, _wall = _drive(preset[name], "cuda")
+    finally:
+        engine.resolve_device = resolve
+        torch.backends.cuda.matmul.allow_tf32 = False
+    card_l, cpu_l = _history_losses(res), cpu_losses[name]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    print(f"  {name} with TF32 on: max_rel_loss_vs_cpu={rel:.3e} "
+          f"(tolerance {CARD_VS_CPU_RTOL:g})")
+    check(rel > CARD_VS_CPU_RTOL,
+          f"TF32 control within {CARD_VS_CPU_RTOL:g} of the CPU: the "
+          f"card-vs-CPU tolerance does not catch a precision fault")
+    return rel
+
+
+# ------------------------------------------------------------ 3b. profile ---
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for key, cls in (("quantize8_ef", "quantize8_ef"), ("topk_ef", "topk_ef"),
+                     ("memcpy", "memcpy"), ("memset", "memset"),
+                     ("gemm", "matmul"), ("sort", "topk_select"),
+                     ("radix", "topk_select"), ("topk", "topk_select")):
+        if key in low:
+            return cls
+    return "other"
+
+
+def phase_profile(preset) -> dict:
+    """Where the device time goes on the path: torch.profiler (CUPTI) over
+    one more run of each lossy-codec spec, already warmed up.  Device busy
+    time is the union of kernel and copy intervals; the idle share is
+    measured against the profiled run's own wall time (profiling slows the
+    host, so it is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name in PATH_SPECS[:2]:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _res, _launches, _seen, wall = _drive(preset[name], "cuda")
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not spans:
+            out[name] = {"wall_s": wall, "device_busy_s": "not measured"}
+            print(f"  {name}: profiler saw no device events (not measured)")
+            continue
+        busy, cur_lo, cur_hi = 0.0, spans[0][0], spans[0][1]
+        by_class: dict[str, float] = {}
+        for lo, hi, kname in spans:
+            by_class[_kernel_class(kname)] = \
+                by_class.get(_kernel_class(kname), 0.0) + (hi - lo) / 1e6
+            if lo > cur_hi:
+                busy += (cur_hi - cur_lo) / 1e6
+                cur_lo, cur_hi = lo, hi
+            else:
+                cur_hi = max(cur_hi, hi)
+        busy += (cur_hi - cur_lo) / 1e6
+        out[name] = {"wall_s": wall, "device_busy_s": busy,
+                     "device_idle_share": 1.0 - busy / wall,
+                     "device_s_by_class": dict(sorted(
+                         by_class.items(), key=lambda kv: -kv[1]))}
+        print(f"  {name}: wall_s={wall:.4f} device_busy_s={busy:.6f} "
+              f"idle_share={1.0 - busy / wall:.4f} by_class="
+              + json.dumps({k: round(v, 6) for k, v in
+                            out[name]["device_s_by_class"].items()}))
+    return out
+
+
+# ----------------------------------------------------------- 3c. presets ---
+
+def phase_presets() -> int:
+    """Every trial of every ported preset (quick sizes) through
+    ``run_experiment`` on the card and on the CPU: the records must agree
+    on every metered field and on the losses to CARD_VS_CPU_RTOL.  This
+    reaches the paths the comm specs above do not: MA-SGD, ADMM, SSP/ASP,
+    the hybrid PS, spot kills, checkpoint cadences and traces."""
+    from repro_torch.experiments import PRESETS, run_experiment
+    n, worst = 0, 0.0
+    for preset in PRESETS.values():
+        for spec in preset.build(True):
+            card = run_experiment(spec, device="cuda").result
+            cpu = run_experiment(spec, device="cpu").result
+            for key, val in cpu.items():
+                if key not in ("history", "final_loss"):
+                    check(card[key] == val, f"{spec.name}: {key} differs "
+                                            f"on the card: {card[key]!r}")
+            check([t for t, _ in card["history"]]
+                  == [t for t, _ in cpu["history"]],
+                  f"{spec.name}: history timestamps differ on the card")
+            for (_, a), (_, b) in zip(card["history"], cpu["history"]):
+                check(abs(a - b) <= CARD_VS_CPU_RTOL * abs(b),
+                      f"{spec.name}: card loss {a!r} vs cpu {b!r}")
+                worst = max(worst, abs(a - b) / abs(b))
+            n += 1
+    print(f"  {n} preset trials: card records equal the CPU's (losses "
+          f"within {CARD_VS_CPU_RTOL:g}; largest gap {worst:.3e})")
+    return n
+
+
+# ----------------------------------------------------------------- main ----
+
+KERNELS = [
+    ("quantize8_ef", "src/repro_torch/csrc/quant8.cu",
+     "src/repro/kernels/quant8/kernel.py:79"),
+    ("topk_ef", "src/repro_torch/csrc/topk_ef.cu",
+     "src/repro/kernels/topk_ef/kernel.py:34"),
+    ("quantize8", "src/repro_torch/csrc/quant8.cu",
+     "src/repro/kernels/quant8/kernel.py:63"),
+    ("dequantize8", "src/repro_torch/csrc/quant8.cu",
+     "src/repro/kernels/quant8/kernel.py:100"),
+]
+PATH_KERNELS = ("quantize8_ef", "topk_ef")
+
+
+def main() -> int:
+    print("phase 1: device")
+    card = phase_device()
+    import torch
+    print("phase 2: kernels")
+    kern = phase_kernels()
+    print("phase 3: path")
+    launches, preset, cpu_losses = phase_path()
+    for name in PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} never launched on the path")
+    print("phase 3a: control")
+    phase_control(preset, cpu_losses)
+    print("phase 3b: profile")
+    print(json.dumps({"profile": phase_profile(preset)}))
+    print("phase 3c: presets")
+    phase_presets()
+    print("phase 4: summary")
+    summary = []
+    for name, source, replaces in KERNELS:
+        main_row = kern["rows"][name][MOBILENET_N]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches.get(name, 0),
+                 "max_abs_err": kern["errs"].get(name, 0.0),
+                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                 "bound_ms": main_row["bound_ms"],
+                 "bound_by": main_row["bound_by"],
+                 "library_ms": main_row["library_ms"],
+                 "n": MOBILENET_N, "held_against_plain": True,
+                 "resnet50": kern["rows"][name][RESNET50_N]}
+        if "topk_tau_ms" in main_row:
+            entry["topk_tau_ms"] = main_row["topk_tau_ms"]
+        summary.append(entry)
+        print(f"  {name:13s} held bitwise against its plain version; "
+              f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
+              f"plain_ms={entry['plain_ms']:.5f} "
+              f"launches_on_path={entry['launches']}")
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
