@@ -7,11 +7,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. device -- the card's name and power limit (nvidia-smi), and a build of
    the CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per source,
    started together);
-2. kernels -- each kernel against its plain PyTorch version on the card,
-   bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's update
-   vector) and 22,253,615 (the ResNet50 stand-in's); then CUDA-event times
-   (median of 20 back-to-back launches after warm-up) of the kernel, its
-   plain version and, for top-k, the ``torch.topk`` selection of tau;
+2. kernels -- each codec kernel against its plain PyTorch version on the
+   card, bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's
+   update vector) and 22,253,615 (the ResNet50 stand-in's); each attention
+   kernel against its plain version within ATTN_TOL (relative to the
+   largest output in bf16), over head_dim 20, 64, 80, 128, heads (h, m) =
+   (3, 3), (3, 1), (15, 5), causal and full, ragged lengths 47, 577, 2048
+   and length < S, and then at every shape phase 3d gives it; then
+   CUDA-event times (median of 20 back-to-back launches after warm-up) of
+   the kernel, its plain version and the one library call that computes
+   the same function, where there is one, at the main path's shapes, each
+   kernel output held against the plain version there too;
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -28,6 +34,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    specs: device busy seconds, idle share, device time by kernel class;
 3c. presets -- every trial of every ported preset (quick sizes) through
    ``run_experiment`` on the card and on the CPU, records compared;
+3d. serve -- full-width smollm-360m (fp32, random weights from a seeded
+   ``torch.Generator``) through ``Generator`` and ``perplexity`` on
+   ``device="cuda"``: (a) the launcher's defaults (2 requests of batch 4,
+   prompt 16, 32 new tokens at temperature 0.8), (b) batch 8, prompt 512,
+   64 new greedy tokens, (c) ``Model.prefill`` at batch 4, s 2048 against
+   the token-by-token decode loop.  Launch counters are zeroed before each
+   run and read after: decode launches must equal layers x decode steps,
+   flash launches layers x forwards.  The card's per-step logits (the same
+   decode steps replayed on a fresh cache with the card's tokens) and
+   perplexity must match the same model's on the CPU, teacher-forced with
+   those tokens, within SERVE_TOL; greedy tokens must be the card logits'
+   argmax, and the CPU's wherever its top-two margin exceeds twice
+   SERVE_TOL; then a profile of 16 decode steps;
 4. summary -- one JSON line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -52,6 +71,19 @@ SHAPES = (1000, 33 * 70, MOBILENET_N, RESNET50_N)
 PATH_SPECS = ("comm_s3_scatter_reduce_int8",
               "comm_s3_scatter_reduce_topk0.01",
               "comm_iaas_nic_ring_int8")
+#: kernel vs plain version on the card: tests/test_kernels.py's tolerances
+ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+            "decode_attention": {"float32": 2e-5, "bfloat16": 3e-2}}
+#: full smollm-360m (h 15 over m 5, head_dim 64): the path's attention shapes
+SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM = 15, 5, 64
+FLASH_PATH = dict(b=4, s=2048)          # Model.prefill in phase 3d (c)
+DECODE_PATH = dict(b=8, S=577)          # the last step of phase 3d (b)
+#: card vs CPU fp32 logits of full-width smollm-360m, relative to the
+#: largest |logit| (and perplexity, relative): the card's fp32 GEMMs and
+#: the attention kernels sum in other orders than the CPU over 32 layers
+#: (an H100 gave 1.3e-6 of the largest logit, and 9e-7 on perplexity); a
+#: wrong kernel or layout moves logits by O(1)
+SERVE_TOL = 1e-4
 #: card vs CPU loss tolerance: the card's fp32 matrix products sum in
 #: another order than the CPU's, and one ulp of gradient difference can
 #: move an int8 code by a step or swap a top-k survivor.  It lies between
@@ -89,7 +121,8 @@ def phase_device():
           f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build
     t0 = time.time()
-    libs = build.build(["quant8", "topk_ef"])
+    libs = build.build(["quant8", "topk_ef", "flash_attention",
+                        "decode_attention"])
     print(f"build: {time.time() - t0:.2f} s, "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     return card
@@ -217,6 +250,142 @@ def phase_kernels() -> dict:
         del x, out, ref, out2, ref2, out3, ref3, out4, ref4, lib4, q, s, tau
         torch.cuda.empty_cache()
     return {"rows": rows, "errs": errs}
+
+
+def _attn_inputs(gen, dtype, *shapes):
+    import torch
+    return [torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def phase_attention_kernels() -> dict:
+    """Flash attention and flash decoding against their plain versions on
+    the card (within ATTN_TOL), then timed at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain as decode_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    #: max |kernel - plain| by kernel and dtype, over the sweep ("sweep")
+    #: and over the serving path's own shapes ("path")
+    errs = {name: {"sweep": {}, "path": {}} for name in ATTN_TOL}
+    n = {"flash_attention": 0, "decode_attention": 0}
+
+    def hold(name, out, ref, dtype, what, group="sweep"):
+        """Fails unless the kernel's output is within ATTN_TOL of the plain
+        version's; in bf16 the tolerance is relative to the largest plain
+        output where that is below 1 (long full-attention rows average to
+        a few hundredths)."""
+        torch.cuda.synchronize()
+        ref = ref.float()
+        err = float((out.float() - ref).abs().max())
+        key = str(dtype).replace("torch.", "")
+        tol = ATTN_TOL[name][key]
+        if dtype == torch.bfloat16:
+            tol *= min(1.0, float(ref.abs().max()))
+        check(err <= tol, f"{name} {what} {key}: max |kernel - plain| "
+                          f"{err:.3e} > {tol:.3e}")
+        errs[name][group][key] = max(errs[name][group].get(key, 0.0), err)
+        n[name] += 1
+        return err
+
+    def hold_flash(b, sq, sk, h, m, d, causal, dtype, group="sweep"):
+        q, k, v = _attn_inputs(gen, dtype, (b, sq, h, d), (b, sk, m, d),
+                               (b, sk, m, d))
+        hold("flash_attention", flash_attention_kernel(q, k, v, causal=causal),
+             flash_attention_plain(q, k, v, causal=causal), dtype,
+             f"b{b} sq{sq} sk{sk} h{h} m{m} d{d} causal={causal}", group)
+
+    def hold_decode(b, S, lengths, h, m, d, dtype, group="sweep"):
+        q, k, v = _attn_inputs(gen, dtype, (b, h, d), (b, S, m, d),
+                               (b, S, m, d))
+        for length in lengths:
+            hold("decode_attention", decode_attention_kernel(q, k, v, length),
+                 decode_plain(q, k, v, length), dtype,
+                 f"b{b} S{S} length{length} h{h} m{m} d{d}", group)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (20, 64, 80, 128):
+            for h, m in ((3, 3), (3, 1), (SMOLLM_HEADS, SMOLLM_KV_HEADS)):
+                for s in (47, 577, 2048):
+                    b = 2 if s < 2048 else 1
+                    for causal in (True, False):
+                        hold_flash(b, s, s, h, m, d, causal, dtype)
+                    hold_flash(b, 47, s, h, m, d, False, dtype)
+                    hold_decode(3, s, (1, s // 2 + 3, s), h, m, d, dtype)
+        # the serving path's own shapes (full smollm-360m heads): perplexity
+        # of phase 3d (a) and (b), Model.prefill of (c); the caches of (a),
+        # (b) and (c) at their first, a middle and their last length
+        h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+        for b, s in ((4, 16 + 32 - 1), (8, 512 + 64 - 1),
+                     (FLASH_PATH["b"], FLASH_PATH["s"])):
+            hold_flash(b, s, s, h, m, d, True, dtype, "path")
+        for b, S, lengths in ((4, 16 + 32 + 1, (1, 16, 48)),
+                              (8, 512 + 64 + 1, (1, 512, 576, 577)),
+                              (FLASH_PATH["b"], FLASH_PATH["s"],
+                               (1, 1025, 2048))):
+            hold_decode(b, S, lengths, h, m, d, dtype, "path")
+    for name, by_group in errs.items():
+        print(f"  {name}: {n[name]} shapes within {ATTN_TOL[name]} of the "
+              f"plain version; max |err| " + "; ".join(
+                  f"{group} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                  for group, e in by_group.items()))
+    rows = {}
+
+    def record(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops):
+        out, ref, lib = kernel_fn(), plain_fn(), library_fn()
+        err = hold(name, out, ref, torch.float32, f"timed {shape}", "path")
+        lib_err = float((lib.float() - ref.float()).abs().max())
+        check(lib_err <= 1e-4, f"{name}: the library call is not the same "
+                               f"function (max |lib - plain| {lib_err:.3e})")
+        b_ms, by = bound_ms(nbytes, ops)
+        rows[name] = {"shape": shape, "ms": time_ms(kernel_fn),
+                      "plain_ms": time_ms(plain_fn), "bound_ms": b_ms,
+                      "bound_by": by, "library_ms": time_ms(library_fn),
+                      "library": "F.scaled_dot_product_attention(..., "
+                                 "enable_gqa=True)",
+                      "timed_max_abs_err": err,
+                      "max_abs_err": errs[name]["path"]["float32"],
+                      "max_abs_err_bf16": errs[name]["path"]["bfloat16"],
+                      "sweep_max_abs_err": errs[name]["sweep"],
+                      "library_max_abs_err": lib_err}
+        r = rows[name]
+        print(f"  {name:16s} {shape} ms={r['ms']:.5f} bound_ms={b_ms:.5f} "
+              f"({by}) plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={r['library_ms']:.5f}")
+
+    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
+    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
+                           (b, s, m, d))
+    record("flash_attention", f"b{b} s{s} h{h} m{m} d{d} causal fp32",
+           lambda: flash_attention_kernel(q, k, v, causal=True),
+           lambda: flash_attention_plain(q, k, v, causal=True),
+           lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=True, enable_gqa=True).transpose(1, 2),
+           4 * (2 * b * s * h * d + 2 * b * s * m * d),
+           4 * b * h * s * s * d / 2)
+    del q, k, v
+    b, S = DECODE_PATH["b"], DECODE_PATH["S"]
+    q, k, v = _attn_inputs(gen, torch.float32, (b, h, d), (b, S, m, d),
+                           (b, S, m, d))
+    record("decode_attention", f"b{b} S{S} length{S} h{h} m{m} d{d} fp32",
+           lambda: decode_attention_kernel(q, k, v, S),
+           lambda: decode_plain(q, k, v, S),
+           lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+               enable_gqa=True)[:, :, 0],
+           4 * (2 * b * S * m * d + 2 * b * h * d), 4 * b * h * S * d)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
 
 
 # -------------------------------------------------------------- 3. path ----
@@ -444,6 +613,263 @@ def phase_presets() -> int:
     return n
 
 
+# ------------------------------------------------------------- 3d. serve ---
+
+def _attn_launches() -> dict:
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    return {**fk.launches, **dk.launches}
+
+
+def _reset_attn_launches() -> None:
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    fk.reset_launches()
+    dk.reset_launches()
+
+
+def _card_step_logits(model, out, max_seq: int):
+    """The card's logits of every decode step of a run that gave the tokens
+    ``out`` (b, s): the same decode_step calls on a fresh cache, teacher-
+    forced with those tokens.  Step t's logits predict token t + 1."""
+    import torch
+    b, s = out.shape
+    toks = out.to(model.device)
+    steps = []
+    with torch.no_grad():
+        cache = model.init_cache(b, max_seq)
+        for pos in range(s - 1):
+            logits, cache = model.decode_step(cache, toks[:, pos], pos)
+            steps.append(logits)
+    return torch.stack(steps, dim=1).cpu()                      # (b, s-1, V)
+
+
+def _vs_cpu(cpu_model, out, card, what: str) -> dict:
+    """The card's per-step logits ``card`` against the same model on the
+    CPU, teacher-forced with the card's tokens ``out`` (b, s)."""
+    import torch
+    from repro_torch.serving import perplexity
+    with torch.no_grad():
+        cpu, _ = cpu_model.forward({"tokens": out[:, :-1]})
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    check(err <= SERVE_TOL * max(1.0, scale),
+          f"{what}: card vs CPU teacher-forced logits differ by {err:.3e}")
+    return {"logits_max_abs_err": err, "logits_max_abs": scale,
+            "cpu_ppl": perplexity(cpu_model, out), "cpu_logits": cpu}
+
+
+def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
+               seed, what: str) -> dict:
+    """One generate() + perplexity on the card, launches counted; then the
+    CPU comparison."""
+    import torch
+    from repro_torch.serving import perplexity
+    layers = model.cfg.num_layers
+    gen.decode_steps = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_attn_launches()
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, max_new_tokens=new_tokens,
+                       temperature=temperature, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ppl = perplexity(model, out)
+    launches = _attn_launches()
+    peak = torch.cuda.max_memory_allocated()
+    b, s = prompts.shape
+    check(gen.decode_steps == s + new_tokens,
+          f"{what}: {gen.decode_steps} decode steps, want {s + new_tokens}")
+    check(launches["decode_attention"] == layers * gen.decode_steps,
+          f"{what}: decode launches {launches}, want {layers} x "
+          f"{gen.decode_steps}")
+    check(launches["flash_attention"] == layers,
+          f"{what}: flash launches {launches}, want {layers} (one forward)")
+    check(out.shape == (b, s + new_tokens)
+          and bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+          f"{what}: tokens out of range or of shape {out.shape}")
+    out_t = torch.from_numpy(out).long()
+    card = _card_step_logits(model, out_t, gen.max_seq)
+    cmp = _vs_cpu(cpu_model, out_t, card, what)
+    cpu = cmp.pop("cpu_logits")
+    rel = abs(ppl - cmp["cpu_ppl"]) / cmp["cpu_ppl"]
+    check(rel <= SERVE_TOL, f"{what}: ppl {ppl!r} on the card vs "
+                            f"{cmp['cpu_ppl']!r} on the CPU")
+    row = {"batch": b, "prompt": s, "new_tokens": new_tokens,
+           "temperature": temperature, "wall_s": wall,
+           "tok_per_s": b * new_tokens / wall,
+           "ms_per_decode_step": wall / gen.decode_steps * 1e3,
+           "peak_mem_bytes": peak, "ppl": ppl, "ppl_rel_vs_cpu": rel,
+           "launches": launches, **cmp}
+    if temperature == 0:                 # greedy: tokens where margins allow
+        top2 = cpu[:, s - 1:].topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        want = cpu[:, s - 1:].argmax(-1)
+        got = torch.from_numpy(out[:, s:]).long()
+        sure = margin > 2 * SERVE_TOL * max(1.0, row["logits_max_abs"])
+        check(bool((got[sure] == want[sure]).all()),
+              f"{what}: greedy tokens differ from the CPU's where the "
+              f"top-two margin exceeds 2 x SERVE_TOL")
+        check(bool((card[:, s - 1:].argmax(-1) == got).all()),
+              f"{what}: generated tokens are not the card logits' argmax")
+        row["tokens_checked"] = int(sure.sum())
+        row["tokens_total"] = int(sure.numel())
+    print(f"  {what}: {b}x{new_tokens} tokens in {wall:.3f} s "
+          f"({row['tok_per_s']:.1f} tok/s, {row['ms_per_decode_step']:.3f} "
+          f"ms/decode step, peak {peak / 2**30:.3f} GiB) ppl={ppl:.4f} "
+          f"(cpu {cmp['cpu_ppl']:.4f}) logits vs cpu "
+          f"{cmp['logits_max_abs_err']:.3e} launches={launches}"
+          + (f" tokens checked {row['tokens_checked']}/{row['tokens_total']}"
+             if "tokens_checked" in row else ""))
+    return row
+
+
+def _decode_class(name: str) -> str:
+    low = name.lower()
+    for key, cls in (("decode_attention", "decode_attention"),
+                     ("flash_attention", "flash_attention"),
+                     ("memcpy", "memcpy"), ("memset", "memset"),
+                     ("gemm", "gemm"), ("gemv", "gemm"), ("cutlass", "gemm"),
+                     ("xmma", "gemm"), ("reduce", "reduce"),
+                     ("elementwise", "elementwise"), ("index", "index")):
+        if key in low:
+            return cls
+    return "other"
+
+
+def _profile_decode(model, prompt, steps: int = 16) -> dict:
+    """torch.profiler over ``steps`` decode steps after a prefill of
+    ``prompt``: device time by kernel class and the device idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    b, s = prompt.shape
+    with torch.no_grad():
+        logits, cache = model.prefill({"tokens": prompt}, max_seq=s + steps)
+        tok = logits.argmax(-1)
+        for pos in range(s, s + 2):                          # warm-up
+            logits, cache = model.decode_step(cache, tok, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pos in range(s + 2, s + steps):
+                logits, cache = model.decode_step(cache, logits.argmax(-1),
+                                                  pos)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = steps - 2
+    if not spans:
+        return {"steps": n, "wall_s": wall, "device_busy_s": "not measured"}
+    busy, lo_, hi_ = 0.0, spans[0][0], spans[0][1]
+    by_class: dict[str, float] = {}
+    for lo, hi, name in spans:
+        cls = _decode_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + (hi - lo) / 1e6
+        if lo > hi_:
+            busy += (hi_ - lo_) / 1e6
+            lo_, hi_ = lo, hi
+        else:
+            hi_ = max(hi_, hi)
+    busy += (hi_ - lo_) / 1e6
+    return {"batch": b, "pos": [s + 2, s + steps - 1], "steps": n,
+            "wall_s": wall, "ms_per_step": wall / n * 1e3,
+            "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+            "kernels_per_step": len(spans) / n,
+            "device_s_by_class": dict(sorted(by_class.items(),
+                                             key=lambda kv: -kv[1]))}
+
+
+def phase_serve() -> dict:
+    """Full-width smollm-360m served on the card (see the module docstring,
+    3d); returns the runs' numbers and the launch totals."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import Generator
+    arch = get_arch("smollm-360m")
+    arch = arch.replace(model=arch.model.replace(dtype="float32"))
+    cfg = arch.model
+    t0 = time.perf_counter()
+    model = build_model(arch, device="cuda", seed=0)
+    cpu_model = Model(cfg, tree_map(lambda t: t.detach().cpu(), model.params))
+    torch.cuda.synchronize()
+    print(f"  smollm-360m: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.kv_heads} heads x {cfg.hdim}, vocab "
+          f"{cfg.vocab_size}, {model.param_count():,} parameters (fp32); "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    rows, totals = {}, {"flash_attention": 0, "decode_attention": 0}
+    rng = np.random.default_rng(0)
+    gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
+    for r in range(2):                   # (a) the launcher's defaults
+        prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        rows[f"a{r}"] = _serve_run(gen, model, cpu_model, prompts, 32, 0.8,
+                                   r, f"(a) request {r}")
+    gen = Generator(arch, model, max_seq=512 + 64 + 1, device="cuda")
+    prompts = rng.integers(0, cfg.vocab_size, (8, 512)).astype(np.int32)
+    rows["b"] = _serve_run(gen, model, cpu_model, prompts, 64, 0.0, 0,
+                           "(b) batch 8, prompt 512")
+    for row in rows.values():
+        for k, v in row["launches"].items():
+            totals[k] += v
+
+    # (c) prefill at batch 4, s 2048 vs the token-by-token decode loop
+    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_attn_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        pl, pc = model.prefill({"tokens": toks}, max_seq=s)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        cache = model.init_cache(b, s)
+        t0 = time.perf_counter()
+        for pos in range(s):
+            dl, cache = model.decode_step(cache, toks[:, pos], pos)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    launches = _attn_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"flash_attention": cfg.num_layers,
+                       "decode_attention": cfg.num_layers * s},
+          f"(c): launches {launches}, want {cfg.num_layers} flash (one "
+          f"forward) and {cfg.num_layers} x {s} decode")
+    errs = {"last_logits": float((pl - dl).abs().max()),
+            "cache_k": float((pc["k"] - cache["k"]).abs().max()),
+            "cache_v": float((pc["v"] - cache["v"]).abs().max())}
+    scale = float(dl.abs().max())
+    for what, err in errs.items():
+        check(err <= SERVE_TOL * max(1.0, scale),
+              f"(c): prefill {what} vs the decode loop differ by {err:.3e}")
+    for k, v in launches.items():
+        totals[k] += v
+    rows["c"] = {"batch": b, "prompt": s, "prefill_s": t_prefill,
+                 "prefill_tok_per_s": b * s / t_prefill,
+                 "decode_loop_s": t_decode,
+                 "ms_per_decode_step": t_decode / s * 1e3,
+                 "peak_mem_bytes": peak, "max_abs_err": errs,
+                 "logits_max_abs": scale, "launches": launches}
+    print(f"  (c) prefill b{b} s{s}: {t_prefill:.3f} s "
+          f"({b * s / t_prefill:.0f} tok/s); decode loop {t_decode:.3f} s "
+          f"({t_decode / s * 1e3:.3f} ms/step); peak {peak / 2**30:.3f} GiB; "
+          f"prefill vs decode loop: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; launches={launches}")
+    del pc, cache, pl, dl
+    torch.cuda.empty_cache()
+    prof = _profile_decode(model, torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (8, 512))).cuda())
+    print("  decode-step profile: " + json.dumps(prof))
+    return {"runs": rows, "launches": totals, "decode_profile": prof}
+
+
 # ----------------------------------------------------------------- main ----
 
 KERNELS = [
@@ -456,6 +882,12 @@ KERNELS = [
     ("dequantize8", "src/repro_torch/csrc/quant8.cu",
      "src/repro/kernels/quant8/kernel.py:100"),
 ]
+ATTN_KERNELS = [
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:70"),
+    ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:60"),
+]
 PATH_KERNELS = ("quantize8_ef", "topk_ef")
 
 
@@ -465,6 +897,7 @@ def main() -> int:
     import torch
     print("phase 2: kernels")
     kern = phase_kernels()
+    attn = phase_attention_kernels()
     print("phase 3: path")
     launches, preset, cpu_losses = phase_path()
     for name in PATH_KERNELS:
@@ -475,6 +908,12 @@ def main() -> int:
     print(json.dumps({"profile": phase_profile(preset)}))
     print("phase 3c: presets")
     phase_presets()
+    print("phase 3d: serve")
+    serve = phase_serve()
+    for name, _source, _replaces in ATTN_KERNELS:
+        check(serve["launches"][name] > 0,
+              f"{name} never launched on the serving path")
+    print(json.dumps({"serve": serve}))
     print("phase 4: summary")
     summary = []
     for name, source, replaces in KERNELS:
@@ -494,6 +933,21 @@ def main() -> int:
         print(f"  {name:13s} held bitwise against its plain version; "
               f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
               f"plain_ms={entry['plain_ms']:.5f} "
+              f"launches_on_path={entry['launches']}")
+    for name, source, replaces in ATTN_KERNELS:
+        row = attn[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": serve["launches"][name],
+                 **{k: row[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "shape", "library", "max_abs_err_bf16",
+                     "timed_max_abs_err", "sweep_max_abs_err")},
+                 "held_against_plain": True}
+        summary.append(entry)
+        print(f"  {name:16s} held within {ATTN_TOL[name]} of its plain "
+              f"version; ms={entry['ms']:.5f} bound_ms="
+              f"{entry['bound_ms']:.5f} plain_ms={entry['plain_ms']:.5f} "
+              f"library_ms={entry['library_ms']:.5f} "
               f"launches_on_path={entry['launches']}")
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -7,14 +7,15 @@ surface -- ``init``/``grad``/``eval_loss`` plus the ``convex`` and
 builds ``(workload, ds_train, ds_val)`` for a study name and gives the two
 analytic sizes the §5.3 cost model and spec-time validation need.
 
-The architecture workloads (``smollm_360m``, ``mamba2_370m``, ... -- the
-model zoo) are ROADMAP.md queue A6: their names raise
+Training the architecture workloads (``smollm_360m``, ``mamba2_370m``, ...
+-- the model zoo) is ROADMAP.md queue A6: their names raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import ARCH_IDS, spec_name
 from repro_torch.core.mlmodels import STUDY_MODELS, _mlp_sizes, make_study_model
 from repro_torch.data.synthetic import make_dataset, train_val_split
 
@@ -22,12 +23,9 @@ from repro_torch.data.synthetic import make_dataset, train_val_split
 #: paper's feature datasets
 TOKEN_DATASET = "tokens"
 
-#: the JAX package's architecture ids (its ``configs.ARCH_IDS``), as
-#: spec-friendly model names
-ARCH_NAMES = tuple(a.replace("-", "_").replace(".", "_") for a in (
-    "grok-1-314b", "deepseek-v2-lite-16b", "hubert-xlarge", "phi3-medium-14b",
-    "llama3-405b", "stablelm-3b", "smollm-360m", "zamba2-2.7b", "mamba2-370m",
-    "llama-3.2-vision-90b"))
+#: the architecture ids of the port's config registry, as spec-friendly
+#: model names
+ARCH_NAMES = tuple(spec_name(a) for a in ARCH_IDS)
 
 
 def is_arch_workload(name: str) -> bool:
@@ -38,8 +36,8 @@ def check_study_workload(name: str) -> None:
     if is_arch_workload(name):
         raise NotImplementedError(
             f"model {name!r} is an architecture workload; the PyTorch port "
-            f"runs the study models {', '.join(STUDY_MODELS)} only -- the "
-            f"model zoo is ROADMAP.md queue A6")
+            f"trains the study models {', '.join(STUDY_MODELS)} only -- "
+            f"training the model zoo is ROADMAP.md queue A6")
 
 
 def update_vector_bytes(workload, params=None) -> int:

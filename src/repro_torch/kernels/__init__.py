@@ -9,9 +9,15 @@ Each kernel subpackage has three layers, mirroring the JAX package:
                CUDA kernel or, for a CPU tensor, the plain version
   ref.py    -- the plain PyTorch version of the same function
 
-Kernels (both on the simulator's training path, in the wire codecs):
-  quant8   -- blockwise int8 quantize / dequantize / fused error feedback
-  topk_ef  -- top-k magnitude threshold with residual carry
+Kernels on the simulator's training path, in the wire codecs:
+  quant8           -- blockwise int8 quantize / dequantize / fused error
+                      feedback
+  topk_ef          -- top-k magnitude threshold with residual carry
+Kernels on the model zoo's serving path (``models/attention.py``):
+  flash_attention  -- causal or full GQA attention forward with an online
+                      softmax (the forward and ``Model.prefill``)
+  decode_attention -- flash decoding of one query step per GQA group
+                      against the KV cache (every ``decode_step``)
 
 The CUDA sources are compiled with nvcc at first use (:mod:`.build`);
 importing this package needs neither a card nor a compiler.

@@ -1,0 +1,195 @@
+"""The port's flash-attention and flash-decoding plain versions and their
+``ops`` plumbing (GQA folding, layouts, ragged lengths) against the JAX
+package: its ``attention_ref``/``decode_attention_ref`` oracles and its
+Pallas kernels in interpret mode (as tests/test_kernels.py runs them), on
+the CPU.
+
+Tolerances are those of tests/test_kernels.py: 2e-5 for float32; 2e-2
+(flash) and 3e-2 (decode) for bfloat16.  The CUDA kernels are held against
+these plain versions on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import ops as jdec_ops
+from repro.kernels.decode_attention.ref import decode_attention_ref as jdec_ref
+from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.flash_attention.ref import attention_ref as jfa_ref
+from repro_torch.kernels.decode_attention import kernel as dec_kernel
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+TOL = {"float32": 2e-5, "bfloat16": {"flash": 2e-2, "decode": 3e-2}}
+
+
+def _tol(dtype: str, kind: str) -> float:
+    t = TOL[dtype]
+    return t[kind] if isinstance(t, dict) else t
+
+
+def _arrays(shapes, dtype: str, seed: int):
+    """Seeded numpy inputs, rounded to ``dtype`` once, as (jax, torch)
+    pairs holding the same values."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        x = jnp.asarray(rng.standard_normal(shape).astype(np.float32), dtype)
+        out.append((x, torch.from_numpy(np.array(x, np.float32))
+                    .to(getattr(torch, dtype))))
+    return out
+
+
+def _close(port: torch.Tensor, ref, tol: float) -> None:
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol, rtol=tol)
+
+
+def _jax_flash_ref(q, k, v, causal):
+    """The JAX package's oracle behind its wrapper's GQA plumbing
+    (tests/test_kernels.py::test_flash_attention)."""
+    b, sq, h, d = q.shape
+    sk, m = k.shape[1], k.shape[2]
+    g = h // m
+    qf = q.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+    kf = jnp.repeat(k.transpose(0, 2, 1, 3), g, 1).reshape(b * h, sk, d)
+    vf = jnp.repeat(v.transpose(0, 2, 1, 3), g, 1).reshape(b * h, sk, d)
+    o = jfa_ref(qf, kf, vf, causal=causal, sm_scale=d ** -0.5)
+    return o.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+
+
+def _jax_decode_ref(q, k, v, length):
+    b, h, d = q.shape
+    S, m = k.shape[1], k.shape[2]
+    qf = q.reshape(b, m, h // m, d).reshape(b * m, h // m, d)
+    kf = k.transpose(0, 2, 1, 3).reshape(b * m, S, d)
+    vf = v.transpose(0, 2, 1, 3).reshape(b * m, S, d)
+    o = jdec_ref(qf, kf, vf, length, sm_scale=d ** -0.5)
+    return o.reshape(b, h, d)
+
+
+# ------------------------------------------------------------ flash ----------
+
+# (b, sq, sk, h, m, d, causal, dtype): g = h/m in {1, 3, 4}, d in {16, 20};
+# lengths divisible by the Pallas blocks (64) so its kernel runs too
+FLASH = [
+    (2, 128, 128, 3, 1, 20, True, "float32"),
+    (1, 128, 128, 4, 1, 16, False, "float32"),
+    (2, 64, 64, 4, 4, 16, True, "float32"),
+    (1, 64, 128, 3, 1, 20, False, "float32"),
+    (1, 128, 128, 4, 1, 16, True, "bfloat16"),
+]
+# ragged lengths the Pallas kernel cannot take (it asserts divisibility)
+FLASH_RAGGED = [
+    (2, 47, 47, 3, 1, 20, True, "float32"),
+    (1, 77, 100, 4, 4, 16, False, "float32"),
+    (1, 33, 65, 4, 1, 16, True, "float32"),
+    (1, 33, 33, 4, 1, 16, True, "bfloat16"),
+]
+
+
+def _flash_inputs(case, seed=0):
+    b, sq, sk, h, m, d, causal, dtype = case
+    return _arrays([(b, sq, h, d), (b, sk, m, d), (b, sk, m, d)], dtype,
+                   seed), causal, dtype
+
+
+@pytest.mark.parametrize("case", FLASH + FLASH_RAGGED, ids=str)
+def test_flash_plain_matches_jax_oracle(case):
+    ((jq, q), (jk, k), (jv, v)), causal, dtype = _flash_inputs(case)
+    o = flash_attention(q, k, v, causal=causal)
+    assert o.shape == q.shape and o.dtype == q.dtype
+    _close(o, _jax_flash_ref(jq, jk, jv, causal), _tol(dtype, "flash"))
+
+
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_plain_matches_jax_pallas_interpret(case):
+    ((jq, q), (jk, k), (jv, v)), causal, dtype = _flash_inputs(case, seed=1)
+    want = jfa_ops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                   block_k=64, interpret=True)
+    _close(flash_attention(q, k, v, causal=causal), want,
+           _tol(dtype, "flash"))
+
+
+def test_flash_gqa_reads_kv_head_i_over_g():
+    """Query head i attends with kv head i // g: shifting kv head 1 of 2
+    changes exactly the g = 3 query heads of its group (heads 3-5)."""
+    ((_, q), (_, k), (_, v)), _, _ = _flash_inputs(
+        (1, 16, 16, 6, 2, 16, True, "float32"))
+    base = flash_attention(q, k, v, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 1] += 1.0
+    v2[:, :, 1] += 1.0
+    moved = (flash_attention(q, k2, v2, causal=True) - base).abs().amax(
+        dim=(0, 1, 3))
+    assert (moved[:3] == 0).all() and (moved[3:] > 0).all()
+
+
+# ------------------------------------------------------------ decode ---------
+
+# (b, h, m, d, S, length, dtype); S divisible by the Pallas block (64)
+DECODE = [
+    (2, 3, 1, 20, 256, 200, "float32"),
+    (1, 4, 1, 16, 128, 128, "float32"),
+    (3, 4, 4, 16, 128, 37, "float32"),
+    (2, 6, 2, 20, 192, 1, "float32"),
+    (2, 4, 1, 16, 256, 100, "bfloat16"),
+]
+DECODE_RAGGED = [
+    (2, 3, 1, 20, 47, 47, "float32"),
+    (1, 4, 4, 16, 577, 300, "float32"),
+    (2, 4, 1, 16, 33, 20, "bfloat16"),
+]
+
+
+def _decode_inputs(case, seed=0):
+    b, h, m, d, S, length, dtype = case
+    return _arrays([(b, h, d), (b, S, m, d), (b, S, m, d)], dtype,
+                   seed), length, dtype
+
+
+@pytest.mark.parametrize("case", DECODE + DECODE_RAGGED, ids=str)
+def test_decode_plain_matches_jax_oracle(case):
+    ((jq, q), (jk, k), (jv, v)), length, dtype = _decode_inputs(case)
+    o = decode_attention(q, k, v, length)
+    assert o.shape == q.shape and o.dtype == q.dtype
+    _close(o, _jax_decode_ref(jq, jk, jv, length), _tol(dtype, "decode"))
+
+
+@pytest.mark.parametrize("case", DECODE, ids=str)
+def test_decode_plain_matches_jax_pallas_interpret(case):
+    ((jq, q), (jk, k), (jv, v)), length, dtype = _decode_inputs(case, seed=1)
+    want = jdec_ops.decode_attention(jq, jk, jv, length, block_k=64,
+                                     interpret=True)
+    _close(decode_attention(q, k, v, length), want, _tol(dtype, "decode"))
+
+
+def test_decode_ignores_cache_past_length():
+    """Positions >= length do not move the output, whatever they hold."""
+    ((_, q), (_, k), (_, v)), length, _ = _decode_inputs(
+        (2, 6, 2, 16, 64, 40, "float32"))
+    base = decode_attention(q, k, v, length)
+    k[:, length:] = 1e4
+    v[:, length:] = float("nan")
+    torch.testing.assert_close(decode_attention(q, k, v, length), base,
+                               rtol=0, atol=0)
+
+
+# ------------------------------------------------------- the kernel route ----
+
+@pytest.mark.parametrize("call", [
+    lambda q, k: fa_kernel.flash_attention_kernel(q, k, k, causal=True),
+    lambda q, k: dec_kernel.decode_attention_kernel(q[:, 0], k, k, 4),
+], ids=["flash_attention", "decode_attention"])
+def test_kernel_wrappers_take_cuda_tensors_only(call):
+    """The wrappers launch on the card or raise: a CPU tensor never reaches
+    them by accident, and no launch is counted."""
+    q, k = torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 1, 16)
+    before = {**fa_kernel.launches, **dec_kernel.launches}
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q, k)
+    flash_attention(q, k, k, causal=True)
+    decode_attention(q[:, 0], k, k, 4)
+    assert {**fa_kernel.launches, **dec_kernel.launches} == before

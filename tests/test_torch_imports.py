@@ -30,6 +30,11 @@ for name in names:
 from repro_torch.experiments import ExperimentSpec, run_experiment
 rec = run_experiment(ExperimentSpec(rows=400, max_epochs=1), device="cpu")
 assert rec.result["rounds"] > 0 and not rec.result["error"], rec.result
+from repro_torch.configs import get_reduced
+from repro_torch.models import build_model
+model = build_model(get_reduced("smollm-360m"), device="cpu")
+logits, cache = model.decode_step(model.init_cache(2, 4), [3, 5], 0)
+assert logits.shape == (2, 256) and bool(logits.isfinite().all())
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names))
@@ -59,7 +64,16 @@ def test_every_module_is_listed():
                                                    "repro_torch.")}
     for sub in ("core.comm.codecs", "core.ckpt.store", "core.trace.record",
                 "kernels.quant8.kernel", "kernels.topk_ef.kernel",
-                "data.synthetic", "experiments.runner"):
+                "data.synthetic", "experiments.runner",
+                "configs", "configs.base", "configs.smollm_360m",
+                "models", "models.common", "models.attention",
+                "models.transformer",
+                "kernels.flash_attention.kernel",
+                "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+                "kernels.decode_attention.kernel",
+                "kernels.decode_attention.ops",
+                "kernels.decode_attention.ref",
+                "serving", "serving.latency", "launch.serve"):
         assert f"repro_torch.{sub}" in names
 
 
@@ -81,8 +95,28 @@ def _cli():
     main(["run", "fig10_breakdown", "--no-cache", "--set", "rows=400"])
 
 
-@pytest.mark.parametrize("entry", [_run_experiment, _train, _cli],
-                         ids=["run_experiment", "train", "cli"])
+def _build_model():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    build_model(get_reduced("smollm-360m"))
+
+
+def _generator():
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import Generator
+    Generator(get_reduced("smollm-360m"), max_seq=8)
+
+
+def _serve():
+    from repro_torch.launch.serve import main
+    main(["--reduced", "--requests", "1", "--new-tokens", "2"])
+
+
+@pytest.mark.parametrize(
+    "entry", [_run_experiment, _train, _cli, _build_model, _generator,
+              _serve],
+    ids=["run_experiment", "train", "cli", "build_model", "generator",
+         "serve"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     """No silent CPU fallback: without CUDA and without device='cpu',
     every entry point raises and says how to ask for the CPU."""
