@@ -17,7 +17,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    CUDA-event times (median of 20 back-to-back launches after warm-up) of
    the kernel, its plain version and the one library call that computes
    the same function, where there is one, at the main path's shapes, each
-   kernel output held against the plain version there too;
+   kernel output held against the plain version there too; the SSD scan
+   kernel against the exact recurrence and the chunked plain version
+   within SSD_TOL over tests/test_kernels.py's shapes and the zoo's heads
+   (mamba2-370m: h 32, p 64, n 128; zamba2-2.7b: h 80, p 64, n 64) at
+   every (b, s) phase 3e gives it (b 4 s 47, b 8 s 512, b 2 s 575) and at
+   b 2 s 2048, with and without an initial state, its continuation
+   property and bf16 inputs (where the chunked version's own fp32 rounding
+   misses SSD_TOL, the kernel must be within it of the float64 recurrence
+   and nearer to it: a reference caveat), then against the float64
+   recurrence at s = 512 and 575, and timed at perplexity's shape of 3e
+   (b) (no PyTorch call computes the SSD: no library time);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -47,6 +57,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    those tokens, within SERVE_TOL; greedy tokens must be the card logits'
    argmax, and the CPU's wherever its top-two margin exceeds twice
    SERVE_TOL; then a profile of 16 decode steps;
+3e. serve -- full-width mamba2-370m and zamba2-2.7b (fp32, seeded random
+   weights): mamba2 (a) the launcher's defaults, (b) batch 8, prompt 449,
+   64 greedy tokens (perplexity's forward over 512 positions, two of the
+   model's 256-position chunks), then a teacher-forced forward at batch 2
+   over 575 positions (one chunk of 575 on the CPU) and a profile of 16
+   decode steps; zamba2 (a) one request.  Each run as in 3d, and the
+   card's forward logits held against its own replayed decode steps too;
+   launches exact: SSD = Mamba2 layers x forwards (none in a decode step),
+   flash = shared-block uses x forwards, decode = uses x steps;
 4. summary -- one JSON line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -84,6 +103,19 @@ DECODE_PATH = dict(b=8, S=577)          # the last step of phase 3d (b)
 #: (an H100 gave 1.3e-6 of the largest logit, and 9e-7 on perplexity); a
 #: wrong kernel or layout moves logits by O(1)
 SERVE_TOL = 1e-4
+#: SSD kernel vs its plain versions on the card: tests/test_kernels.py's
+#: 1e-3 (atol = rtol); the kernel sums in 64-position chunks, the chunked
+#: plain version in the model's (256, or one chunk of s where 256 does not
+#: divide s), the recurrence position by position
+SSD_TOL = 1e-3
+SSD_MODEL_CHUNK = 256                   # cfg.ssm_chunk of both models
+#: (heads, head_dim, state) of full mamba2-370m and zamba2-2.7b
+MAMBA2_SSD, ZAMBA2_SSD = (32, 64, 128), (80, 64, 64)
+SSD_PATH = dict(b=8, s=512)             # perplexity's forward in 3e (b)
+#: every (b, s) that phase 3e gives the SSD kernel: the (a) runs' forwards
+#: over 16 + 32 - 1 positions, mamba2 (b)'s over 449 + 64 - 1, and the
+#: ragged forward's
+SSD_PATH_SHAPES = ((4, 16 + 32 - 1), (SSD_PATH["b"], SSD_PATH["s"]), (2, 575))
 #: card vs CPU loss tolerance: the card's fp32 matrix products sum in
 #: another order than the CPU's, and one ulp of gradient difference can
 #: move an int8 code by a step or swap a top-k survivor.  It lies between
@@ -122,7 +154,7 @@ def phase_device():
     from repro_torch.kernels import build
     t0 = time.time()
     libs = build.build(["quant8", "topk_ef", "flash_attention",
-                        "decode_attention"])
+                        "decode_attention", "ssd_scan"])
     print(f"build: {time.time() - t0:.2f} s, "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     return card
@@ -388,6 +420,197 @@ def phase_attention_kernels() -> dict:
     return rows
 
 
+def _ssd_inputs(gen, b, s, h, p, n, dtype, model_like: bool):
+    """x, dt, a_log, B, C on the card.  ``model_like``: the Mamba2 block's
+    ranges at init (a_log = 1, so A = -e; dt a softplus of a normal);
+    otherwise tests/test_kernels.py's (|0.2 N|, a_log 0.3 N)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, B, C = rnd(b, s, h, p), rnd(b, s, n), rnd(b, s, n)
+    if model_like:
+        dt, a_log = F.softplus(rnd(b, s, h)), torch.ones(h, device="cuda")
+    else:
+        dt, a_log = (rnd(b, s, h) * 0.2).abs(), rnd(h) * 0.3
+    return x.to(dtype), dt, a_log, B.to(dtype), C.to(dtype)
+
+
+def phase_ssd_kernel() -> dict:
+    """The SSD scan kernel against the exact recurrence (``ref.py`` behind
+    the JAX wrapper's plumbing) and the chunked plain version on the card,
+    within SSD_TOL, over a sweep that includes every (b, s) of phase 3e
+    (SSD_PATH_SHAPES) for both models' heads; the continuation property
+    of ``init_state``; then timed at the main path's shape.  The largest
+    |kernel - recurrence| over the path's shapes is the kernels line's
+    ``max_abs_err``.
+
+    Where the chunked plain version itself misses SSD_TOL -- its one-chunk
+    fallback at a long ragged length sums exp(cum_i - cum_j) from cumsums
+    near -1000, where one fp32 ulp is ~1e-4 -- the kernel must instead be
+    within SSD_TOL of the float64 recurrence and nearer to it than the
+    chunked version is; such readings are reported as reference caveats."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import (
+        decay_rates, ssd_scan_recurrence)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = {"recurrence": 0.0, "chunked": 0.0, "init_state": 0.0,
+            "continuation": 0.0, "bfloat16": 0.0, "float64": 0.0}
+    #: max |kernel - plain| over the shapes phase 3e gives the kernel
+    path_errs = {"recurrence": 0.0, "chunked": 0.0, "float64": 0.0}
+    caveats = {}
+    n_checks = 0
+
+    def misses(out, ref):
+        return any(bool(((o.double() - r.double()).abs()
+                         > SSD_TOL * (1.0 + r.double().abs())).any())
+                   for o, r in zip(out, ref))
+
+    def gap(out, ref):
+        return max(float((o.double() - r.double()).abs().max())
+                   for o, r in zip(out, ref))
+
+    def hold(what, out, ref, group):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            check(bool(o.isfinite().all()), f"ssd_scan {what}: not finite")
+            gap = (o - r.float()).abs()
+            bad = gap > SSD_TOL * (1.0 + r.float().abs())
+            check(not bool(bad.any()), f"ssd_scan {what} vs {group}: max "
+                                       f"|kernel - plain| {float(gap.max()):.3e}")
+            errs[group] = max(errs[group], float(gap.max()))
+        n_checks += 1
+
+    def hold_chunked(what, out, x, dt, a_log, B, C):
+        """Returns the group the reading went to and the reading."""
+        nonlocal n_checks
+        plain = ssd_scan_chunked(x, dt, a_log, B, C, SSD_MODEL_CHUNK)
+        torch.cuda.synchronize()
+        if not misses(out, plain):
+            err = gap(out, plain)
+            errs["chunked"] = max(errs["chunked"], err)
+            n_checks += 1
+            return "chunked", err
+        exact = ssd_scan_recurrence(x.double(), dt.double(), a_log.double(),
+                                    B.double(), C.double())
+        kernel_err, plain_err = gap(out, exact), gap(plain, exact)
+        caveats[what] = {"kernel_vs_chunked": gap(out, plain),
+                         "kernel_vs_float64": kernel_err,
+                         "chunked_vs_float64": plain_err}
+        print(f"  ssd_scan {what}: the chunked plain version misses "
+              f"{SSD_TOL} -- reference caveat " + json.dumps(caveats[what]))
+        check(not misses(out, exact) and kernel_err < plain_err,
+              f"ssd_scan {what}: the kernel is not nearer the float64 "
+              f"recurrence than the chunked plain version")
+        errs["float64"] = max(errs["float64"], kernel_err)
+        n_checks += 1
+        return "float64", kernel_err
+
+    def hold_path(out, rec, chunked):
+        path_errs["recurrence"] = max(path_errs["recurrence"], gap(out, rec))
+        group, err = chunked
+        path_errs[group] = max(path_errs[group], err)
+
+    def sweep(b, s, h, p, n, model_like, path=False):
+        what = f"b{b} s{s} h{h} p{p} n{n}"
+        x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, torch.float32,
+                                         model_like)
+        A = decay_rates(a_log)
+        out = ssd_scan_kernel(x, dt, A, B, C)
+        rec = ssd_scan_recurrence(x, dt, a_log, B, C)
+        hold(what, out, rec, "recurrence")
+        chunked = hold_chunked(what, out, x, dt, a_log, B, C)
+        if path:
+            hold_path(out, rec, chunked)
+        del rec
+        init = torch.randn(b, h, p, n, generator=gen, device="cuda")
+        hold(what + " init_state",
+             ssd_scan_kernel(x, dt, A, B, C, init),
+             ssd_scan_recurrence(x, dt, a_log, B, C, init), "init_state")
+        m = s // 2 + 3                # a split off the kernel's 64-chunks
+        y1, st1 = ssd_scan_kernel(x[:, :m], dt[:, :m], A, B[:, :m], C[:, :m])
+        y2, st2 = ssd_scan_kernel(x[:, m:], dt[:, m:], A, B[:, m:], C[:, m:],
+                                  st1)
+        hold(what + " continuation", (torch.cat([y1, y2], 1), st2), out,
+             "continuation")
+        xb, Bb, Cb = x.bfloat16(), B.bfloat16(), C.bfloat16()
+        hold(what + " bf16", ssd_scan_kernel(xb, dt, A, Bb, Cb),
+             ssd_scan_recurrence(xb.float(), dt, a_log, Bb.float(),
+                                 Cb.float()), "bfloat16")
+
+    # tests/test_kernels.py's four (bh, s, p, n) shapes, bh split as b x h
+    for b, s, h, p, n in ((2, 256, 2, 64, 32), (2, 128, 1, 32, 16),
+                          (3, 96, 1, 16, 8), (1, 64, 1, 128, 64)):
+        sweep(b, s, h, p, n, False)
+    # the zoo's heads at every (b, s) of the serving path, and longer
+    for h, p, n in (MAMBA2_SSD, ZAMBA2_SSD):
+        for b, s in SSD_PATH_SHAPES:
+            sweep(b, s, h, p, n, True, path=True)
+        sweep(2, 2048, h, p, n, True)
+    print(f"  ssd_scan: {n_checks} checks within {SSD_TOL} (x (1 + |ref|)) "
+          f"of the plain versions; max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + "; at the path's shapes " + ", ".join(
+              f"{k} {v:.3e}" for k, v in path_errs.items()))
+    # rounding at the serving path's lengths: the kernel (64-position
+    # chunks) and the chunked plain version (256-position chunks at 512,
+    # one chunk of 575 at 575) against the recurrence in float64
+    vs_fp64 = {}
+    for s in (512, 575):
+        x, dt, a_log, B, C = _ssd_inputs(gen, 2, s, *MAMBA2_SSD,
+                                         torch.float32, True)
+        exact = ssd_scan_recurrence(x.double(), dt.double(), a_log.double(),
+                                    B.double(), C.double())[0]
+        got = {"kernel": ssd_scan_kernel(x, dt, decay_rates(a_log), B, C)[0],
+               "chunked": ssd_scan_chunked(x, dt, a_log, B, C,
+                                           SSD_MODEL_CHUNK)[0]}
+        vs_fp64[s] = {k: float((v.double() - exact).abs().max())
+                      for k, v in got.items()}
+        vs_fp64[s]["max_abs_y"] = float(exact.abs().max())
+    print("  ssd_scan vs the float64 recurrence (mamba2 heads, b 2): "
+          + json.dumps(vs_fp64))
+
+    h, p, n = MAMBA2_SSD
+    b, s = SSD_PATH["b"], SSD_PATH["s"]
+    x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, torch.float32, True)
+    A = decay_rates(a_log)
+    out = ssd_scan_kernel(x, dt, A, B, C)
+    chunked = hold_chunked("timed", out, x, dt, a_log, B, C)
+    rec = ssd_scan_recurrence(x, dt, a_log, B, C)
+    hold("timed", out, rec, "recurrence")
+    hold_path(out, rec, chunked)
+    timed_err = gap(out, rec)
+    del rec
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                  + b * h * p * n)
+    b_ms, by = bound_ms(nbytes, 4 * p * n * b * s * h)
+    row = {"shape": f"b{b} s{s} h{h} p{p} n{n} fp32",
+           "ms": time_ms(lambda: ssd_scan_kernel(x, dt, A, B, C)),
+           "plain_ms": time_ms(lambda: ssd_scan_chunked(
+               x, dt, a_log, B, C, SSD_MODEL_CHUNK)),
+           "recurrence_ms": time_ms(
+               lambda: ssd_scan_recurrence(x, dt, a_log, B, C), reps=5),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "library": "none (no PyTorch call computes the SSD scan)",
+           "bound_bytes": nbytes, "bound_flop": 4 * p * n * b * s * h,
+           "timed_max_abs_err": timed_err,
+           "max_abs_err": path_errs["recurrence"],
+           "path_max_abs_err": path_errs,
+           "sweep_max_abs_err": dict(errs), "checks": n_checks,
+           "vs_float64": vs_fp64, "reference_caveats": caveats}
+    print(f"  ssd_scan         {row['shape']} ms={row['ms']:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}) plain_ms={row['plain_ms']:.5f} "
+          f"recurrence_ms={row['recurrence_ms']:.5f}")
+    del x, dt, a_log, B, C, out
+    torch.cuda.empty_cache()
+    return row
+
+
 # -------------------------------------------------------------- 3. path ----
 
 def _history_losses(res):
@@ -615,17 +838,33 @@ def phase_presets() -> int:
 
 # ------------------------------------------------------------- 3d. serve ---
 
-def _attn_launches() -> dict:
+def _path_launches() -> dict:
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
-    return {**fk.launches, **dk.launches}
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    return {**fk.launches, **dk.launches, **sk.launches}
 
 
-def _reset_attn_launches() -> None:
+def _reset_path_launches() -> None:
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
     fk.reset_launches()
     dk.reset_launches()
+    sk.reset_launches()
+
+
+def _want_launches(cfg, steps: int, forwards: int) -> dict:
+    """Exact launch counts of ``steps`` decode steps and ``forwards``
+    forwards: flash per attention layer per forward, decode attention per
+    attention layer per step, the SSD scan per Mamba2 layer per forward
+    (never in a decode step: that is the single-step recurrence)."""
+    layers = cfg.num_layers
+    attn = {"dense": layers, "ssm": 0,
+            "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
+    mamba = 0 if cfg.family == "dense" else layers
+    return {"flash_attention": attn * forwards,
+            "decode_attention": attn * steps, "ssd_scan": mamba * forwards}
 
 
 def _card_step_logits(model, out, max_seq: int):
@@ -646,9 +885,11 @@ def _card_step_logits(model, out, max_seq: int):
 
 def _vs_cpu(cpu_model, out, card, what: str) -> dict:
     """The card's per-step logits ``card`` against the same model on the
-    CPU, teacher-forced with the card's tokens ``out`` (b, s)."""
+    CPU, teacher-forced with the card's tokens ``out`` (b, s), within
+    SERVE_TOL of the largest; the CPU's perplexity from the same logits
+    (``perplexity``'s arithmetic)."""
     import torch
-    from repro_torch.serving import perplexity
+    from repro_torch.models.common import cross_entropy
     with torch.no_grad():
         cpu, _ = cpu_model.forward({"tokens": out[:, :-1]})
     err = float((card - cpu).abs().max())
@@ -656,41 +897,47 @@ def _vs_cpu(cpu_model, out, card, what: str) -> dict:
     check(err <= SERVE_TOL * max(1.0, scale),
           f"{what}: card vs CPU teacher-forced logits differ by {err:.3e}")
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
-            "cpu_ppl": perplexity(cpu_model, out), "cpu_logits": cpu}
+            "cpu_ppl": float(torch.exp(cross_entropy(cpu, out[:, 1:]))),
+            "cpu_logits": cpu}
 
 
 def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
                seed, what: str) -> dict:
     """One generate() + perplexity on the card, launches counted; then the
-    CPU comparison."""
+    card's teacher-forced forward against its replayed decode steps, and
+    the CPU comparison."""
     import torch
     from repro_torch.serving import perplexity
-    layers = model.cfg.num_layers
     gen.decode_steps = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_attn_launches()
+    _reset_path_launches()
     t0 = time.perf_counter()
     out = gen.generate(prompts, max_new_tokens=new_tokens,
                        temperature=temperature, seed=seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ppl = perplexity(model, out)
-    launches = _attn_launches()
+    launches = _path_launches()
     peak = torch.cuda.max_memory_allocated()
     b, s = prompts.shape
     check(gen.decode_steps == s + new_tokens,
           f"{what}: {gen.decode_steps} decode steps, want {s + new_tokens}")
-    check(launches["decode_attention"] == layers * gen.decode_steps,
-          f"{what}: decode launches {launches}, want {layers} x "
-          f"{gen.decode_steps}")
-    check(launches["flash_attention"] == layers,
-          f"{what}: flash launches {launches}, want {layers} (one forward)")
+    want = _want_launches(model.cfg, gen.decode_steps, 1)
+    check(launches == want, f"{what}: launches {launches}, want {want} "
+                            f"({gen.decode_steps} decode steps, one forward)")
     check(out.shape == (b, s + new_tokens)
           and bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
           f"{what}: tokens out of range or of shape {out.shape}")
     out_t = torch.from_numpy(out).long()
     card = _card_step_logits(model, out_t, gen.max_seq)
+    with torch.no_grad():
+        card_fwd = model.forward({"tokens": out_t[:, :-1].cuda()})[0].cpu()
+    fwd_err = float((card_fwd - card).abs().max())
+    check(fwd_err <= SERVE_TOL * max(1.0, float(card.abs().max())),
+          f"{what}: the card's forward vs its decode steps differ by "
+          f"{fwd_err:.3e}")
+    del card_fwd
     cmp = _vs_cpu(cpu_model, out_t, card, what)
     cpu = cmp.pop("cpu_logits")
     rel = abs(ppl - cmp["cpu_ppl"]) / cmp["cpu_ppl"]
@@ -701,6 +948,7 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
            "tok_per_s": b * new_tokens / wall,
            "ms_per_decode_step": wall / gen.decode_steps * 1e3,
            "peak_mem_bytes": peak, "ppl": ppl, "ppl_rel_vs_cpu": rel,
+           "forward_vs_decode_max_abs_err": fwd_err,
            "launches": launches, **cmp}
     if temperature == 0:                 # greedy: tokens where margins allow
         top2 = cpu[:, s - 1:].topk(2, dim=-1).values
@@ -719,7 +967,8 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
           f"({row['tok_per_s']:.1f} tok/s, {row['ms_per_decode_step']:.3f} "
           f"ms/decode step, peak {peak / 2**30:.3f} GiB) ppl={ppl:.4f} "
           f"(cpu {cmp['cpu_ppl']:.4f}) logits vs cpu "
-          f"{cmp['logits_max_abs_err']:.3e} launches={launches}"
+          f"{cmp['logits_max_abs_err']:.3e}, forward vs decode "
+          f"{fwd_err:.3e} launches={launches}"
           + (f" tokens checked {row['tokens_checked']}/{row['tokens_total']}"
              if "tokens_checked" in row else ""))
     return row
@@ -729,6 +978,7 @@ def _decode_class(name: str) -> str:
     low = name.lower()
     for key, cls in (("decode_attention", "decode_attention"),
                      ("flash_attention", "flash_attention"),
+                     ("ssd_scan", "ssd_scan"),
                      ("memcpy", "memcpy"), ("memset", "memset"),
                      ("gemm", "gemm"), ("gemv", "gemm"), ("cutlass", "gemm"),
                      ("xmma", "gemm"), ("reduce", "reduce"),
@@ -739,13 +989,20 @@ def _decode_class(name: str) -> str:
 
 
 def _profile_decode(model, prompt, steps: int = 16) -> dict:
-    """torch.profiler over ``steps`` decode steps after a prefill of
-    ``prompt``: device time by kernel class and the device idle share."""
+    """torch.profiler over ``steps`` decode steps after ``prompt``, fed by
+    a prefill (dense) or by decode steps (ssm, hybrid: they have no
+    prefill): device time by kernel class and the device idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     b, s = prompt.shape
     with torch.no_grad():
-        logits, cache = model.prefill({"tokens": prompt}, max_seq=s + steps)
+        if model.cfg.family == "dense":
+            logits, cache = model.prefill({"tokens": prompt},
+                                          max_seq=s + steps)
+        else:
+            cache = model.init_cache(b, s + steps)
+            for pos in range(s):
+                logits, cache = model.decode_step(cache, prompt[:, pos], pos)
         tok = logits.argmax(-1)
         for pos in range(s, s + 2):                          # warm-up
             logits, cache = model.decode_step(cache, tok, pos)
@@ -783,27 +1040,43 @@ def _profile_decode(model, prompt, steps: int = 16) -> dict:
                                              key=lambda kv: -kv[1]))}
 
 
-def phase_serve() -> dict:
-    """Full-width smollm-360m served on the card (see the module docstring,
-    3d); returns the runs' numbers and the launch totals."""
-    import numpy as np
+def _full_width(name: str):
+    """The full-width arch in fp32 (as the launcher forces), its model on
+    the card from seed 0, and the same parameters on the CPU."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, build_model
     from repro_torch.models.common import tree_map
-    from repro_torch.serving import Generator
-    arch = get_arch("smollm-360m")
+    arch = get_arch(name)
     arch = arch.replace(model=arch.model.replace(dtype="float32"))
     cfg = arch.model
     t0 = time.perf_counter()
     model = build_model(arch, device="cuda", seed=0)
     cpu_model = Model(cfg, tree_map(lambda t: t.detach().cpu(), model.params))
     torch.cuda.synchronize()
-    print(f"  smollm-360m: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.kv_heads} heads x {cfg.hdim}, vocab "
-          f"{cfg.vocab_size}, {model.param_count():,} parameters (fp32); "
-          f"built in {time.perf_counter() - t0:.2f} s")
-    rows, totals = {}, {"flash_attention": 0, "decode_attention": 0}
+    widths = (f"{cfg.num_heads}/{cfg.kv_heads} heads x {cfg.hdim}"
+              if cfg.num_heads else "")
+    if cfg.family != "dense":
+        widths = (f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
+                  f"{cfg.ssm_state}" + (f"; every {cfg.attn_every} layers "
+                                        f"a shared block of {widths}"
+                                        if widths else ""))
+    print(f"  {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{widths}, vocab {cfg.vocab_size}, {model.param_count():,} "
+          f"parameters (fp32); built in {time.perf_counter() - t0:.2f} s")
+    return arch, model, cpu_model
+
+
+def phase_serve() -> dict:
+    """Full-width smollm-360m served on the card (see the module docstring,
+    3d); returns the runs' numbers and the launch totals."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Generator
+    arch, model, cpu_model = _full_width("smollm-360m")
+    cfg = arch.model
+    rows = {}
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     rng = np.random.default_rng(0)
     gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
     for r in range(2):                   # (a) the launcher's defaults
@@ -823,7 +1096,7 @@ def phase_serve() -> dict:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_attn_launches()
+    _reset_path_launches()
     with torch.no_grad():
         t0 = time.perf_counter()
         pl, pc = model.prefill({"tokens": toks}, max_seq=s)
@@ -835,10 +1108,9 @@ def phase_serve() -> dict:
             dl, cache = model.decode_step(cache, toks[:, pos], pos)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
-    launches = _attn_launches()
+    launches = _path_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == {"flash_attention": cfg.num_layers,
-                       "decode_attention": cfg.num_layers * s},
+    check(launches == _want_launches(cfg, s, 1),
           f"(c): launches {launches}, want {cfg.num_layers} flash (one "
           f"forward) and {cfg.num_layers} x {s} decode")
     errs = {"last_logits": float((pl - dl).abs().max()),
@@ -870,6 +1142,75 @@ def phase_serve() -> dict:
     return {"runs": rows, "launches": totals, "decode_profile": prof}
 
 
+def _ragged_forward(model, cpu_model, rng, b: int, s: int) -> dict:
+    """The card's teacher-forced forward over ``s`` positions against the
+    CPU's, where s is no multiple of the model's 256-position chunk (so the
+    CPU runs one chunk of s), with exactly one SSD launch per Mamba2 layer.
+    Logits within SERVE_TOL of the largest."""
+    import torch
+    cfg = model.cfg
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    _reset_path_launches()
+    with torch.no_grad():
+        card = model.forward({"tokens": toks.cuda()})[0].cpu()
+        launches = _path_launches()
+        cpu = cpu_model.forward({"tokens": toks})[0]
+    check(launches == _want_launches(cfg, 0, 1),
+          f"ragged forward b{b} s{s}: launches {launches}")
+    err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    print(f"  ragged forward b{b} s{s}: card vs CPU logits {err:.3e} (largest "
+          f"|logit| {scale:.3f}) launches={launches}")
+    check(err <= SERVE_TOL * max(1.0, scale),
+          f"ragged forward b{b} s{s}: card vs CPU logits differ by {err:.3e}")
+    return {"batch": b, "positions": s, "logits_max_abs_err": err,
+            "logits_max_abs": scale, "launches": launches}
+
+
+def phase_serve_ssm() -> dict:
+    """Full-width mamba2-370m and zamba2-2.7b served on the card (see the
+    module docstring, 3e); returns the runs' numbers and launch totals."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Generator
+    rows = {}
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    rng = np.random.default_rng(1)
+    arch, model, cpu_model = _full_width("mamba2-370m")
+    vocab = arch.model.vocab_size
+    gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
+    for r in range(2):                   # (a) the launcher's defaults
+        prompts = rng.integers(0, vocab, (4, 16)).astype(np.int32)
+        rows[f"mamba2 a{r}"] = _serve_run(gen, model, cpu_model, prompts, 32,
+                                          0.8, r, f"mamba2 (a) request {r}")
+    # (b) perplexity's forward over 449 + 64 - 1 = 512 positions: two of
+    # the model's 256-position chunks on the CPU
+    gen = Generator(arch, model, max_seq=449 + 64 + 1, device="cuda")
+    prompts = rng.integers(0, vocab, (8, 449)).astype(np.int32)
+    rows["mamba2 b"] = _serve_run(gen, model, cpu_model, prompts, 64, 0.0, 0,
+                                  "mamba2 (b) batch 8, prompt 449")
+    for row in rows.values():
+        for k, v in row["launches"].items():
+            totals[k] += v
+    rows["mamba2 ragged"] = _ragged_forward(model, cpu_model, rng, 2, 575)
+    totals["ssd_scan"] += rows["mamba2 ragged"]["launches"]["ssd_scan"]
+    prof = _profile_decode(model, torch.from_numpy(
+        rng.integers(0, vocab, (8, 32))).cuda())
+    print("  mamba2 decode-step profile: " + json.dumps(prof))
+    del gen, model, cpu_model
+    torch.cuda.empty_cache()
+
+    arch, model, cpu_model = _full_width("zamba2-2.7b")
+    gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
+    prompts = rng.integers(0, arch.model.vocab_size, (4, 16)).astype(np.int32)
+    rows["zamba2 a0"] = _serve_run(gen, model, cpu_model, prompts, 32, 0.8, 0,
+                                   "zamba2 (a) request 0")
+    for k, v in rows["zamba2 a0"]["launches"].items():
+        totals[k] += v
+    del gen, model, cpu_model
+    torch.cuda.empty_cache()
+    return {"runs": rows, "launches": totals, "mamba2_decode_profile": prof}
+
+
 # ----------------------------------------------------------------- main ----
 
 KERNELS = [
@@ -888,6 +1229,8 @@ ATTN_KERNELS = [
     ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:60"),
 ]
+SSD_KERNEL = ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan/kernel.py:70")
 PATH_KERNELS = ("quantize8_ef", "topk_ef")
 
 
@@ -898,6 +1241,7 @@ def main() -> int:
     print("phase 2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
+    ssd = phase_ssd_kernel()
     print("phase 3: path")
     launches, preset, cpu_losses = phase_path()
     for name in PATH_KERNELS:
@@ -910,10 +1254,15 @@ def main() -> int:
     phase_presets()
     print("phase 3d: serve")
     serve = phase_serve()
-    for name, _source, _replaces in ATTN_KERNELS:
-        check(serve["launches"][name] > 0,
-              f"{name} never launched on the serving path")
     print(json.dumps({"serve": serve}))
+    print("phase 3e: serve mamba2-370m and zamba2-2.7b")
+    serve_ssm = phase_serve_ssm()
+    print(json.dumps({"serve_ssm": serve_ssm}))
+    serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
+                      for k in serve["launches"]}
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+        check(serve_launches[name] > 0,
+              f"{name} never launched on the serving path")
     print("phase 4: summary")
     summary = []
     for name, source, replaces in KERNELS:
@@ -937,7 +1286,7 @@ def main() -> int:
     for name, source, replaces in ATTN_KERNELS:
         row = attn[name]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": serve["launches"][name],
+                 "replaces": replaces, "launches": serve_launches[name],
                  **{k: row[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "shape", "library", "max_abs_err_bf16",
@@ -949,6 +1298,21 @@ def main() -> int:
               f"{entry['bound_ms']:.5f} plain_ms={entry['plain_ms']:.5f} "
               f"library_ms={entry['library_ms']:.5f} "
               f"launches_on_path={entry['launches']}")
+    name, source, replaces = SSD_KERNEL
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": serve_launches[name],
+             **{k: ssd[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "shape", "library", "recurrence_ms",
+                 "timed_max_abs_err", "path_max_abs_err",
+                 "sweep_max_abs_err", "vs_float64",
+                 "reference_caveats")},
+             "held_against_plain": True}
+    summary.append(entry)
+    print(f"  {name:16s} held within {SSD_TOL} of its plain versions; "
+          f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
+          f"plain_ms={entry['plain_ms']:.5f} library_ms=none "
+          f"launches_on_path={entry['launches']}")
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

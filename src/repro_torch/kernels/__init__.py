@@ -18,6 +18,9 @@ Kernels on the model zoo's serving path (``models/attention.py``):
                       softmax (the forward and ``Model.prefill``)
   decode_attention -- flash decoding of one query step per GQA group
                       against the KV cache (every ``decode_step``)
+Kernel on the ssm and hybrid families' path (``models/ssm.py``):
+  ssd_scan         -- the Mamba-2 chunked SSD scan with the fp32 state
+                      carried across chunks (every forward)
 
 The CUDA sources are compiled with nvcc at first use (:mod:`.build`);
 importing this package needs neither a card nor a compiler.

@@ -1,7 +1,11 @@
-"""Serving launcher: batched generation against a dense zoo arch.
+"""Serving launcher: batched generation against a zoo arch of the
+families the port builds (dense, ssm, hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --reduced --device cpu --batch 4 --prompt-len 16 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 The flags are the JAX launcher's plus ``--device`` (default: the card;
 without one it raises and says to pass ``--device cpu``).  The model runs

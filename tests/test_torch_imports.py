@@ -35,6 +35,9 @@ from repro_torch.models import build_model
 model = build_model(get_reduced("smollm-360m"), device="cpu")
 logits, cache = model.decode_step(model.init_cache(2, 4), [3, 5], 0)
 assert logits.shape == (2, 256) and bool(logits.isfinite().all())
+model = build_model(get_reduced("mamba2-370m"), device="cpu")
+logits, _ = model.forward({"tokens": [[3, 5, 7]]})
+assert logits.shape == (1, 3, 256) and bool(logits.isfinite().all())
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names))
@@ -73,6 +76,9 @@ def test_every_module_is_listed():
                 "kernels.decode_attention.kernel",
                 "kernels.decode_attention.ops",
                 "kernels.decode_attention.ref",
+                "kernels.ssd_scan", "kernels.ssd_scan.kernel",
+                "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
+                "models.ssm", "configs.mamba2_370m", "configs.zamba2_2_7b",
                 "serving", "serving.latency", "launch.serve"):
         assert f"repro_torch.{sub}" in names
 

@@ -1,7 +1,7 @@
 """The port's serving path (``Generator``, ``perplexity``, ``LatencyModel``,
 the launcher) against the JAX package's, on the CPU, with the JAX
-parameters of reduced smollm-360m (fp32, as the launcher forces) carried
-across.
+parameters of reduced smollm-360m, mamba2-370m and zamba2-2.7b (fp32, as
+the launcher forces; 4-position SSD chunks) carried across.
 
 Tolerances: per-step logits ``rtol=1e-5, atol=1e-5`` (fp32 sums in other
 orders; see tests/test_torch_zoo.py), perplexity ``rtol=1e-5``.  Greedy
@@ -23,29 +23,46 @@ from repro.models import build_model as jbuild
 from repro.serving import Generator as JGenerator
 from repro.serving import LatencyModel as JLatencyModel
 from repro.serving import perplexity as jperplexity
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_reduced, spec_name
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import Generator, LatencyModel, perplexity
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["smollm-360m", "stablelm-3b", "phi3-medium-14b", "llama3-405b"]
+SSM = ["mamba2-370m", "zamba2-2.7b"]           # the ssm and hybrid families
 
 
 def _fp32(arch):
     return arch.replace(model=arch.model.replace(dtype="float32"))
 
 
+_SMALL = {}
+
+
+def _small(name):
+    """(port arch, JAX arch, JAX model, JAX params, port Model) for a
+    reduced config in fp32 with 4-position SSD chunks -- the same values in
+    both packages; built once per test process."""
+    if name not in _SMALL:
+        def cut(arch):
+            return arch.replace(model=arch.model.replace(dtype="float32",
+                                                         ssm_chunk=4))
+        jarch = cut(jget_reduced(name))
+        jm = jbuild(jarch)
+        params = jm.init(jax.random.key(0))
+        arch = cut(get_reduced(name))
+        model = params_from_numpy(jax.tree.map(np.asarray, params), arch,
+                                  device="cpu")
+        _SMALL[name] = (arch, jarch, jm, params, model)
+    return _SMALL[name]
+
+
 @pytest.fixture(scope="module")
 def small():
-    """(port arch, JAX model, JAX params, port Model) -- the same values."""
-    jarch = _fp32(jget_reduced("smollm-360m"))
-    jm = jbuild(jarch)
-    params = jm.init(jax.random.key(0))
-    arch = _fp32(get_reduced("smollm-360m"))
-    model = params_from_numpy(jax.tree.map(np.asarray, params), arch,
-                              device="cpu")
-    return arch, jarch, jm, params, model
+    """(port arch, JAX arch, JAX model, JAX params, port Model) of reduced
+    smollm-360m -- the same values."""
+    return _small("smollm-360m")
 
 
 def _prompts(vocab, shape, seed):
@@ -53,11 +70,7 @@ def _prompts(vocab, shape, seed):
         np.int32)
 
 
-def test_greedy_generation_matches_jax(small):
-    """Greedy tokens equal JAX's; with JAX's tokens fed in, every step's
-    logits are within TOL of JAX's, and the top-two margin of every step
-    exceeds twice that tolerance (so argmax cannot flip)."""
-    arch, jarch, jm, params, model = small
+def _greedy_matches_jax(arch, jarch, jm, params, model):
     prompts = _prompts(arch.model.vocab_size, (2, 7), 0)
     want = JGenerator(jarch, params, max_seq=32).generate(
         prompts, max_new_tokens=5)
@@ -75,6 +88,23 @@ def test_greedy_generation_matches_jax(small):
             assert (top2[:, 1] - top2[:, 0] > 2 * (TOL["atol"] + TOL["rtol"]
                                                    * np.abs(top2[:, 1]))).all()
     np.testing.assert_array_equal(got, want)
+    # teacher forcing <-> decode: the forward's logits are the steps'
+    logits, _ = model.forward({"tokens": got[:, :-1]})
+    np.testing.assert_array_equal(got[:, 7:], logits[:, 6:].argmax(-1))
+
+
+def test_greedy_generation_matches_jax(small):
+    """Greedy tokens equal JAX's; with JAX's tokens fed in, every step's
+    logits are within TOL of JAX's, and the top-two margin of every step
+    exceeds twice that tolerance (so argmax cannot flip)."""
+    _greedy_matches_jax(*small)
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_greedy_generation_matches_jax_ssm_families(name):
+    """As for smollm: mamba2's conv/state cache and zamba2's, with its
+    shared attention block's K/V, through the same Generator."""
+    _greedy_matches_jax(*_small(name))
 
 
 def test_first_token_is_forward_argmax(small):
@@ -133,11 +163,19 @@ def test_perplexity_matches_jax(small):
     np.testing.assert_allclose(p, jperplexity(jm, params, toks), rtol=1e-5)
 
 
+@pytest.mark.parametrize("name", SSM)
+def test_perplexity_matches_jax_ssm_families(name):
+    arch, _jarch, jm, params, model = _small(name)
+    toks = _prompts(arch.model.vocab_size, (2, 18), 3)   # 17 % 4 != 0
+    p = perplexity(model, toks)
+    assert np.isfinite(p) and p > 1.0
+    np.testing.assert_allclose(p, jperplexity(jm, params, toks), rtol=1e-5)
+
+
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SSM)
 def test_latency_model_fields_equal_jax(name, reduced):
-    spec_name = name.replace("-", "_")
-    for key in (name, spec_name):
+    for key in (name, spec_name(name)):
         kw = dict(flops=2.5e14, mem_bandwidth=1.6e12, reduced=reduced)
         got = dataclasses.asdict(LatencyModel.from_arch(key, **kw))
         assert got == dataclasses.asdict(JLatencyModel.from_arch(key, **kw))
@@ -147,7 +185,7 @@ def test_latency_model_refuses_what_the_port_does_not_build():
     with pytest.raises(ValueError, match="encoder"):
         LatencyModel.from_arch("hubert-xlarge", flops=1.0, mem_bandwidth=1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LatencyModel.from_arch("mamba2_370m", flops=1.0, mem_bandwidth=1.0)
+        LatencyModel.from_arch("grok_1_314b", flops=1.0, mem_bandwidth=1.0)
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):
@@ -157,6 +195,17 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     assert len(out) == 3 and out[0].startswith("request 0: 2x4 = 8 tokens")
     assert "tok/s" in out[0] and "ppl=" in out[0]
     assert out[-1].startswith("served 16 tokens") and out[-1].endswith("cpu")
+
+
+def test_serve_launcher_serves_mamba2_on_the_cpu(capsys):
+    serve_launcher.main(["--arch", "mamba2-370m", "--reduced", "--device",
+                         "cpu", "--batch", "2", "--prompt-len", "5",
+                         "--new-tokens", "4", "--requests", "1"])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2 and out[0].startswith("request 0: 2x4 = 8 tokens")
+    ppl = float(out[0].split("ppl=")[1])
+    assert np.isfinite(ppl) and ppl > 1.0
+    assert out[-1].startswith("served 8 tokens") and out[-1].endswith("cpu")
 
 
 def test_generator_moves_a_model_to_its_device(small):

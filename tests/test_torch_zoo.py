@@ -1,5 +1,8 @@
-"""The port's dense model zoo against the JAX package, on the CPU, with the
-JAX parameters carried across (``params_from_numpy``).
+"""The port's model zoo (the dense, ssm and hybrid families) against the
+JAX package, on the CPU, with the JAX parameters carried across
+(``params_from_numpy``).  The reduced configs of both packages run with
+``ssm_chunk=4``, so that the whole-model tests cross chunk borders and
+carry the SSM state.
 
 Tolerances: float32 results agree to ``rtol=1e-5, atol=1e-5`` -- the two
 frameworks sum the same fp32 products in other orders (matrix products,
@@ -31,7 +34,9 @@ from repro_torch.models import transformer as tfm
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 DENSE = ["smollm-360m", "stablelm-3b", "phi3-medium-14b", "llama3-405b"]
-OTHER = [a for a in jconfigs.ARCH_IDS if a not in DENSE]
+SSM = ["mamba2-370m", "zamba2-2.7b"]           # the ssm and hybrid families
+BUILT = DENSE + SSM
+OTHER = [a for a in jconfigs.ARCH_IDS if a not in BUILT]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -44,6 +49,12 @@ def _close(port, ref, tol=TOL):
 
 def _fp32(arch):
     return arch.replace(model=arch.model.replace(dtype="float32"))
+
+
+def _small(arch):
+    """fp32, and 4-position SSD chunks (a config value both packages read)."""
+    return arch.replace(model=arch.model.replace(dtype="float32",
+                                                 ssm_chunk=4))
 
 
 # --------------------------------------------------------------- configs ----
@@ -78,7 +89,7 @@ def _at(tree, path):
     return tree
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", BUILT)
 def test_param_count_equals_jax_at_full_size(name):
     cfg = tconfigs.get_arch(name).model
     assert (common.param_count(tfm.model_spec(cfg))
@@ -108,7 +119,7 @@ def test_init_params_shapes_scales_and_seed():
             assert float(pa.float().abs().max()) <= 2.0 * scale * 1.01
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", BUILT)
 def test_params_from_numpy_carries_every_leaf(name):
     arch = jconfigs.get_reduced(name)
     tree = jax.tree.map(np.asarray, jbuild(arch).init(jax.random.key(1)))
@@ -182,14 +193,14 @@ _MODELS = {}
 
 
 def _pair(name):
-    """(cfg, JAX model, JAX params, port Model) for a dense reduced config
-    in fp32, built once per test process."""
+    """(cfg, JAX model, JAX params, port Model) for a reduced config in
+    fp32 with 4-position SSD chunks, built once per test process."""
     if name not in _MODELS:
-        arch = _fp32(jconfigs.get_reduced(name))
+        arch = _small(jconfigs.get_reduced(name))
         jm = jbuild(arch)
         params = jm.init(jax.random.key(0))
         model = params_from_numpy(jax.tree.map(np.asarray, params),
-                                  _fp32(tconfigs.get_reduced(name)),
+                                  _small(tconfigs.get_reduced(name)),
                                   device="cpu")
         _MODELS[name] = (arch.model, jm, params, model)
     return _MODELS[name]
@@ -240,7 +251,7 @@ def _tokens(cfg, b=2, s=9, seed=0):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", BUILT)
 def test_forward_and_loss_match_jax(name):
     cfg, jm, params, model = _pair(name)
     toks = _tokens(cfg, s=10)
@@ -260,19 +271,24 @@ def test_forward_and_loss_match_jax(name):
     _close(parts["loss"], jparts["loss"])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", BUILT)
 def test_decode_steps_over_a_prompt_match_jax(name):
+    """Every step's logits and, at the end, every cache leaf (K/V; conv
+    inputs and SSM state; the shared block's K/V) equal JAX's."""
     cfg, jm, params, model = _pair(name)
     toks = _tokens(cfg, s=9, seed=1)
     jc, tc = jm.init_cache(2, 12), model.init_cache(2, 12)
+    assert tc.keys() == jc.keys()
     for pos in range(toks.shape[1]):
         jl, jc = jm.decode_step(params, jc, jnp.asarray(toks[:, pos]),
                                 jnp.int32(pos))
         tl, tc = model.decode_step(tc, torch.from_numpy(toks[:, pos]), pos)
         assert tl.dtype == torch.float32
         _close(tl, jl)
-    _close(tc["k"], jc["k"])
-    _close(tc["v"], jc["v"])
+    for key in jc:
+        assert tc[key].shape == jc[key].shape
+        assert tc[key].dtype == getattr(torch, str(jc[key].dtype))
+        _close(tc[key], jc[key])
     # teacher forcing <-> decode: the last step's logits are the forward's
     full, _ = model.forward({"tokens": toks})
     _close(tl, full[:, -1])
@@ -288,6 +304,30 @@ def test_prefill_matches_jax(name):
     assert tc["k"].shape == jc["k"].shape
     _close(tc["k"], jc["k"])
     _close(tc["v"], jc["v"])
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_prefill_raises_for_the_ssm_families_as_jax_does(name):
+    cfg, jm, params, model = _pair(name)
+    toks = _tokens(cfg, s=5, seed=2)
+    with pytest.raises(NotImplementedError) as want:
+        jm.prefill(params, {"tokens": jnp.asarray(toks)}, max_seq=8)
+    with pytest.raises(NotImplementedError) as got:
+        model.prefill({"tokens": toks}, max_seq=8)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_cache_struct_matches_jax(name):
+    """Leaf names, shapes, logical axes and dtypes of the decode cache."""
+    from repro.models import transformer as jtfm
+    cfg = _small(jconfigs.get_reduced(name)).model
+    want = jtfm.cache_struct(cfg, 3, 7)
+    got = tfm.cache_struct(_small(tconfigs.get_reduced(name)).model, 3, 7)
+    assert got.keys() == want.keys()
+    for key, (shape, axes, dtype) in want.items():
+        assert got[key][:2] == (shape, axes)
+        assert got[key][2] == getattr(torch, str(jnp.dtype(dtype)))
 
 
 def test_bf16_forward_and_decode_match_jax():
