@@ -13,21 +13,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel against its plain version within ATTN_TOL (relative to the
    largest output in bf16), over head_dim 20, 64, 80, 128, heads (h, m) =
    (3, 3), (3, 1), (15, 5), causal and full, ragged lengths 47, 577, 2048
-   and length < S, and then at every shape phase 3d gives it; then
-   CUDA-event times (median of 20 back-to-back launches after warm-up) of
-   the kernel, its plain version and the one library call that computes
-   the same function, where there is one, at the main path's shapes, each
-   kernel output held against the plain version there too; the SSD scan
-   kernel against the exact recurrence and the chunked plain version
-   within SSD_TOL over tests/test_kernels.py's shapes and the zoo's heads
-   (mamba2-370m: h 32, p 64, n 128; zamba2-2.7b: h 80, p 64, n 64) at
-   every (b, s) phase 3e gives it (b 4 s 47, b 8 s 512, b 2 s 575) and at
-   b 2 s 2048, with and without an initial state, its continuation
-   property and bf16 inputs (where the chunked version's own fp32 rounding
-   misses SSD_TOL, the kernel must be within it of the float64 recurrence
-   and nearer to it: a reference caveat), then against the float64
-   recurrence at s = 512 and 575, and timed at perplexity's shape of 3e
-   (b) (no PyTorch call computes the SSD: no library time);
+   and length < S, the decode kernel's split edges (one tile, each side of
+   a split boundary, more splits wanted than tiles), and then at every
+   shape phases 3d and 3e give them (smollm's heads and zamba2's shared
+   block: h 32, m 32, d 80); then CUDA-event times (median of 20
+   back-to-back launches after warm-up) of the kernel, its plain version
+   and the one library call that computes the same function, where there
+   is one, at the main path's shapes (decode attention at b 8, S 577 and
+   at b 4, S 2048), each kernel output held against the plain version
+   there too and two calls of each redesigned kernel compared bitwise;
+   the SSD scan kernel against the exact recurrence and the chunked plain
+   version within SSD_TOL over tests/test_kernels.py's shapes and the
+   zoo's heads (mamba2-370m: h 32, p 64, n 128; zamba2-2.7b: h 80, p 64,
+   n 64) at every (b, s) phase 3e gives it (b 4 s 47, b 8 s 512, b 2 s
+   575) and at b 2 s 2048, with and without an initial state, its
+   continuation property and bf16 inputs (where the chunked version's own
+   fp32 rounding misses SSD_TOL, the kernel must be within it of the
+   float64 recurrence and nearer to it: a reference caveat), then against
+   the float64 recurrence at s = 512 and 575 (within twice the error of
+   the kernel it replaced, SSD_FP64_PARENT), and timed at every (b, s) of
+   3e with an fp32, a 3xTF32 and a bytes bound (no PyTorch call computes
+   the SSD: no library time);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -84,6 +90,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
 MOBILENET_N = 3_000_007        # (3072, 777, 777, 10) MLP parameters
 RESNET50_N = 22_253_615        # (3072, 3421, 3421, 10) MLP parameters
 SHAPES = (1000, 33 * 70, MOBILENET_N, RESNET50_N)
@@ -97,6 +104,13 @@ ATTN_TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
 SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM = 15, 5, 64
 FLASH_PATH = dict(b=4, s=2048)          # Model.prefill in phase 3d (c)
 DECODE_PATH = dict(b=8, S=577)          # the last step of phase 3d (b)
+#: decode attention timed (b, S, length) at smollm's heads: the last step
+#: of phase 3d (b), and the last of 3d (c)'s 2048-step loop at batch 4
+#: (most of the path's decode launches)
+DECODE_TIMED = ((DECODE_PATH["b"], DECODE_PATH["S"], DECODE_PATH["S"]),
+                (FLASH_PATH["b"], FLASH_PATH["s"], FLASH_PATH["s"]))
+#: zamba2-2.7b's shared attention block (h 32 over m 32, head_dim 80)
+ZAMBA2_HEADS, ZAMBA2_KV_HEADS, ZAMBA2_HEAD_DIM = 32, 32, 80
 #: card vs CPU fp32 logits of full-width smollm-360m, relative to the
 #: largest |logit| (and perplexity, relative): the card's fp32 GEMMs and
 #: the attention kernels sum in other orders than the CPU over 32 layers
@@ -116,6 +130,15 @@ SSD_PATH = dict(b=8, s=512)             # perplexity's forward in 3e (b)
 #: over 16 + 32 - 1 positions, mamba2 (b)'s over 449 + 64 - 1, and the
 #: ragged forward's
 SSD_PATH_SHAPES = ((4, 16 + 32 - 1), (SSD_PATH["b"], SSD_PATH["s"]), (2, 575))
+#: the SSD kernel is timed at every one of them, the main one first
+SSD_TIMED = (SSD_PATH_SHAPES[1], SSD_PATH_SHAPES[2], SSD_PATH_SHAPES[0])
+#: the SSD kernel against the float64 recurrence (mamba2 heads, b 2, inputs
+#: from SSD_FP64_SEED): the one-block-per-(batch, head) kernel that the
+#: chunk-parallel one replaced read these max |y - exact| on these inputs
+#: (``ssd_vs_float64`` run in its checkout, NVIDIA H100 80GB HBM3 at
+#: 700 W); the chunk-parallel kernel may err by at most twice as much
+SSD_FP64_SEED = 2
+SSD_FP64_PARENT = {512: 1.1245186668702445e-3, 575: 9.388894636970235e-4}
 #: card vs CPU loss tolerance: the card's fp32 matrix products sum in
 #: another order than the CPU's, and one ulp of gradient difference can
 #: move an int8 code by a step or swap a top-k survivor.  It lies between
@@ -201,6 +224,174 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_timed_row(gen, b: int, S: int, length: int) -> dict:
+    """Decode attention at smollm's heads in fp32 over a (b, S) cache with
+    ``length`` valid positions: the kernel against its plain version, two
+    kernel calls compared bitwise, then CUDA-event times of the kernel, the
+    plain version and ``F.scaled_dot_product_attention`` over the same
+    prefix.  Bound: the prefix's K/V read once, q read, o written."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain as decode_plain)
+    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+    q, k, v = _attn_inputs(gen, torch.float32, (b, h, d), (b, S, m, d),
+                           (b, S, m, d))
+
+    def kernel_fn():
+        return decode_attention_kernel(q, k, v, length)
+
+    def plain_fn():
+        return decode_plain(q, k, v, length)
+
+    def library_fn():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :length].transpose(1, 2),
+            v[:, :length].transpose(1, 2), enable_gqa=True)[:, :, 0]
+
+    out, again, ref, lib = kernel_fn(), kernel_fn(), plain_fn(), library_fn()
+    torch.cuda.synchronize()
+    nbytes = 4 * (2 * b * length * m * d + 2 * b * h * d)
+    b_ms, by = bound_ms(nbytes, 4 * b * h * length * d)
+    row = {"shape": f"b{b} S{S} length{length} h{h} m{m} d{d} fp32",
+           "max_abs_err": float((out - ref).abs().max()),
+           "repeat_bitwise": _bits_equal(out, again),
+           "library_max_abs_err": float((lib - ref).abs().max()),
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "library_ms": time_ms(library_fn),
+           "library": "F.scaled_dot_product_attention(..., enable_gqa=True)",
+           "bound_ms": b_ms, "bound_by": by, "bound_bytes": nbytes}
+    print(f"  decode_attention {row['shape']} ms={row['ms']:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}) plain_ms={row['plain_ms']:.5f} "
+          f"library_ms={row['library_ms']:.5f} max|err|="
+          f"{row['max_abs_err']:.3e} repeat_bitwise={row['repeat_bitwise']}")
+    return row
+
+
+def _launch_profile(fn, reps: int = 10) -> dict:
+    """Device microseconds per call of each kernel ``fn`` launches
+    (torch.profiler over ``reps`` warmed-up calls), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / reps
+    return out
+
+
+def ssd_timed_row(gen, b: int, s: int, recurrence: bool = False):
+    """The SSD kernel at mamba2-370m's heads in fp32 with the model's
+    ranges: two kernel calls compared bitwise, the error against the fp32
+    recurrence, then CUDA-event times of the kernel, the chunked plain
+    version and (``recurrence``) the recurrence.  Three bounds: the fp32
+    operations on CUDA cores (the kernels line's), the same operations as
+    3xTF32 on the tensor cores (three TF32 products each), and the bytes.
+    Returns (row, inputs, kernel output) for the caller's checks."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import (
+        decay_rates, ssd_scan_recurrence)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    h, p, n = MAMBA2_SSD
+    inputs = _ssd_inputs(gen, b, s, h, p, n, torch.float32, True)
+    x, dt, a_log, B, C = inputs
+    A = decay_rates(a_log)
+    out, again = ssd_scan_kernel(x, dt, A, B, C), ssd_scan_kernel(x, dt, A, B,
+                                                                   C)
+    rec = ssd_scan_recurrence(x, dt, a_log, B, C)
+    torch.cuda.synchronize()
+    err = max(float((o - r).abs().max()) for o, r in zip(out, rec))
+    del rec
+    flop = 4 * p * n * b * s * h
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                  + b * h * p * n)
+    b_ms, by = bound_ms(nbytes, flop)
+    row = {"shape": f"b{b} s{s} h{h} p{p} n{n} fp32",
+           "max_abs_err": err,
+           "repeat_bitwise": all(map(_bits_equal, out, again)),
+           "ms": time_ms(lambda: ssd_scan_kernel(x, dt, A, B, C)),
+           "plain_ms": time_ms(lambda: ssd_scan_chunked(
+               x, dt, a_log, B, C, SSD_MODEL_CHUNK)),
+           "bound_ms": b_ms, "bound_by": by,
+           "bound_tf32x3_ms": max(nbytes / HBM_BYTES_PER_S,
+                                  3 * flop / TF32_OPS_PER_S) * 1e3,
+           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_bytes": nbytes, "bound_flop": flop, "library_ms": None,
+           "library": "none (no PyTorch call computes the SSD scan)"}
+    if recurrence:
+        row["recurrence_ms"] = time_ms(
+            lambda: ssd_scan_recurrence(x, dt, a_log, B, C), reps=5)
+        row["launch_us"] = _launch_profile(
+            lambda: ssd_scan_kernel(x, dt, A, B, C))
+    print(f"  ssd_scan         {row['shape']} ms={row['ms']:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}; 3xTF32 "
+          f"{row['bound_tf32x3_ms']:.5f}, bytes {row['bytes_bound_ms']:.5f}) "
+          f"plain_ms={row['plain_ms']:.5f}"
+          + (f" recurrence_ms={row['recurrence_ms']:.5f}" if recurrence
+             else "")
+          + f" max|err| vs recurrence={err:.3e} "
+          f"repeat_bitwise={row['repeat_bitwise']}"
+          + (" launches_us=" + json.dumps(row["launch_us"]) if recurrence
+             else ""))
+    return row, inputs, out
+
+
+def ssd_vs_float64() -> dict:
+    """Rounding at the serving path's lengths: the kernel (its own chunks)
+    and the chunked plain version (256-position chunks at 512, one chunk
+    of 575 at 575) against the recurrence in float64, mamba2 heads, b 2,
+    on inputs from their own seed (the same in every checkout)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import (
+        decay_rates, ssd_scan_recurrence)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    gen = torch.Generator(device="cuda").manual_seed(SSD_FP64_SEED)
+    vs_fp64 = {}
+    for s in (512, 575):
+        x, dt, a_log, B, C = _ssd_inputs(gen, 2, s, *MAMBA2_SSD,
+                                         torch.float32, True)
+        exact = ssd_scan_recurrence(x.double(), dt.double(), a_log.double(),
+                                    B.double(), C.double())[0]
+        got = {"kernel": ssd_scan_kernel(x, dt, decay_rates(a_log), B, C)[0],
+               "chunked": ssd_scan_chunked(x, dt, a_log, B, C,
+                                           SSD_MODEL_CHUNK)[0]}
+        vs_fp64[s] = {k: float((v.double() - exact).abs().max())
+                      for k, v in got.items()}
+        vs_fp64[s]["max_abs_y"] = float(exact.abs().max())
+    print("  ssd_scan vs the float64 recurrence (mamba2 heads, b 2): "
+          + json.dumps(vs_fp64))
+    return vs_fp64
+
+
+def redesign_baseline() -> dict:
+    """The two redesigned kernels' readings alone, for a checkout of any
+    commit with this file copied to its root: decode attention and the SSD
+    scan at their timed shapes, and the SSD kernel against the float64
+    recurrence.  ``python3 -c 'import chip_smoke as c;
+    c.redesign_baseline()'`` after phase 1's build."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"decode_attention": [decode_timed_row(gen, *shape)
+                                for shape in DECODE_TIMED],
+           "ssd_scan": [ssd_timed_row(gen, b, s)[0] for b, s in SSD_TIMED],
+           "ssd_vs_float64": ssd_vs_float64()}
+    print(json.dumps({"redesign_baseline": out}))
+    return out
 
 
 def phase_kernels() -> dict:
@@ -292,7 +483,8 @@ def _attn_inputs(gen, dtype, *shapes):
 
 def phase_attention_kernels() -> dict:
     """Flash attention and flash decoding against their plain versions on
-    the card (within ATTN_TOL), then timed at the main path's shapes."""
+    the card (within ATTN_TOL), then timed at the main path's shapes (the
+    decode kernel at both DECODE_TIMED shapes, two calls bitwise equal)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.kernel import (
@@ -342,6 +534,9 @@ def phase_attention_kernels() -> dict:
                  decode_plain(q, k, v, length), dtype,
                  f"b{b} S{S} length{length} h{h} m{m} d{d}", group)
 
+    from repro_torch.kernels.decode_attention.kernel import (
+        TILE, plan_splits, units)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for d in (20, 64, 80, 128):
             for h, m in ((3, 3), (3, 1), (SMOLLM_HEADS, SMOLLM_KV_HEADS)):
@@ -351,6 +546,22 @@ def phase_attention_kernels() -> dict:
                         hold_flash(b, s, s, h, m, d, causal, dtype)
                     hold_flash(b, 47, s, h, m, d, False, dtype)
                     hold_decode(3, s, (1, s // 2 + 3, s), h, m, d, dtype)
+        # the split edges of the timed decode shapes: one tile, each side
+        # of the first split boundary, the last position before the last
+        # split; and a batch of one kv head, where the planner would ask
+        # for more splits than the prefix has tiles
+        h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+        for b, S, length in DECODE_TIMED:
+            n_splits, per = plan_splits(units(b, h, m), length, sms)
+            check(n_splits > 1, f"decode b{b} length{length}: one split")
+            edge = per * TILE
+            last = (n_splits - 1) * per * TILE
+            hold_decode(b, S, sorted({TILE, edge - 1, edge, edge + 1, last,
+                                      last + 1, length}), h, m, d, dtype)
+        tiles = -(-577 // TILE)
+        check(plan_splits(units(1, 3, 1), 577, sms) == (tiles, 1),
+              "decode: the planner does not cap the splits at the tiles")
+        hold_decode(1, 577, (2 * TILE + 1, 577), 3, 1, SMOLLM_HEAD_DIM, dtype)
         # the serving path's own shapes (full smollm-360m heads): perplexity
         # of phase 3d (a) and (b), Model.prefill of (c); the caches of (a),
         # (b) and (c) at their first, a middle and their last length
@@ -363,6 +574,11 @@ def phase_attention_kernels() -> dict:
                               (FLASH_PATH["b"], FLASH_PATH["s"],
                                (1, 1025, 2048))):
             hold_decode(b, S, lengths, h, m, d, dtype, "path")
+        # zamba2-2.7b's shared attention block: the forwards of phase 3e
+        # (a) and its cache at the first, a middle and the last length
+        h, m, d = ZAMBA2_HEADS, ZAMBA2_KV_HEADS, ZAMBA2_HEAD_DIM
+        hold_flash(4, 16 + 32 - 1, 16 + 32 - 1, h, m, d, True, dtype, "path")
+        hold_decode(4, 16 + 32 + 1, (1, 16, 48), h, m, d, dtype, "path")
     for name, by_group in errs.items():
         print(f"  {name}: {n[name]} shapes within {ATTN_TOL[name]} of the "
               f"plain version; max |err| " + "; ".join(
@@ -405,17 +621,28 @@ def phase_attention_kernels() -> dict:
            4 * (2 * b * s * h * d + 2 * b * s * m * d),
            4 * b * h * s * s * d / 2)
     del q, k, v
-    b, S = DECODE_PATH["b"], DECODE_PATH["S"]
-    q, k, v = _attn_inputs(gen, torch.float32, (b, h, d), (b, S, m, d),
-                           (b, S, m, d))
-    record("decode_attention", f"b{b} S{S} length{S} h{h} m{m} d{d} fp32",
-           lambda: decode_attention_kernel(q, k, v, S),
-           lambda: decode_plain(q, k, v, S),
-           lambda: F.scaled_dot_product_attention(
-               q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-               enable_gqa=True)[:, :, 0],
-           4 * (2 * b * S * m * d + 2 * b * h * d), 4 * b * h * S * d)
-    del q, k, v
+    shapes = []
+    for b, S, length in DECODE_TIMED:
+        row = decode_timed_row(gen, b, S, length)
+        check(row["repeat_bitwise"], f"decode_attention {row['shape']}: two "
+                                     f"calls differ")
+        check(row["library_max_abs_err"] <= 1e-4,
+              "decode_attention: the library call is not the same function")
+        check(row["max_abs_err"] <= ATTN_TOL["decode_attention"]["float32"],
+              f"decode_attention timed {row['shape']}: max |kernel - plain| "
+              f"{row['max_abs_err']:.3e}")
+        errs["decode_attention"]["path"]["float32"] = max(
+            errs["decode_attention"]["path"]["float32"], row["max_abs_err"])
+        shapes.append(row)
+    main = shapes[0]
+    rows["decode_attention"] = {
+        **{k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "library")},
+        "timed_max_abs_err": main["max_abs_err"],
+        "max_abs_err": errs["decode_attention"]["path"]["float32"],
+        "max_abs_err_bf16": errs["decode_attention"]["path"]["bfloat16"],
+        "sweep_max_abs_err": errs["decode_attention"]["sweep"],
+        "shapes": shapes}
     torch.cuda.empty_cache()
     return rows
 
@@ -442,9 +669,10 @@ def phase_ssd_kernel() -> dict:
     the JAX wrapper's plumbing) and the chunked plain version on the card,
     within SSD_TOL, over a sweep that includes every (b, s) of phase 3e
     (SSD_PATH_SHAPES) for both models' heads; the continuation property
-    of ``init_state``; then timed at the main path's shape.  The largest
-    |kernel - recurrence| over the path's shapes is the kernels line's
-    ``max_abs_err``.
+    of ``init_state``; the float64 recurrence within twice the replaced
+    kernel's error; then timed at every path shape, two calls compared
+    bitwise.  The largest |kernel - recurrence| over the path's shapes is
+    the kernels line's ``max_abs_err``.
 
     Where the chunked plain version itself misses SSD_TOL -- its one-chunk
     fallback at a long ragged length sums exp(cum_i - cum_j) from cumsums
@@ -557,58 +785,39 @@ def phase_ssd_kernel() -> dict:
               f"{k} {v:.3e}" for k, v in errs.items())
           + "; at the path's shapes " + ", ".join(
               f"{k} {v:.3e}" for k, v in path_errs.items()))
-    # rounding at the serving path's lengths: the kernel (64-position
-    # chunks) and the chunked plain version (256-position chunks at 512,
-    # one chunk of 575 at 575) against the recurrence in float64
-    vs_fp64 = {}
-    for s in (512, 575):
-        x, dt, a_log, B, C = _ssd_inputs(gen, 2, s, *MAMBA2_SSD,
-                                         torch.float32, True)
-        exact = ssd_scan_recurrence(x.double(), dt.double(), a_log.double(),
-                                    B.double(), C.double())[0]
-        got = {"kernel": ssd_scan_kernel(x, dt, decay_rates(a_log), B, C)[0],
-               "chunked": ssd_scan_chunked(x, dt, a_log, B, C,
-                                           SSD_MODEL_CHUNK)[0]}
-        vs_fp64[s] = {k: float((v.double() - exact).abs().max())
-                      for k, v in got.items()}
-        vs_fp64[s]["max_abs_y"] = float(exact.abs().max())
-    print("  ssd_scan vs the float64 recurrence (mamba2 heads, b 2): "
-          + json.dumps(vs_fp64))
+    vs_fp64 = ssd_vs_float64()
+    for s, got in vs_fp64.items():
+        check(got["kernel"] <= 2 * SSD_FP64_PARENT[s],
+              f"ssd_scan s{s}: {got['kernel']:.3e} from the float64 "
+              f"recurrence, over twice the replaced kernel's "
+              f"{SSD_FP64_PARENT[s]:.3e}")
 
-    h, p, n = MAMBA2_SSD
-    b, s = SSD_PATH["b"], SSD_PATH["s"]
-    x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, torch.float32, True)
-    A = decay_rates(a_log)
-    out = ssd_scan_kernel(x, dt, A, B, C)
-    chunked = hold_chunked("timed", out, x, dt, a_log, B, C)
-    rec = ssd_scan_recurrence(x, dt, a_log, B, C)
-    hold("timed", out, rec, "recurrence")
-    hold_path(out, rec, chunked)
-    timed_err = gap(out, rec)
-    del rec
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
-                  + b * h * p * n)
-    b_ms, by = bound_ms(nbytes, 4 * p * n * b * s * h)
-    row = {"shape": f"b{b} s{s} h{h} p{p} n{n} fp32",
-           "ms": time_ms(lambda: ssd_scan_kernel(x, dt, A, B, C)),
-           "plain_ms": time_ms(lambda: ssd_scan_chunked(
-               x, dt, a_log, B, C, SSD_MODEL_CHUNK)),
-           "recurrence_ms": time_ms(
-               lambda: ssd_scan_recurrence(x, dt, a_log, B, C), reps=5),
-           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-           "library": "none (no PyTorch call computes the SSD scan)",
-           "bound_bytes": nbytes, "bound_flop": 4 * p * n * b * s * h,
-           "timed_max_abs_err": timed_err,
-           "max_abs_err": path_errs["recurrence"],
-           "path_max_abs_err": path_errs,
-           "sweep_max_abs_err": dict(errs), "checks": n_checks,
-           "vs_float64": vs_fp64, "reference_caveats": caveats}
-    print(f"  ssd_scan         {row['shape']} ms={row['ms']:.5f} "
-          f"bound_ms={b_ms:.5f} ({by}) plain_ms={row['plain_ms']:.5f} "
-          f"recurrence_ms={row['recurrence_ms']:.5f}")
-    del x, dt, a_log, B, C, out
+    shapes = []
+    for i, (b, s) in enumerate(SSD_TIMED):
+        row, (x, dt, a_log, B, C), out = ssd_timed_row(gen, b, s,
+                                                      recurrence=i == 0)
+        check(row["repeat_bitwise"], f"ssd_scan {row['shape']}: two calls "
+                                     f"differ")
+        chunked = hold_chunked(f"timed {row['shape']}", out, x, dt, a_log, B,
+                               C)
+        rec = ssd_scan_recurrence(x, dt, a_log, B, C)
+        hold(f"timed {row['shape']}", out, rec, "recurrence")
+        hold_path(out, rec, chunked)
+        shapes.append(row)
+        del x, dt, a_log, B, C, out, rec
     torch.cuda.empty_cache()
-    return row
+    main = shapes[0]
+    return {**{k: main[k] for k in (
+                "shape", "ms", "plain_ms", "recurrence_ms", "bound_ms",
+                "bound_by", "bound_tf32x3_ms", "bytes_bound_ms",
+                "library_ms", "library", "bound_bytes", "bound_flop",
+                "launch_us")},
+            "timed_max_abs_err": main["max_abs_err"],
+            "max_abs_err": path_errs["recurrence"],
+            "path_max_abs_err": path_errs,
+            "sweep_max_abs_err": dict(errs), "checks": n_checks,
+            "vs_float64": vs_fp64, "reference_caveats": caveats,
+            "shapes": shapes}
 
 
 # -------------------------------------------------------------- 3. path ----
@@ -1291,6 +1500,7 @@ def main() -> int:
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "shape", "library", "max_abs_err_bf16",
                      "timed_max_abs_err", "sweep_max_abs_err")},
+                 **({"shapes": row["shapes"]} if "shapes" in row else {}),
                  "held_against_plain": True}
         summary.append(entry)
         print(f"  {name:16s} held within {ATTN_TOL[name]} of its plain "
@@ -1304,9 +1514,10 @@ def main() -> int:
              **{k: ssd[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "shape", "library", "recurrence_ms",
+                 "bound_tf32x3_ms", "bytes_bound_ms", "launch_us",
                  "timed_max_abs_err", "path_max_abs_err",
                  "sweep_max_abs_err", "vs_float64",
-                 "reference_caveats")},
+                 "reference_caveats", "shapes")},
              "held_against_plain": True}
     summary.append(entry)
     print(f"  {name:16s} held within {SSD_TOL} of its plain versions; "

@@ -17,10 +17,12 @@ Kernels on the model zoo's serving path (``models/attention.py``):
   flash_attention  -- causal or full GQA attention forward with an online
                       softmax (the forward and ``Model.prefill``)
   decode_attention -- flash decoding of one query step per GQA group
-                      against the KV cache (every ``decode_step``)
+                      against the KV cache, split over the prefix
+                      (every ``decode_step``)
 Kernel on the ssm and hybrid families' path (``models/ssm.py``):
-  ssd_scan         -- the Mamba-2 chunked SSD scan with the fp32 state
-                      carried across chunks (every forward)
+  ssd_scan         -- the Mamba-2 SSD scan, chunks in parallel on the
+                      tensor cores (3xTF32) with the fp32 state passed
+                      from chunk to chunk (every forward)
 
 The CUDA sources are compiled with nvcc at first use (:mod:`.build`);
 importing this package needs neither a card nor a compiler.

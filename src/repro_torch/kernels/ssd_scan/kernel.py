@@ -5,9 +5,12 @@ on one card, in the model's layout (p and n contiguous, any other
 strides: B and C are read at batch row ``bh // h``, never broadcast over
 the heads), and an optional fp32 initial state (b, h, p, n).  It checks
 what the kernel takes, allocates y (b, s, h, p) and the final state
-(b, h, p, n), both fp32, with ``torch.empty``, launches on the current
-stream, raises if the launch was refused, and adds one to
-:data:`launches`.  It replaces the Pallas TPU kernel of the JAX package's
+(b, h, p, n), both fp32, and one fp32 scratch tensor for every chunk's
+own state, C B^T per (b, chunk) and every chunk's decay
+(:func:`scratch_floats`) with ``torch.empty``, picks the 16-byte copies
+the layouts allow, makes the kernel's three launches on the current
+stream, raises if one was refused, and adds one to :data:`launches`.  It
+replaces the Pallas TPU kernel of the JAX package's
 ``kernels/ssd_scan/kernel.py``.
 """
 from __future__ import annotations
@@ -24,11 +27,34 @@ launches = {"ssd_scan": 0}
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's chunk
+CHUNK = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ssd_scan_launch": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), _P]}
+
+
+def n_chunks(s: int) -> int:
+    """The kernel's chunks over s positions (the last one may be ragged)."""
+    return -(-s // CHUNK)
+
+
+def scratch_floats(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Every (b, h, chunk)'s own state (p and n padded to multiples of 32),
+    C B^T per (b, chunk), and every (b, h, chunk)'s decay exp(cum_end)."""
+    nc = n_chunks(s)
+    pad = lambda v: -(-v // 32) * 32  # noqa: E731
+    return b * h * nc * pad(p) * pad(n) + b * nc * CHUNK * CHUNK + b * h * nc
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Rows of ``t``'s last dim may be copied 16 bytes at a time: the row,
+    every other stride and the address are multiples of 16 bytes."""
+    es = t.element_size()
+    return all(x % 16 == 0 for x in (t.shape[-1] * es, t.data_ptr(),
+                                     *(st * es for st in t.stride()[:-1])))
 
 
 def reset_launches() -> None:
@@ -86,6 +112,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b * h == 0:
         return y, state
+    scratch = torch.empty(max(scratch_floats(b, s, h, p, n), 1),
+                          dtype=torch.float32, device=x.device)
+    vec = aligned16(x) | aligned16(B) << 1 | aligned16(C) << 2
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2])
     with torch.cuda.device(x.device):
@@ -93,8 +122,8 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         rc = load("ssd_scan", _SIGNATURES).ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), DTYPE_CODES[x.dtype], b, h, s, p,
-            n, strides, stream)
+            y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+            DTYPE_CODES[x.dtype], b, h, s, p, n, vec, strides, stream)
     check_launch(rc, "ssd_scan")
     launches["ssd_scan"] += 1
     return y, state

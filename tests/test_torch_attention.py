@@ -193,3 +193,87 @@ def test_kernel_wrappers_take_cuda_tensors_only(call):
     flash_attention(q, k, k, causal=True)
     decode_attention(q[:, 0], k, k, 4)
     assert {**fa_kernel.launches, **dec_kernel.launches} == before
+
+
+# ------------------------------------------------- split-KV plumbing ---------
+
+def _split_merge(q, k, v, length, per, *, sm_scale):
+    """The decode kernel's split algebra in plain torch on the folded
+    layout: per range of ``per`` whole tiles, fp32 (max, sum, unnormalised
+    accumulator); the ranges merged in order by the log-sum-exp rule."""
+    span = per * dec_kernel.TILE
+    parts = []
+    for lo in range(0, length, span):
+        kk = k[:, lo:min(lo + span, length)].float()
+        vv = v[:, lo:min(lo + span, length)].float()
+        s = torch.einsum("bgd,bkd->bgk", q.float(), kk) * sm_scale
+        mx = s.amax(dim=-1)
+        p = torch.exp(s - mx[..., None])
+        parts.append((mx, p.sum(dim=-1), torch.einsum("bgk,bkd->bgd", p, vv)))
+    m = torch.stack([mx for mx, _, _ in parts]).amax(dim=0)
+    total, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+    for mx, l, a in parts:
+        f = torch.exp(mx - m)
+        total = total + l * f
+        acc = acc + a * f[..., None]
+    return (acc / total[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 300, 577])
+@pytest.mark.parametrize("g,d", [(1, 64), (3, 64), (1, 80), (3, 80)])
+def test_split_merge_algebra_matches_decode_ref(g, d, length):
+    """The partials of every split merged by log-sum-exp give the one-pass
+    softmax, at any split of the prefix into whole tiles (fp32, 1e-6)."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(g * 1000 + d + length)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((2, g, d), (2, 577, d), (2, 577, d)))
+    want = decode_attention_ref(q, k, v, length, sm_scale=d ** -0.5)
+    tiles = -(-length // dec_kernel.TILE)
+    for per in sorted({1, 2, 3, tiles}):
+        got = _split_merge(q, k, v, length, per, sm_scale=d ** -0.5)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_units,length", [
+    (40, 577), (20, 2048), (128, 48), (1, 300), (1, 1), (7, 0), (3, 64),
+    (3, 65), (15, 577), (400, 4096), (1, 1 << 20), (132, 129), (2, 640),
+])
+def test_split_planner_covers_the_prefix_in_whole_tiles(n_units, length):
+    """No empty split, never more splits than tiles, every tile covered,
+    one split for at most one tile, and more than one split wherever the
+    units leave SMs idle and the prefix has more than one tile."""
+    sms = 132
+    n, per = dec_kernel.plan_splits(n_units, length, sms)
+    tiles = -(-length // dec_kernel.TILE)
+    assert n >= 1
+    if tiles <= 1:
+        assert (n, per) == (1, tiles)
+        return
+    assert n <= tiles and (n - 1) * per < tiles <= n * per
+    if n_units < sms:
+        assert n > 1
+
+
+def test_split_plans_of_the_serving_shapes():
+    """smollm's timed decode shapes split, zamba2's one-tile caches do not;
+    a group of 16 heads takes two blocks per kv head."""
+    units, plan = dec_kernel.units, dec_kernel.plan_splits
+    assert units(8, 15, 5) == 40 and plan(40, 577, 132) == (10, 1)
+    assert units(4, 15, 5) == 20 and plan(20, 2048, 132) == (16, 2)
+    assert units(4, 32, 32) == 128 and plan(128, 48, 132) == (1, 1)
+    assert units(1, 128, 8) == 16
+
+
+@pytest.mark.parametrize("d,esize,offsets,want", [
+    (64, 4, (64 * 5 * 4, 64 * 4, 577 * 64 * 5 * 4), 16),
+    (80, 2, (80 * 32 * 2, 80 * 2), 16),
+    (20, 2, (20 * 3 * 2, 20 * 2), 8),
+    (20, 4, (20 * 3 * 4, 20 * 4), 16),
+    (21, 4, (21 * 4,), 4),
+    (21, 2, (21 * 2,), 2),
+    (64, 4, (64 * 4, 8), 8),
+])
+def test_copy_bytes_is_the_widest_that_divides_the_layout(d, esize, offsets,
+                                                          want):
+    assert dec_kernel.copy_bytes(d, esize, *offsets) == want

@@ -238,3 +238,98 @@ def test_mamba2_block_with_cache_matches_jax_leaf_by_leaf(mixer):
             _close(cache[k], jcache[k])
     # the single steps continue the chunked pass: the whole block agrees
     _close(out, tssm.mamba2_block(x, tp, cfg)[:, -1:])
+
+
+# ------------------------------------------- the kernel's chunk plumbing ----
+
+def _three_pass(x, dt, A, B, C, init):
+    """The CUDA kernel's algebra in plain torch on the model's layout, in
+    its own 64-position chunks with the tail padded by dt = 0, x = 0:
+    (1) G = C B^T per (b, chunk), shared by the heads; (2) per (b, chunk,
+    head) y_diag = (G o L)(x dt) and the chunk's own state S_c; (3) per
+    (b, head) the chunks in order, y += exp(cum) C S_prev^T and S_prev <-
+    exp(cum_end) S_prev + S_c."""
+    b, s, h, p = x.shape
+    n, L = B.shape[-1], ssd_kernel.CHUNK
+    nc = ssd_kernel.n_chunks(s)
+    pad = nc * L - s
+    xp, dtp, Bp, Cp = (torch.nn.functional.pad(t, (0,) * (2 * (t.dim() - 2))
+                                               + (0, pad))
+                       for t in (x, dt, B, C))
+    xc = xp.reshape(b, nc, L, h, p)
+    dtc = dtp.reshape(b, nc, L, h)
+    Bc, Cc = Bp.reshape(b, nc, L, n), Cp.reshape(b, nc, L, n)
+    cum = torch.cumsum(dtc * A, dim=2)                       # (b,nc,L,h)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)              # once per chunk
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,i,j,h)
+    lower = torch.tril(torch.ones(L, L, dtype=torch.bool))[None, None, :, :,
+                                                          None]
+    Lmat = torch.where(lower, torch.exp(torch.where(lower, diff, 0.0)), 0.0)
+    xdt = xc * dtc[..., None]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", G, Lmat, xdt)
+    w = torch.exp(cum[:, :, -1:, :] - cum)                   # (b,nc,L,h)
+    Sc = torch.einsum("bclh,bclhp,bcln->bchpn", w, xdt, Bc)
+    S = init.clone()
+    for c in range(nc):
+        y[:, c] += torch.exp(cum[:, c])[..., None] * torch.einsum(
+            "bln,bhpn->blhp", Cc[:, c], S)
+        S = torch.exp(cum[:, c, -1])[..., None, None] * S + Sc[:, c]
+    return y.reshape(b, nc * L, h, p)[:, :s], S
+
+
+@pytest.mark.parametrize("s", [1, 47, 64, 65, 130])
+def test_kernel_three_pass_algebra_matches_recurrence(s):
+    """The kernel's decomposition -- ragged tail, shared C B^T, chunk
+    states, serial state pass from an initial state -- is the recurrence
+    (float64, so only the algebra is held)."""
+    b, h, p, n = 2, 3, 4, 5
+    (_, x), (_, dt), (_, a_log), (_, B), (_, C) = _model_inputs(
+        b, s, h, p, n, seed=s)
+    x, dt, a_log, B, C = (t.double() for t in (x, dt, a_log, B, C))
+    init = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (b, h, p, n)))
+    y, st = _three_pass(x, dt, ssd_ops.decay_rates(a_log), B, C, init)
+    yr, sr = ssd_ops.ssd_scan_recurrence(x, dt, a_log, B, C, init)
+    torch.testing.assert_close(y, yr, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(st, sr, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("s,want", [(0, 0), (1, 1), (64, 1), (65, 2),
+                                    (512, 8), (575, 9), (2048, 32)])
+def test_kernel_chunk_count(s, want):
+    assert ssd_kernel.n_chunks(s) == want
+
+
+def test_kernel_scratch_size():
+    """Each (b, h, chunk)'s state with p and n padded to multiples of 32
+    (the accumulators' order), C B^T per (b, chunk), a decay per (b, h,
+    chunk)."""
+    assert ssd_kernel.scratch_floats(8, 512, 32, 64, 128) == (
+        8 * 32 * 8 * 64 * 128 + 8 * 8 * 64 * 64 + 8 * 32 * 8)
+    assert ssd_kernel.scratch_floats(3, 96, 1, 16, 8) == (
+        3 * 1 * 2 * 32 * 32 + 3 * 2 * 64 * 64 + 3 * 1 * 2)
+    assert ssd_kernel.scratch_floats(2, 0, 4, 64, 64) == 0
+
+
+@pytest.mark.parametrize("b,s,h,want", [
+    (2, 575, 32, 576), (8, 512, 32, 2048), (4, 47, 32, 128),
+    (2, 575, 80, 1440), (4, 47, 80, 320),
+])
+def test_kernel_chunk_blocks(b, s, h, want):
+    """The chunk and output kernels take a block per (b, chunk, head): at
+    b 2, s 575 with mamba2 heads 576, over two per SM of an H100, where
+    the kernel they replaced took one per (b, head), 64."""
+    assert b * ssd_kernel.n_chunks(s) * h == want
+    if (b, s, h) == (2, 575, 32):
+        assert want >= 2 * 132 > b * h
+
+
+def test_kernel_aligned16_reads_the_layout():
+    """16-byte copies only where the row, every stride and the address
+    are multiples of 16 bytes."""
+    x = torch.zeros(2, 10, 3, 64)
+    assert ssd_kernel.aligned16(x)
+    assert ssd_kernel.aligned16(torch.zeros(2, 10, 8, dtype=torch.bfloat16))
+    assert not ssd_kernel.aligned16(torch.zeros(2, 10, 6))
+    assert not ssd_kernel.aligned16(torch.zeros(2, 10, 9)[:, :, 1:])
+    assert ssd_kernel.aligned16(torch.zeros(2, 10, 8)[:, 4:])
