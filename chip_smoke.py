@@ -19,9 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    block: h 32, m 32, d 80); then CUDA-event times (median of 20
    back-to-back launches after warm-up) of the kernel, its plain version
    and the one library call that computes the same function, where there
-   is one, at the main path's shapes (decode attention at b 8, S 577 and
-   at b 4, S 2048), each kernel output held against the plain version
-   there too and two calls of each redesigned kernel compared bitwise;
+   is one, at the main path's shapes (flash attention at every shape
+   phases 3d and 3e give it, FLASH_TIMED; decode attention at b 8, S 577
+   and at b 4, S 2048), each kernel output held against the plain version
+   there too and two calls of each kernel compared bitwise; flash
+   attention against attention in float64 at b 4, s 2048 (within twice
+   the error of the kernel it replaced, FLASH_FP64_PARENT);
    the SSD scan kernel against the exact recurrence and the chunked plain
    version within SSD_TOL over tests/test_kernels.py's shapes and the
    zoo's heads (mamba2-370m: h 32, p 64, n 128; zamba2-2.7b: h 80, p 64,
@@ -32,8 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    float64 recurrence and nearer to it: a reference caveat), then against
    the float64 recurrence at s = 512 and 575 (within twice the error of
    the kernel it replaced, SSD_FP64_PARENT), and timed at every (b, s) of
-   3e with an fp32, a 3xTF32 and a bytes bound (no PyTorch call computes
-   the SSD: no library time);
+   3e with a 3xTF32 (the kernels line's), an fp32 and a bytes bound (no
+   PyTorch call computes the SSD: no library time);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -106,11 +109,27 @@ FLASH_PATH = dict(b=4, s=2048)          # Model.prefill in phase 3d (c)
 DECODE_PATH = dict(b=8, S=577)          # the last step of phase 3d (b)
 #: decode attention timed (b, S, length) at smollm's heads: the last step
 #: of phase 3d (b), and the last of 3d (c)'s 2048-step loop at batch 4
-#: (most of the path's decode launches)
 DECODE_TIMED = ((DECODE_PATH["b"], DECODE_PATH["S"], DECODE_PATH["S"]),
                 (FLASH_PATH["b"], FLASH_PATH["s"], FLASH_PATH["s"]))
 #: zamba2-2.7b's shared attention block (h 32 over m 32, head_dim 80)
 ZAMBA2_HEADS, ZAMBA2_KV_HEADS, ZAMBA2_HEAD_DIM = 32, 32, 80
+#: flash attention timed (b, s, h, m, d), causal fp32 as the serving path
+#: gives it: 3d (c)'s prefill (the main shape), 3d (b)'s perplexity over
+#: 512 + 64 - 1 positions, 3d (a)'s over 16 + 32 - 1, zamba2's shared block
+#: in 3e (a)
+_SMOLLM_ATTN = (SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM)
+FLASH_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
+               (8, 512 + 64 - 1, *_SMOLLM_ATTN),
+               (4, 16 + 32 - 1, *_SMOLLM_ATTN),
+               (4, 16 + 32 - 1, ZAMBA2_HEADS, ZAMBA2_KV_HEADS,
+                ZAMBA2_HEAD_DIM))
+#: flash attention against attention in float64 (the main shape, inputs
+#: from FLASH_FP64_SEED): the CUDA-core kernel that the tensor-core one
+#: replaced read this max |o - exact| on these inputs
+#: (``flash_vs_float64`` run in its checkout, NVIDIA H100 80GB HBM3 at
+#: 700 W); the tensor-core kernel may err by at most twice as much
+FLASH_FP64_SEED = 3
+FLASH_FP64_PARENT = 1.1232379750758525e-06
 #: card vs CPU fp32 logits of full-width smollm-360m, relative to the
 #: largest |logit| (and perplexity, relative): the card's fp32 GEMMs and
 #: the attention kernels sum in other orders than the CPU over 32 layers
@@ -220,10 +239,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
                              for i in range(reps))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32x3_bound_ms(nbytes: float, flop: float) -> tuple[float, str]:
+    """The bound of fp32 products done as 3xTF32 on the tensor cores, as
+    the flash and SSD kernels do them: three TF32 products per fp32 one."""
+    return bound_ms(nbytes, 3 * flop, TF32_OPS_PER_S)
 
 
 def decode_timed_row(gen, b: int, S: int, length: int) -> dict:
@@ -297,9 +323,10 @@ def ssd_timed_row(gen, b: int, s: int, recurrence: bool = False):
     """The SSD kernel at mamba2-370m's heads in fp32 with the model's
     ranges: two kernel calls compared bitwise, the error against the fp32
     recurrence, then CUDA-event times of the kernel, the chunked plain
-    version and (``recurrence``) the recurrence.  Three bounds: the fp32
-    operations on CUDA cores (the kernels line's), the same operations as
-    3xTF32 on the tensor cores (three TF32 products each), and the bytes.
+    version and (``recurrence``) the recurrence.  Three bounds: the
+    operations as 3xTF32 on the tensor cores (three TF32 products each, as
+    the kernel does them; the kernels line's), the same operations in fp32
+    on CUDA cores, and the bytes.
     Returns (row, inputs, kernel output) for the caller's checks."""
     import torch
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
@@ -319,7 +346,7 @@ def ssd_timed_row(gen, b: int, s: int, recurrence: bool = False):
     flop = 4 * p * n * b * s * h
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                   + b * h * p * n)
-    b_ms, by = bound_ms(nbytes, flop)
+    b_ms, by = tf32x3_bound_ms(nbytes, flop)
     row = {"shape": f"b{b} s{s} h{h} p{p} n{n} fp32",
            "max_abs_err": err,
            "repeat_bitwise": all(map(_bits_equal, out, again)),
@@ -327,8 +354,7 @@ def ssd_timed_row(gen, b: int, s: int, recurrence: bool = False):
            "plain_ms": time_ms(lambda: ssd_scan_chunked(
                x, dt, a_log, B, C, SSD_MODEL_CHUNK)),
            "bound_ms": b_ms, "bound_by": by,
-           "bound_tf32x3_ms": max(nbytes / HBM_BYTES_PER_S,
-                                  3 * flop / TF32_OPS_PER_S) * 1e3,
+           "bound_fp32_ms": bound_ms(nbytes, flop)[0],
            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_bytes": nbytes, "bound_flop": flop, "library_ms": None,
            "library": "none (no PyTorch call computes the SSD scan)"}
@@ -338,8 +364,8 @@ def ssd_timed_row(gen, b: int, s: int, recurrence: bool = False):
         row["launch_us"] = _launch_profile(
             lambda: ssd_scan_kernel(x, dt, A, B, C))
     print(f"  ssd_scan         {row['shape']} ms={row['ms']:.5f} "
-          f"bound_ms={b_ms:.5f} ({by}; 3xTF32 "
-          f"{row['bound_tf32x3_ms']:.5f}, bytes {row['bytes_bound_ms']:.5f}) "
+          f"bound_ms={b_ms:.5f} (3xTF32 {by}; fp32 "
+          f"{row['bound_fp32_ms']:.5f}, bytes {row['bytes_bound_ms']:.5f}) "
           f"plain_ms={row['plain_ms']:.5f}"
           + (f" recurrence_ms={row['recurrence_ms']:.5f}" if recurrence
              else "")
@@ -378,18 +404,148 @@ def ssd_vs_float64() -> dict:
     return vs_fp64
 
 
+def _causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a top-left causal mask keeps."""
+    return sum(min(sk, i + 1) for i in range(sq))
+
+
+def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
+    """Flash attention, causal fp32, q (b, s, h, d) and k/v (b, s, m, d):
+    the kernel against its plain version, two kernel calls compared
+    bitwise, then CUDA-event times of the kernel, the plain version and
+    ``F.scaled_dot_product_attention``, and the kernel's device time by
+    launch (torch.profiler).  Three bounds: the operations of QK^T and P V
+    over the causal pairs as 3xTF32 on the tensor cores (three TF32
+    products each, as the kernel does them; the kernels line's), the same
+    operations in fp32 on CUDA cores, and the bytes (q, k, v read once, o
+    written once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
+                           (b, s, m, d))
+
+    def kernel_fn():
+        return flash_attention_kernel(q, k, v, causal=True)
+
+    def plain_fn():
+        return flash_attention_plain(q, k, v, causal=True)
+
+    def library_fn():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    out, again, ref, lib = kernel_fn(), kernel_fn(), plain_fn(), library_fn()
+    torch.cuda.synchronize()
+    flop = 4 * b * h * _causal_pairs(s, s) * d
+    nbytes = 4 * (2 * b * s * h * d + 2 * b * s * m * d)
+    b_ms, by = tf32x3_bound_ms(nbytes, flop)
+    row = {"shape": f"b{b} s{s} h{h} m{m} d{d} causal fp32",
+           "max_abs_err": float((out - ref).abs().max()),
+           "repeat_bitwise": _bits_equal(out, again),
+           "library_max_abs_err": float((lib - ref).abs().max()),
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "library_ms": time_ms(library_fn),
+           "library": "F.scaled_dot_product_attention(..., is_causal=True, "
+                      "enable_gqa=True)",
+           "bound_ms": b_ms, "bound_by": by,
+           "bound_fp32_ms": bound_ms(nbytes, flop)[0],
+           "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_bytes": nbytes, "bound_flop": flop,
+           "launch_us": _launch_profile(kernel_fn)}
+    del q, k, v, out, again, ref, lib
+    print(f"  flash_attention  {row['shape']} ms={row['ms']:.5f} "
+          f"bound_ms={b_ms:.5f} (3xTF32 {by}; fp32 {row['bound_fp32_ms']:.5f}, "
+          f"bytes {row['bytes_bound_ms']:.5f}) plain_ms={row['plain_ms']:.5f} "
+          f"library_ms={row['library_ms']:.5f} max|err|="
+          f"{row['max_abs_err']:.3e} repeat_bitwise={row['repeat_bitwise']} "
+          f"launch_us=" + json.dumps(row["launch_us"]))
+    return row
+
+
+def flash_vs_float64() -> dict:
+    """Rounding at the main shape: the kernel and the plain version against
+    attention in float64 (the plain version's arithmetic), causal, smollm's
+    heads, on inputs from their own seed (the same in every checkout)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_plain, fold_gqa)
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
+    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_FP64_SEED)
+    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
+                           (b, s, m, d))
+    qf, kf, vf = (x.double() for x in fold_gqa(q, k, v))
+    sc = torch.einsum("bqd,bkd->bqk", qf, kf) * d ** -0.5
+    keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    sc = sc.masked_fill(~keep, NEG_INF).softmax(dim=-1)
+    exact = torch.einsum("bqk,bkd->bqd", sc, vf).reshape(
+        b, h, s, d).transpose(1, 2)
+    del sc, qf, kf, vf
+    got = {"kernel": flash_attention_kernel(q, k, v, causal=True),
+           "plain": flash_attention_plain(q, k, v, causal=True)}
+    out = {key: float((val.double() - exact).abs().max())
+           for key, val in got.items()}
+    out["max_abs_o"] = float(exact.abs().max())
+    print(f"  flash_attention vs float64 (b{b} s{s} h{h} m{m} d{d} causal): "
+          + json.dumps(out))
+    return out
+
+
+def prefill_timed(reps: int = 5) -> dict:
+    """End to end for flash attention: full-width smollm-360m (fp32, seed
+    0) ``Model.prefill`` at phase 3d (c)'s b 4, s 2048 -- 32 flash
+    launches among the model's GEMMs and elementwise kernels -- timed by
+    CUDA events (median of ``reps`` after a warm-up), and the flash
+    kernel's share of it by torch.profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    arch = get_arch("smollm-360m")
+    arch = arch.replace(model=arch.model.replace(dtype="float32"))
+    model = build_model(arch, device="cuda", seed=0)
+    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, arch.model.vocab_size, (b, s))).cuda()
+
+    def run():
+        with torch.no_grad():
+            return model.prefill({"tokens": toks}, max_seq=s)
+
+    ms = time_ms(run, reps=reps, warmup=1)
+    flash_us = sum(v for k, v in _launch_profile(run, reps=2).items()
+                   if "flash_attention" in k)
+    out = {"shape": f"b{b} s{s}", "ms": ms, "flash_ms": flash_us / 1e3}
+    print(f"  smollm-360m prefill b{b} s{s}: {ms:.3f} ms, flash "
+          f"{flash_us / 1e3:.3f} ms of it")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def redesign_baseline() -> dict:
-    """The two redesigned kernels' readings alone, for a checkout of any
-    commit with this file copied to its root: decode attention and the SSD
-    scan at their timed shapes, and the SSD kernel against the float64
-    recurrence.  ``python3 -c 'import chip_smoke as c;
-    c.redesign_baseline()'`` after phase 1's build."""
+    """The redesigned kernels' readings alone, for a checkout of any commit
+    with this file copied to its root: decode attention, the SSD scan and
+    flash attention at their timed shapes, the SSD and flash kernels
+    against float64, and smollm-360m's prefill end to end.  ``python3 -c 'import chip_smoke as c;
+    c.phase_device(); c.redesign_baseline()'``."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"decode_attention": [decode_timed_row(gen, *shape)
                                 for shape in DECODE_TIMED],
            "ssd_scan": [ssd_timed_row(gen, b, s)[0] for b, s in SSD_TIMED],
-           "ssd_vs_float64": ssd_vs_float64()}
+           "ssd_vs_float64": ssd_vs_float64(),
+           "flash_attention": [flash_timed_row(gen, *shape)
+                               for shape in FLASH_TIMED],
+           "flash_vs_float64": flash_vs_float64(),
+           "prefill": prefill_timed()}
     print(json.dumps({"redesign_baseline": out}))
     return out
 
@@ -483,10 +639,11 @@ def _attn_inputs(gen, dtype, *shapes):
 
 def phase_attention_kernels() -> dict:
     """Flash attention and flash decoding against their plain versions on
-    the card (within ATTN_TOL), then timed at the main path's shapes (the
-    decode kernel at both DECODE_TIMED shapes, two calls bitwise equal)."""
+    the card (within ATTN_TOL), then timed at the main path's shapes (flash
+    at every FLASH_TIMED shape, decode at both DECODE_TIMED shapes, two
+    calls of each bitwise equal), and flash against float64 within twice
+    the replaced kernel's error (FLASH_FP64_PARENT)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_kernel)
     from repro_torch.kernels.decode_attention.ops import (
@@ -585,42 +742,34 @@ def phase_attention_kernels() -> dict:
                   f"{group} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
                   for group, e in by_group.items()))
     rows = {}
-
-    def record(name, shape, kernel_fn, plain_fn, library_fn, nbytes, ops):
-        out, ref, lib = kernel_fn(), plain_fn(), library_fn()
-        err = hold(name, out, ref, torch.float32, f"timed {shape}", "path")
-        lib_err = float((lib.float() - ref.float()).abs().max())
-        check(lib_err <= 1e-4, f"{name}: the library call is not the same "
-                               f"function (max |lib - plain| {lib_err:.3e})")
-        b_ms, by = bound_ms(nbytes, ops)
-        rows[name] = {"shape": shape, "ms": time_ms(kernel_fn),
-                      "plain_ms": time_ms(plain_fn), "bound_ms": b_ms,
-                      "bound_by": by, "library_ms": time_ms(library_fn),
-                      "library": "F.scaled_dot_product_attention(..., "
-                                 "enable_gqa=True)",
-                      "timed_max_abs_err": err,
-                      "max_abs_err": errs[name]["path"]["float32"],
-                      "max_abs_err_bf16": errs[name]["path"]["bfloat16"],
-                      "sweep_max_abs_err": errs[name]["sweep"],
-                      "library_max_abs_err": lib_err}
-        r = rows[name]
-        print(f"  {name:16s} {shape} ms={r['ms']:.5f} bound_ms={b_ms:.5f} "
-              f"({by}) plain_ms={r['plain_ms']:.5f} "
-              f"library_ms={r['library_ms']:.5f}")
-
-    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
-    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
-    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
-                           (b, s, m, d))
-    record("flash_attention", f"b{b} s{s} h{h} m{m} d{d} causal fp32",
-           lambda: flash_attention_kernel(q, k, v, causal=True),
-           lambda: flash_attention_plain(q, k, v, causal=True),
-           lambda: F.scaled_dot_product_attention(
-               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-               is_causal=True, enable_gqa=True).transpose(1, 2),
-           4 * (2 * b * s * h * d + 2 * b * s * m * d),
-           4 * b * h * s * s * d / 2)
-    del q, k, v
+    shapes = []
+    for shape in FLASH_TIMED:
+        row = flash_timed_row(gen, *shape)
+        check(row["repeat_bitwise"], f"flash_attention {row['shape']}: two "
+                                     f"calls differ")
+        check(row["library_max_abs_err"] <= 1e-4,
+              "flash_attention: the library call is not the same function")
+        check(row["max_abs_err"] <= ATTN_TOL["flash_attention"]["float32"],
+              f"flash_attention timed {row['shape']}: max |kernel - plain| "
+              f"{row['max_abs_err']:.3e}")
+        errs["flash_attention"]["path"]["float32"] = max(
+            errs["flash_attention"]["path"]["float32"], row["max_abs_err"])
+        shapes.append(row)
+    vs_fp64 = flash_vs_float64()
+    check(vs_fp64["kernel"] <= 2 * FLASH_FP64_PARENT,
+          f"flash_attention: {vs_fp64['kernel']:.3e} from float64, over "
+          f"twice the replaced kernel's {FLASH_FP64_PARENT:.3e}")
+    main = shapes[0]
+    rows["flash_attention"] = {
+        **{k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "bound_fp32_ms",
+                                "bytes_bound_ms", "library_ms", "library",
+                                "launch_us")},
+        "timed_max_abs_err": main["max_abs_err"],
+        "max_abs_err": errs["flash_attention"]["path"]["float32"],
+        "max_abs_err_bf16": errs["flash_attention"]["path"]["bfloat16"],
+        "sweep_max_abs_err": errs["flash_attention"]["sweep"],
+        "vs_float64": vs_fp64, "shapes": shapes}
     shapes = []
     for b, S, length in DECODE_TIMED:
         row = decode_timed_row(gen, b, S, length)
@@ -809,7 +958,7 @@ def phase_ssd_kernel() -> dict:
     main = shapes[0]
     return {**{k: main[k] for k in (
                 "shape", "ms", "plain_ms", "recurrence_ms", "bound_ms",
-                "bound_by", "bound_tf32x3_ms", "bytes_bound_ms",
+                "bound_by", "bound_fp32_ms", "bytes_bound_ms",
                 "library_ms", "library", "bound_bytes", "bound_flop",
                 "launch_us")},
             "timed_max_abs_err": main["max_abs_err"],
@@ -1444,27 +1593,32 @@ PATH_KERNELS = ("quantize8_ef", "topk_ef")
 
 
 def main() -> int:
-    print("phase 1: device")
+    t0 = time.time()
+
+    def phase(name: str) -> None:
+        print(f"phase {name} (at {time.time() - t0:.1f} s)")
+
+    phase("1: device")
     card = phase_device()
     import torch
-    print("phase 2: kernels")
+    phase("2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
     ssd = phase_ssd_kernel()
-    print("phase 3: path")
+    phase("3: path")
     launches, preset, cpu_losses = phase_path()
     for name in PATH_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} never launched on the path")
-    print("phase 3a: control")
+    phase("3a: control")
     phase_control(preset, cpu_losses)
-    print("phase 3b: profile")
+    phase("3b: profile")
     print(json.dumps({"profile": phase_profile(preset)}))
-    print("phase 3c: presets")
+    phase("3c: presets")
     phase_presets()
-    print("phase 3d: serve")
+    phase("3d: serve")
     serve = phase_serve()
     print(json.dumps({"serve": serve}))
-    print("phase 3e: serve mamba2-370m and zamba2-2.7b")
+    phase("3e: serve mamba2-370m and zamba2-2.7b")
     serve_ssm = phase_serve_ssm()
     print(json.dumps({"serve_ssm": serve_ssm}))
     serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
@@ -1472,7 +1626,7 @@ def main() -> int:
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         check(serve_launches[name] > 0,
               f"{name} never launched on the serving path")
-    print("phase 4: summary")
+    phase("4: summary")
     summary = []
     for name, source, replaces in KERNELS:
         main_row = kern["rows"][name][MOBILENET_N]
@@ -1500,7 +1654,9 @@ def main() -> int:
                      "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "shape", "library", "max_abs_err_bf16",
                      "timed_max_abs_err", "sweep_max_abs_err")},
-                 **({"shapes": row["shapes"]} if "shapes" in row else {}),
+                 **{k: row[k] for k in ("bound_fp32_ms", "bytes_bound_ms",
+                                        "launch_us", "vs_float64", "shapes")
+                    if k in row},
                  "held_against_plain": True}
         summary.append(entry)
         print(f"  {name:16s} held within {ATTN_TOL[name]} of its plain "
@@ -1514,7 +1670,7 @@ def main() -> int:
              **{k: ssd[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "shape", "library", "recurrence_ms",
-                 "bound_tf32x3_ms", "bytes_bound_ms", "launch_us",
+                 "bound_fp32_ms", "bytes_bound_ms", "launch_us",
                  "timed_max_abs_err", "path_max_abs_err",
                  "sweep_max_abs_err", "vs_float64",
                  "reference_caveats", "shapes")},

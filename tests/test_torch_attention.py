@@ -6,7 +6,10 @@ the CPU.
 
 Tolerances are those of tests/test_kernels.py: 2e-5 for float32; 2e-2
 (flash) and 3e-2 (decode) for bfloat16.  The CUDA kernels are held against
-these plain versions on the card by ``chip_smoke.py``.
+these plain versions on the card by ``chip_smoke.py``.  The last tests
+state the tensor-core flash kernel's algebra in plain torch: its 3xTF32
+products against one-pass TF32, and its fragment maps (the key order that
+keeps P in registers, the head_dim layout of its wide loads).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -277,3 +280,164 @@ def test_split_plans_of_the_serving_shapes():
 def test_copy_bytes_is_the_widest_that_divides_the_layout(d, esize, offsets,
                                                           want):
     assert dec_kernel.copy_bytes(d, esize, *offsets) == want
+
+
+# ------------------------------------- the tensor-core kernel's algebra ------
+#
+# csrc/flash_attention.cu computes both products on the tensor cores as
+# 3xTF32 (a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, hi = a rounded to TF32 by
+# integer ops, lo = a - hi) with an online softmax over 64-key tiles, and
+# keeps P in registers by reading K's rows in a permuted order.  The tests
+# below state that algebra in plain torch on the CPU.
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), rounded to nearest by the kernel's
+    integer split: (bits + 0x1000) & ~0x1fff."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's three TF32 products, the small ones first
+    (each operand rounded to TF32; the products exact, the sums fp32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as one TF32 product: what the kernel must not do."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _flash_tiles(q, k, v, *, causal: bool, mm, tile: int = 64):
+    """The kernel's arithmetic on the folded layout (bh, s, d): scores and
+    P V through ``mm``, an fp32 online softmax over ``tile``-key tiles,
+    masked scores at -1e30, the row sums divided out at the end."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    m = torch.full((q.shape[0], sq, 1), NEG_INF)
+    l = torch.zeros(q.shape[0], sq, 1)
+    acc = torch.zeros(q.shape[0], sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = mm(q, kt.transpose(1, 2)) * d ** -0.5
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            s = s.masked_fill(keys > rows, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm(p, vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("d,h,m", [(64, 15, 5), (80, 32, 32)],
+                         ids=["smollm", "zamba2"])
+def test_3xtf32_products_hold_fp32_and_one_pass_tf32_does_not(d, h, m):
+    """At the serving models' head dims, the kernel's algebra with 3xTF32
+    products is within 2e-6 of fp32 ``attention_ref``; with one-pass TF32
+    products it is not, so the port's fp32 tolerance catches the wrong
+    precision.
+
+    The emulation sums in fp32 with rounding to nearest.  The tensor cores
+    truncate where they add (the lo operands' low bits and each mma's
+    accumulation), which this does not model: it cannot tell summing each
+    32 keys' P V from zero (the kernel's order) from summing P V straight
+    into the running accumulator.  That difference is held on the card by
+    chip_smoke.py's float64 gate."""
+    from repro_torch.kernels.flash_attention.ops import fold_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(d)
+    s = 150                       # three key tiles, the last one ragged
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((1, s, h, d), (1, s, m, d), (1, s, m, d)))
+    qf, kf, vf = fold_gqa(q, k, v)
+    want = attention_ref(qf, kf, vf, causal=True, sm_scale=d ** -0.5)
+    err3 = (_flash_tiles(qf, kf, vf, causal=True, mm=_mm_3xtf32)
+            - want).abs().max()
+    err1 = (_flash_tiles(qf, kf, vf, causal=True, mm=_mm_tf32)
+            - want).abs().max()
+    assert err3 <= 2e-6, err3
+    assert err1 > 2e-6 * 50, err1
+
+
+# the kernel's fragment maps (mma.sync m16n8k8, lane = 4 g + t)
+def _key_of_b_lane(g: int) -> int:
+    """The key of its 8-key group that lane group g reads into K's B
+    fragment (score column g)."""
+    return g // 2 + 4 * (g % 2)
+
+
+def _score_c_fragment(g: int, t: int):
+    """(row, key) of c0..c3 of a score tile: columns 2t, 2t + 1 of rows
+    g, g + 8, where column n holds key _key_of_b_lane(n)."""
+    return [(r, _key_of_b_lane(n)) for r in (g, g + 8)
+            for n in (2 * t, 2 * t + 1)]
+
+
+def _pv_a_fragment(g: int, t: int):
+    """(row, key) of a0..a3 of P V's A fragment: k is the key in order."""
+    return [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+
+
+def test_permuted_score_fragment_is_the_pv_a_fragment():
+    """With K's rows read in the permuted order, every lane's score values
+    (c0, c2, c1, c3) are its A fragment of P V for V in natural key order:
+    P never leaves the registers."""
+    assert sorted(_key_of_b_lane(g) for g in range(8)) == list(range(8))
+    for g in range(8):
+        for t in range(4):
+            c = _score_c_fragment(g, t)
+            assert [c[0], c[2], c[1], c[3]] == _pv_a_fragment(g, t)
+
+
+@pytest.mark.parametrize("nc", [1, 4, 5, 8])
+def test_head_dim_permutations_cover_every_dim_once(nc):
+    """QK^T's k-slots and P V's output columns as the kernel lays them out
+    for head_dim padded to 16 nc: each lane's 16-byte K load and its four
+    stored outputs are contiguous, and every dim is used exactly once."""
+    dims = []                     # (k-step, k-slot) -> dim, Q and K alike
+    for j in range(nc):
+        for step in range(2):
+            for t in range(4):
+                for slot in (t, t + 4):
+                    dims.append(16 * j + 4 * t + 2 * step + (slot >= 4))
+    assert sorted(dims) == list(range(16 * nc))
+    for i in range(nc):           # V's columns by (n-tile 2i + u, lane g)
+        cols = {(u, g): 16 * i + 2 * g + u for u in range(2) for g in range(8)}
+        assert sorted(cols.values()) == list(range(16 * i, 16 * i + 16))
+        for t in range(4):
+            # the lane's outputs as stored: acc[2i][0], acc[2i + 1][0],
+            # acc[2i][1], acc[2i + 1][1] -- C fragment columns n = 2t, 2t + 1
+            # of n-tiles 2i (u = 0) and 2i + 1 (u = 1), column n of n-tile
+            # 2i + u holding V's column cols[(u, n)]
+            got = [cols[(u, n)] for n, u in
+                   ((2 * t, 0), (2 * t, 1), (2 * t + 1, 0), (2 * t + 1, 1))]
+            assert got == [16 * i + 4 * t + e for e in (0, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_with_keys_permuted_in_groups_of_8(causal):
+    """Scores over keys permuted within each 8-key group, P taken back to
+    key order by the fragment map and multiplied by V unpermuted, give
+    ``attention_ref``; P V without the map does not."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
+    rng = np.random.default_rng(7)
+    bh, s, d = 3, 40, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d))
+                                .astype(np.float32)) for _ in range(3))
+    perm = torch.tensor([8 * (j // 8) + _key_of_b_lane(j % 8)
+                         for j in range(s)])
+    sc = torch.einsum("bqd,bkd->bqk", q, k[:, perm]) * d ** -0.5
+    if causal:
+        sc = sc.masked_fill(perm[None, :] > torch.arange(s)[:, None], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    p_keys = torch.empty_like(p)
+    p_keys[..., perm] = p        # score column n holds key perm[n]
+    want = attention_ref(q, k, v, causal=causal, sm_scale=d ** -0.5)
+    torch.testing.assert_close(p_keys @ v, want, rtol=1e-6, atol=1e-6)
+    assert (p @ v - want).abs().max() > 1e-2
