@@ -75,6 +75,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    card's forward logits held against its own replayed decode steps too;
    launches exact: SSD = Mamba2 layers x forwards (none in a decode step),
    flash = shared-block uses x forwards, decode = uses x steps;
+3f. elastic, planner and CLI -- (a) phase 3's full-size int8 spec on an
+   elastic fleet (``schedule:4@0,8@2``, 2 epochs) on the card and the
+   CPU: metered fields and ``scaling_timeline`` equal, losses within
+   CARD_VS_CPU_RTOL, and ``quantize8_ef`` launched exactly once per live
+   worker per round (the live width summed over the rounds, read from the
+   timeline; these launches join the kernels line's count); (b) every
+   ``elastic_axis`` trial at full size (400,000 rows) on the card and the
+   CPU, records compared as in 3c; (c) ``plan()`` picks faas for
+   ``lr_higgs`` and iaas for ``mobilenet_cifar10``, ``python -m
+   repro_torch plan`` prints the same rows on the card and the CPU (the
+   two named workloads and (a)'s spec), and ``estimate_epochs`` on
+   LR/Higgs counts the same epochs on both; (d) ``python -m repro_torch
+   trace fig10_trace --quick --export chrome`` in a subprocess on the
+   card: every conservation gate OK and every JSON file it writes loads.
+   The seconds of (a)-(d) are printed, and the script's total;
 4. summary -- one JSON line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -84,6 +99,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1171,27 +1187,209 @@ def phase_presets() -> int:
     on every metered field and on the losses to CARD_VS_CPU_RTOL.  This
     reaches the paths the comm specs above do not: MA-SGD, ADMM, SSP/ASP,
     the hybrid PS, spot kills, checkpoint cadences and traces."""
-    from repro_torch.experiments import PRESETS, run_experiment
+    from repro_torch.experiments import PRESETS
     n, worst = 0, 0.0
     for preset in PRESETS.values():
         for spec in preset.build(True):
-            card = run_experiment(spec, device="cuda").result
-            cpu = run_experiment(spec, device="cpu").result
-            for key, val in cpu.items():
-                if key not in ("history", "final_loss"):
-                    check(card[key] == val, f"{spec.name}: {key} differs "
-                                            f"on the card: {card[key]!r}")
-            check([t for t, _ in card["history"]]
-                  == [t for t, _ in cpu["history"]],
-                  f"{spec.name}: history timestamps differ on the card")
-            for (_, a), (_, b) in zip(card["history"], cpu["history"]):
-                check(abs(a - b) <= CARD_VS_CPU_RTOL * abs(b),
-                      f"{spec.name}: card loss {a!r} vs cpu {b!r}")
-                worst = max(worst, abs(a - b) / abs(b))
+            worst = max(worst, _records_agree(spec))
             n += 1
     print(f"  {n} preset trials: card records equal the CPU's (losses "
           f"within {CARD_VS_CPU_RTOL:g}; largest gap {worst:.3e})")
     return n
+
+
+def _records_agree(spec) -> float:
+    """One spec through ``run_experiment`` on the card and on the CPU: the
+    records must agree on every metered field (``scaling_timeline``
+    included) and on the losses to CARD_VS_CPU_RTOL.  Returns the largest
+    relative loss gap."""
+    from repro_torch.experiments import run_experiment
+    worst = 0.0
+    card = run_experiment(spec, device="cuda").result
+    cpu = run_experiment(spec, device="cpu").result
+    for key, val in cpu.items():
+        if key not in ("history", "final_loss"):
+            check(card[key] == val, f"{spec.name}: {key} differs "
+                                    f"on the card: {card[key]!r}")
+    check([t for t, _ in card["history"]]
+          == [t for t, _ in cpu["history"]],
+          f"{spec.name}: history timestamps differ on the card")
+    for (_, a), (_, b) in zip(card["history"], cpu["history"]):
+        check(abs(a - b) <= CARD_VS_CPU_RTOL * abs(b),
+              f"{spec.name}: card loss {a!r} vs cpu {b!r}")
+        worst = max(worst, abs(a - b) / abs(b))
+    return worst
+
+
+# ------------------------------------------ 3f. elastic, planner and CLI ---
+
+#: phase 3f (a): phase 3's full-size int8 spec on an elastic fleet that
+#: starts at 4 workers and grows to 8 at round 2
+ELASTIC_SPEC = PATH_SPECS[0]
+ELASTIC_OVER = {"scaling": "schedule:4@0,8@2", "fleet.min_workers": 2,
+                "fleet.max_workers": 16, "max_epochs": 2}
+#: phase 3f (c): the estimator's workload (LR on Higgs at the dataset
+#: stand-in's default 100,000 rows) and target loss
+ESTIMATE_TARGET = 0.6
+
+
+def _round_widths(res) -> list[int]:
+    """The live fleet width in each round: a timeline entry ``(r, w, ...)``
+    sets the width from round r on."""
+    entries = sorted((r, w) for r, w, _s, _c in res.scaling_timeline)
+    return [next(w for r, w in reversed(entries) if r <= k)
+            for k in range(res.rounds)]
+
+
+def _metered(res) -> dict:
+    return {"system": res.system, "workers": res.workers,
+            "rounds": res.rounds, "sim_time": res.sim_time, "cost": res.cost,
+            "comm_bytes": res.comm_bytes, "comm_cost": res.comm_cost,
+            "ckpt_bytes": res.ckpt_bytes, "ckpt_time": res.ckpt_time,
+            "ckpt_cost": res.ckpt_cost, "preemptions": res.preemptions,
+            "max_staleness": res.max_staleness, "breakdown": res.breakdown,
+            "times": [t for t, _ in res.history],
+            "scaling_timeline": [tuple(x) for x in res.scaling_timeline]}
+
+
+def _plan_text(argv: list[str], device: str) -> str:
+    import contextlib
+    import io
+    from repro_torch.__main__ import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["plan", *argv, "--device", device])
+    check(rc == 0, f"plan {argv} on {device}: rc {rc}")
+    return buf.getvalue()
+
+
+def phase_elastic(preset) -> dict:
+    """This slice's path at full size: (a) an elastic run through the int8
+    kernel, (b) the elastic_axis preset at --full, (c) the planner and
+    the epoch estimator, (d) ``python -m repro_torch trace`` in a
+    subprocess.  Card against CPU throughout."""
+    import torch
+    from repro_torch.core import make_algorithm, make_study_model
+    from repro_torch.core.analytical import CostInputs, estimate_epochs
+    from repro_torch.core.elastic import plan
+    from repro_torch.data import make_dataset, train_val_split
+    from repro_torch.experiments import get_preset
+    out = {"seconds": {}}
+
+    # (a) the int8 comm spec, 4 -> 8 workers at round 2
+    t0 = time.time()
+    spec = preset[ELASTIC_SPEC].with_(**ELASTIC_OVER)
+    res, launches, seen, wall = _drive(spec, "cuda")
+    check(not res.error, f"3f (a): {res.error}")
+    check(seen == {("merged", "cuda"), ("params", "cuda")},
+          f"3f (a): merges/params not all on the card: {seen}")
+    widths = _round_widths(res)
+    check(widths[0] == 4 and widths[-1] == 8,
+          f"3f (a): widths {widths} do not grow from 4 to 8")
+    check(launches["quantize8_ef"] == sum(widths),
+          f"3f (a): quantize8_ef launches {launches}, want the live width "
+          f"summed over the rounds, {sum(widths)}")
+    ref, _, _, cpu_wall = _drive(spec, "cpu")
+    check(_metered(res) == _metered(ref),
+          f"3f (a): card metered fields {_metered(res)} differ from the "
+          f"CPU's {_metered(ref)}")
+    card_l, cpu_l = _history_losses(res), _history_losses(ref)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    check(len(card_l) == len(cpu_l) and rel <= CARD_VS_CPU_RTOL,
+          f"3f (a): card losses {card_l} vs cpu {cpu_l}")
+    out["launches"] = launches["quantize8_ef"]
+    out["a"] = {"rounds": res.rounds, "widths": widths,
+                "scaling_timeline": res.scaling_timeline,
+                "sim_time": res.sim_time, "final_loss": res.final_loss,
+                "wall_s": wall, "cpu_wall_s": cpu_wall,
+                "max_rel_loss_vs_cpu": rel}
+    print(f"  (a) {spec.name} under {ELASTIC_OVER['scaling']}: "
+          f"rounds={res.rounds} widths={widths} "
+          f"quantize8_ef={launches['quantize8_ef']} wall_s={wall:.3f} "
+          f"cpu_wall_s={cpu_wall:.3f} max_rel_loss_vs_cpu={rel:.3e}")
+    out["seconds"]["a"] = time.time() - t0
+
+    # (b) elastic_axis at full size, every trial on the card and the CPU
+    t0 = time.time()
+    worst = 0.0
+    trials = get_preset("elastic_axis").build(False)
+    for trial in trials:
+        worst = max(worst, _records_agree(trial))
+    out["b"] = {"trials": len(trials), "rows": trials[0].rows,
+                "max_rel_loss_vs_cpu": worst}
+    print(f"  (b) elastic_axis --full: {len(trials)} trials at "
+          f"{trials[0].rows} rows, card records equal the CPU's (largest "
+          f"loss gap {worst:.3e})")
+    out["seconds"]["b"] = time.time() - t0
+
+    # (c) the planner, card against CPU, and the estimator on the card
+    t0 = time.time()
+    for name, want in (("lr_higgs", "faas"), ("mobilenet_cifar10", "iaas")):
+        for objective in ("cheapest", "fastest"):
+            top = plan(name, objective)[0]
+            check(top.platform == want,
+                  f"3f (c): plan({name}, {objective}) picks {top.platform}")
+    spec_json = ROOT / "build" / "phase3f_spec.json"
+    spec_json.parent.mkdir(parents=True, exist_ok=True)
+    spec_json.write_text(spec.to_json())
+    for argv in (["lr_higgs"], ["mobilenet_cifar10"],
+                 [str(spec_json), "--objective", "fastest"]):
+        card_text = _plan_text(argv, "cuda")
+        check(card_text == _plan_text(argv, "cpu"),
+              f"3f (c): plan {argv} prints other rows on the card")
+    spec_rows = plan(spec, R=spec.max_epochs)
+    tr, _ = train_val_split(make_dataset("higgs"))
+    model = make_study_model("lr", tr)
+    algo = make_algorithm("ga_sgd", lr=0.2, batch_size=128)
+    r_card = estimate_epochs(model, algo, tr, ESTIMATE_TARGET, device="cuda")
+    torch.cuda.synchronize()
+    r_cpu = estimate_epochs(model, algo, tr, ESTIMATE_TARGET, device="cpu")
+    check(r_card == r_cpu, f"3f (c): estimate_epochs {r_card} on the card, "
+                           f"{r_cpu} on the CPU")
+    rows = [plan(CostInputs.from_workload(model, tr, R=r), "cheapest")
+            for r in (r_card, r_cpu)]
+    check(rows[0] == rows[1], "3f (c): planned rows differ card vs CPU")
+    out["c"] = {"estimated_epochs": r_card, "spec_pick": [
+        spec_rows[0].platform, spec_rows[0].workers],
+        "lr_higgs_pick": [rows[0][0].platform, rows[0][0].workers]}
+    print(f"  (c) plan: lr_higgs -> faas, mobilenet_cifar10 -> iaas; "
+          f"{spec.name} -> {spec_rows[0].platform} w={spec_rows[0].workers}; "
+          f"estimate_epochs(LR/higgs, {ESTIMATE_TARGET}) = {r_card} on the "
+          f"card and the CPU")
+    out["seconds"]["c"] = time.time() - t0
+
+    # (d) the trace command in a subprocess, on the card
+    t0 = time.time()
+    trace_dir = ROOT / "build" / "phase3f_trace"
+    for old in trace_dir.glob("*.json"):
+        old.unlink()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "trace", "fig10_trace",
+         "--quick", "--export", "chrome", "--out",
+         str(trace_dir / "fig10.json")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0,
+          f"3f (d): trace exited {proc.returncode}: {proc.stderr[-2000:]}")
+    n_specs = proc.stdout.count("byte conservation")
+    gates = proc.stdout.count("[OK  ]")
+    check(n_specs == len(get_preset("fig10_trace").build(True))
+          and gates == 3 * n_specs and "[FAIL]" not in proc.stdout,
+          f"3f (d): {gates} OK gates over {n_specs} specs:\n{proc.stdout}")
+    files = sorted(trace_dir.glob("*.json"))
+    check(len(files) == n_specs, f"3f (d): {len(files)} trace files")
+    events = sum(len(json.loads(f.read_text())["traceEvents"])
+                 for f in files)
+    out["d"] = {"specs": n_specs, "gates_ok": gates, "files": len(files),
+                "trace_events": events}
+    print(f"  (d) trace fig10_trace --export chrome: {gates} gates OK over "
+          f"{n_specs} specs, {len(files)} JSON files load "
+          f"({events} events)")
+    out["seconds"]["d"] = time.time() - t0
+    out["seconds"]["total"] = sum(out["seconds"].values())
+    print("  3f seconds: " + ", ".join(
+        f"{k}={v:.1f}" for k, v in out["seconds"].items()))
+    return out
 
 
 # ------------------------------------------------------------- 3d. serve ---
@@ -1621,6 +1819,11 @@ def main() -> int:
     phase("3e: serve mamba2-370m and zamba2-2.7b")
     serve_ssm = phase_serve_ssm()
     print(json.dumps({"serve_ssm": serve_ssm}))
+    phase("3f: elastic, planner and CLI")
+    elastic = phase_elastic(preset)
+    print(json.dumps({"elastic": elastic}))
+    launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
+        + elastic["launches"]
     serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
                       for k in serve["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
@@ -1681,6 +1884,7 @@ def main() -> int:
           f"plain_ms={entry['plain_ms']:.5f} library_ms=none "
           f"launches_on_path={entry['launches']}")
     print(json.dumps({"kernels": summary}))
+    print(f"total: {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,11 @@
 - sync:       BSP / ASP / SSP / LocalSGD-DiLoCo protocol objects
 - platform:   the Platform protocol + FleetSpec / FailureSpec / CommSpec
 - runtimes:   FaaSRuntime, IaaSRuntime and PodPlatform
+- analytical: the §5.3 cost/performance model + what-if studies
+- elastic:    scaling policies, the elastic controller and the planner
 
-The declarative layer (ExperimentSpec / run_experiment / presets / the
-``python -m repro_torch run`` CLI) lives in :mod:`repro_torch.experiments`.
+The declarative layer (ExperimentSpec / run_experiment / sweep / presets /
+the ``python -m repro_torch`` CLI) lives in :mod:`repro_torch.experiments`.
 """
 from repro_torch.core.algorithms import (  # noqa: F401
     ADMM, Algorithm, EMKMeans, GASGD, MASGD, make_algorithm,

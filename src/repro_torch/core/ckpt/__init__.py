@@ -10,8 +10,8 @@ Three pieces, one set of constants:
 - :class:`Checkpointer` -- routes real shard bytes through the metered
   store so checkpoint seconds, wire bytes and request $ land in
   :class:`~repro_torch.core.engine.RunResult` alongside the comm meters.
-- the ``local`` backend's on-disk format (``localfs``) is not ported yet
-  (ROADMAP.md queue A7); ``local`` here is the metered EBS-constant store.
+- :mod:`repro_torch.core.ckpt.localfs` -- the ``local`` backend's atomic
+  on-disk npz format, byte-compatible with the JAX package's.
 
 ``Platform.restart_time(model_bytes)`` derives from the same
 :class:`ChannelSpec` constants via :meth:`CheckpointSpec.restore_seconds`,

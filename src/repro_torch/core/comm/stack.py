@@ -54,6 +54,9 @@ class CommStack:
 
     def bsp_reduce(self, ctx, updates, tag):
         codec = self.codec
+        # pre-codec update size, for elastic resize feasibility checks
+        # (validate_stack re-applies the codec's wire ratio itself)
+        ctx.last_update_nbytes = int(updates[0].nbytes)
         if codec.is_identity:
             payloads, merged_lossy = updates, None
         else:
@@ -113,6 +116,19 @@ class CommStack:
         if self._store is not self.transport:
             c += float(self._store.service_cost(seconds))
         return c
+
+    def rebuilt(self) -> "CommStack":
+        """Re-compose this stack for a resized fleet (DESIGN.md §13): the
+        collective and codec are rebuilt fresh (error-feedback residuals
+        are keyed by worker position, which a resize invalidates; the new
+        codec allocates its residuals on the device of the first vector it
+        encodes, the run's) while the TRANSPORT objects -- and with them
+        the accumulated op counters, per-op dollars, and the ASP/SSP
+        kvstore contents -- carry over, so ``service_cost`` keeps billing
+        the whole run."""
+        return CommStack(
+            self.transport, self.collective.name, self.codec.name,
+            store=None if self._store is self.transport else self._store)
 
 
 # -------------------------------------------------------- legacy adapters ---

@@ -48,5 +48,9 @@ TPU_CHIP_HOURLY = 1.2             # $ per v5e chip-hour, on-demand list price
 PEAK_FLOPS = 197e12
 
 
+def lambda_cost(gb: float, seconds: float, invocations: int = 1) -> float:
+    return gb * seconds * LAMBDA_GB_S + invocations * LAMBDA_REQUEST
+
+
 def ec2_cost(instance: str, seconds: float, count: int = 1) -> float:
     return EC2_HOURLY[instance] / 3600.0 * seconds * count

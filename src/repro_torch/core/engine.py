@@ -23,8 +23,9 @@ compose for free).
 All payloads are REAL tensors on the run's device (numerics are exact; only
 time and money are simulated) -- the paper's statistical/system efficiency
 split.  Clocks, meters and every metered quantity stay numpy float64, as in
-the JAX package, so they match it exactly.  The scaling axis is static in
-this port: elastic fleets (DESIGN.md §13) are ROADMAP.md queue A4.
+the JAX package, so they match it exactly.  Elastic fleets (DESIGN.md §13)
+resize at sync boundaries through :meth:`SimContext.resize`: the joiners'
+partitions and worker states land on the run's device.
 """
 from __future__ import annotations
 
@@ -76,8 +77,11 @@ class RunResult:
                                   # restart -- that stays in breakdown)
     ckpt_cost: float = 0.0        # $ of checkpoint put/get requests
     scaling_timeline: list = field(default_factory=list)
-                                  # elastic fleets only (DESIGN.md §13,
-                                  # not ported yet): [] for fixed fleets
+                                  # elastic fleets (DESIGN.md §13): one
+                                  # (round, w, resize_cost_s, resize_cost_usd)
+                                  # per membership change, so benchmarks can
+                                  # plot w(t); [] for fixed fleets; a final
+                                  # w=0 entry means the policy stopped the run
     trace: Any = field(default=None, repr=False)
                                   # TraceRecorder when run with trace=True
                                   # (DESIGN.md §18); None otherwise
@@ -267,6 +271,13 @@ class CommBackend:
         """Seconds to provision the substrate (0 = always-on)."""
         return 0.0
 
+    def rebuilt(self) -> "CommBackend":
+        """A stack re-composed for a resized fleet (DESIGN.md §13): fresh
+        per-worker collective/codec state, same metered transports (their
+        accumulated op counters and $ carry over).  The base backend is
+        width-agnostic and returns itself."""
+        return self
+
     def service_cost(self, seconds: float) -> float:
         return 0.0
 
@@ -299,11 +310,22 @@ class SimContext:
     invocations: int = 0
     ckpt: Any = None           # Checkpointer routing save/restore bytes
                                # through the metered transport (§17)
-    # ---- fleet identity (fixed fleets; elastic resizing is queue A4) ----
-    worker_ids: np.ndarray = None   # stable identity per position
-    joined_at: np.ndarray = None    # sim s each worker started billing
-                                    # (0.0 for the whole fixed fleet)
-    retired_cost: float = 0.0       # $ billed by retired workers (0.0)
+    # ---- elastic-fleet state (DESIGN.md §13; inert for fixed fleets) ----
+    ds_train: Any = None          # kept (on the host) so resizes can
+                                  # re-partition
+    elastic: Any = None           # ElasticController, or None = fixed fleet
+    worker_ids: np.ndarray = None   # stable identity per position: retired
+                                    # ids are never reused, so scripted kills
+                                    # for a removed worker can never fire on
+                                    # a later joiner
+    joined_at: np.ndarray = None    # sim s each CURRENT worker started
+                                    # billing (0.0 for the initial fleet)
+    retired_cost: float = 0.0       # $ already billed by retired workers
+    next_worker_id: int = 0
+    last_update_nbytes: int = 0     # raw bytes of the latest reduced update
+                                    # vector (EM ships sums+counts, more
+                                    # than the params) -- what resize
+                                    # feasibility checks item limits with
     rec: Any = None                 # TraceRecorder (DESIGN.md §18), or None;
                                     # every emission site is guarded so the
                                     # disabled path is byte-identical
@@ -451,6 +473,128 @@ class SimContext:
                 > self.lifetime - self.lifetime_margin):
             self._rotate(i, float(self.clock[i]), "checkpoint")
 
+    # ---- elastic resizing (DESIGN.md §13) ----
+    def maybe_resize(self, rnd: int) -> bool:
+        """Round-boundary scaling-policy check; no-op for fixed fleets.
+        Returns True when the policy says stop (e.g. a cost cap is hit)."""
+        if self.elastic is None:
+            return False
+        return self.elastic.step(self, rnd)
+
+    def elastic_boundary(self, rnd: int, total_rounds: int,
+                         rpe: int) -> tuple:
+        """The shared round-boundary step for round-loop protocols (BSP,
+        LocalSGD): consult the policy and, after a resize, rescale the
+        remaining round budget so the EPOCH count is preserved (a resize
+        re-partitions the data, changing rounds-per-epoch).
+
+        Returns ``(stop, total_rounds, rpe, resized)``; ``resized`` tells
+        the protocol to refresh its own width-dependent locals."""
+        if self.elastic is None or rnd >= total_rounds:
+            return False, total_rounds, rpe, False
+        w0 = self.w
+        if self.maybe_resize(rnd):
+            return True, total_rounds, rpe, False
+        if self.w == w0:
+            return False, total_rounds, rpe, False
+        new_rpe = self.algo.rounds_per_epoch(self.parts[0])
+        total_rounds = rnd + math.ceil((total_rounds - rnd) * new_rpe / rpe)
+        return False, total_rounds, new_rpe, True
+
+    def resize(self, new_w: int, rnd: int) -> None:
+        """Change the fleet to ``new_w`` workers at a sync boundary.
+
+        Scale-down retires the highest positions (their usage so far is
+        billed into ``retired_cost`` and their stable ids are never
+        reused); scale-up mints fresh ids and invokes/provisions joiners at
+        the platform's measured startup constants (clock stall metered
+        under ``breakdown["resize"]``).  Either way the training data is
+        re-partitioned over the new fleet, per-worker state is rebuilt from
+        the current merged parameters (callers resize only at points where
+        ``states[0]`` holds them; the joiners' partitions move to the run's
+        device with them), and the comm stack is re-composed for
+        the new width (error-feedback codec state resets; metered transport
+        counters carry over).  The change lands in
+        ``RunResult.scaling_timeline``.
+        """
+        old_w = self.w
+        if new_w == old_w:
+            return
+        t_now = float(np.max(self.clock))
+        dt = usd = 0.0
+        if new_w < old_w:
+            gone = np.arange(new_w, old_w)
+            self.retired_cost += float(self.platform.retire_cost(self, gone))
+            if self.rec is not None:
+                for k in gone:
+                    self.rec.retire_worker(int(self.worker_ids[k]),
+                                           float(self.clock[k]))
+            for name in ("clock", "invoked_at", "joined_at", "speeds",
+                         "worker_ids"):
+                setattr(self, name, getattr(self, name)[:new_w])
+        else:
+            added = new_w - old_w
+            dt, usd = self.platform.resize_cost(added)
+            ids = np.arange(self.next_worker_id, self.next_worker_id + added)
+            self.next_worker_id += added
+            self.worker_ids = np.concatenate([self.worker_ids, ids])
+            self.clock = np.concatenate(
+                [self.clock, np.full(added, t_now + dt)])
+            self.invoked_at = np.concatenate(
+                [self.invoked_at, np.full(added, t_now + dt)])
+            self.joined_at = np.concatenate(
+                [self.joined_at, np.full(added, t_now)])
+            self.speeds = np.concatenate(
+                [self.speeds, self.platform.joiner_speeds(ids)])
+            self.invocations += added
+            self.meter_add("resize", dt)
+            if self.rec is not None:
+                for k in range(old_w, new_w):
+                    wid = int(self.worker_ids[k])
+                    self.rec.birth(wid, t_now)
+                    self.rec.span(wid, "provision", "startup", t_now,
+                                  float(self.clock[k]))
+            if self.ckpt is not None:
+                # joiners are not born with the model: the merged params are
+                # published once through the checkpoint transport and every
+                # joiner pulls its copy (metered -- no free weight copy;
+                # pulls run in parallel, so the stall is one restore)
+                dt_save = self.ckpt.save("ckpt/fleet")
+                dt_pull = 0.0
+                for _ in range(added):
+                    dt_pull = self.ckpt.restore("ckpt/fleet")
+                if self.rec is None:
+                    self.clock[old_w:] += dt_save + dt_pull
+                else:
+                    # the engine adds the SCALAR SUM dt_save + dt_pull, so
+                    # decomposed save/pull sub-spans would not tile bitwise:
+                    # trace one combined span with the split in its meta
+                    before = self.clock[old_w:].copy()
+                    self.clock[old_w:] += dt_save + dt_pull
+                    self.rec.tile(self.worker_ids[old_w:], before,
+                                  self.clock[old_w:], "ckpt.join", "ckpt",
+                                  meta={"save_s": dt_save,
+                                        "pull_s": dt_pull})
+                self.invoked_at[old_w:] += dt_save + dt_pull
+                self.meter_add("resize", dt_save + dt_pull)
+                self.ckpt.mark(rnd, float(self.clock[old_w]))
+        self.platform.resize_fleet(new_w)
+        params = self.states[0].params          # merged model at the boundary
+        self.parts = partition(self.ds_train, new_w)
+        self.states = [self.algo.init_worker(self.model, params, p)
+                       for p in self.parts]
+        flops = self.platform.worker_flops_array(self.model)
+        rows = self.algo.rows_per_round(self.parts[0])
+        self.c_round = np.asarray(rows * self.model.flops_per_row / flops,
+                                  float)
+        self.comm = self.comm.rebuilt()
+        self.res.workers = new_w
+        self.res.scaling_timeline.append(
+            (int(rnd), int(new_w), float(dt), float(usd)))
+        if self.rec is not None:
+            self.rec.mark("resize", t_now, old_w=old_w, new_w=new_w,
+                          stall_s=dt, usd=usd)
+
     # ---- evaluation ----
     def record_eval(self, rnd: int, total_rounds: int, params) -> bool:
         """Round-boundary eval (BSP); returns True when converged."""
@@ -477,19 +621,30 @@ class SimContext:
 def simulate(platform: "Platform", sync, model, algo, ds_train, ds_val, *,
              target_loss: float | None = None, max_epochs: int = 10,
              eval_every: int = 1, data_local: bool = False,
-             trace: bool = False, device=None) -> RunResult:
+             elastic=None, trace: bool = False, device=None) -> RunResult:
     """Run one training scenario: ``platform`` (any
     :class:`~repro_torch.core.platform.Platform` implementation) x ``sync``
     (protocol object) x ``algo`` on real data/numerics, with every tensor on
     ``device`` (``None`` = the card; see :func:`repro_torch.resolve_device`).
+    ``elastic`` is an optional
+    :class:`repro_torch.core.elastic.ElasticController` consulted at round
+    boundaries (DESIGN.md §13); ``None`` keeps the fixed-fleet path.
     The initial parameters are drawn from a CPU ``torch.Generator`` seeded
     with ``platform.seed`` and then moved to the device, so a card run and a
     CPU run start from identical parameters.  ``trace=True`` attaches a
     :class:`~repro_torch.core.trace.TraceRecorder` (DESIGN.md §18) recording
     every event as a span, without perturbing any metered value."""
     device = resolve_device(device)
+    if elastic is not None:
+        # some policies (schedule:<w@0,...>, plan) pin the INITIAL fleet:
+        # apply it before anything is invoked or billed
+        w0 = elastic.initial_workers(platform.workers)
+        if w0 != platform.workers:
+            platform.resize_fleet(w0)
     w = platform.workers
     res = RunResult(platform.system_name(), algo.name, w)
+    if elastic is not None:
+        res.scaling_timeline.append((0, w, 0.0, 0.0))
     rec = TraceRecorder("train") if trace else None
     res.trace = rec
     parts = partition(ds_train, w)
@@ -535,7 +690,9 @@ def simulate(platform: "Platform", sync, model, algo, ds_train, ds_val, *,
         lifetime_margin=platform.lifetime_margin_s(),
         target_loss=target_loss, max_epochs=max_epochs, eval_every=eval_every,
         invocations=w,
-        worker_ids=np.arange(w), joined_at=np.zeros(w), rec=rec)
+        ds_train=ds_train, elastic=elastic,
+        worker_ids=np.arange(w), joined_at=np.zeros(w), next_worker_id=w,
+        rec=rec)
     if rec is not None:
         # every initial worker is born at t=0 and spends the prologue in
         # startup then data loading (clock starts at t_start + t_load)

@@ -20,6 +20,11 @@ from repro_torch.core.engine import InjectedPreemptions
 TRACE_DIR = Path(__file__).parent / "traces"
 
 
+def trace_fixtures() -> list[str]:
+    """Names of the bundled preemption traces."""
+    return sorted(p.stem for p in TRACE_DIR.glob("*.txt"))
+
+
 def resolve_trace(name_or_path: str) -> Path:
     """A bare fixture name resolves to the bundled trace; anything else is
     treated as a filesystem path."""
@@ -79,3 +84,22 @@ class TracePreemptions(InjectedPreemptions):
         head, _, arg = str(spec).partition(":")
         name = arg if head == "trace" and arg else str(spec)
         return cls(load_trace(resolve_trace(name)), workers)
+
+
+#: the failure-process grammars (``FailureSpec.rate`` is ``poisson``,
+#: ``preempt_at`` is ``inject``, ``FailureSpec.trace`` is ``trace``),
+#: printed by ``python -m repro_torch list``
+FAILURES: dict[str, str] = {
+    "poisson": "poisson:<rate> -- memoryless kills, <rate> per worker-hour "
+               "of healthy runtime",
+    "inject": "inject:<w>@<t>[,<w>@<t>...] -- scripted kills at exact sim "
+              "seconds",
+    "trace": "trace:<fixture|path> -- replay a recorded preemption trace",
+}
+
+
+def list_failures() -> dict[str, str]:
+    """name -> grammar line, printed by ``python -m repro_torch list``."""
+    out = dict(FAILURES)
+    out["trace"] += f" (fixtures: {', '.join(trace_fixtures())})"
+    return out

@@ -64,9 +64,9 @@ class FleetSpec:
     exactly ``workers`` entries (validated lazily, when the fleet is used).
 
     ``min_workers``/``max_workers`` bound what an elastic scaling policy
-    (DESIGN.md §13) may resize the fleet to; they are validated and kept
-    (a spec hashes the same in both packages) but inert here, where the
-    only scaling is ``"static"``.
+    (DESIGN.md §13) may resize the fleet to; ``None`` means 1 / the
+    engine's :data:`repro_torch.core.elastic.MAX_FLEET`.  They are inert
+    under the default ``scaling="static"``.
     """
     workers: int = 10
     lambda_gb: Any = 3.0                 # FaaS: scalar GB or per-worker tuple
@@ -104,6 +104,17 @@ class FleetSpec:
         return StragglerProcess(
             factor=self.straggler,
             cap_at_median=self.backup_invocations).speeds(self.workers, seed)
+
+    def joiner_speeds(self, ids, seed: int) -> np.ndarray:
+        """Speed multipliers for elastic joiners, drawn per STABLE worker
+        id (so a given joiner's speed never depends on when it joins).
+        Joiners get the fleet's log-normal jitter but no fresh injected
+        straggler -- the deterministic straggler of ``speeds`` belongs to
+        the initial draw."""
+        return np.asarray([
+            float(np.exp(np.random.default_rng((seed, int(i)))
+                         .normal(0.0, 0.05)))
+            for i in ids])
 
 
 @dataclass(frozen=True)
@@ -244,15 +255,6 @@ class CommSpec:
                        workers=workers)
 
 
-def check_static_scaling(scaling) -> None:
-    """The port runs fixed fleets only: elastic scaling policies
-    (DESIGN.md §13, ``core/elastic/``) are ROADMAP.md queue A4."""
-    if scaling != "static":
-        raise NotImplementedError(
-            f"scaling={scaling!r}: the PyTorch port runs scaling='static' "
-            f"only; elastic fleets are ROADMAP.md queue A4")
-
-
 def check_sync_codec(proto, codec: str) -> None:
     """Codecs encode the *update vectors of collective reduces* (BSP and
     the LocalSGD/DiLoCo sync boundaries); the ASP/SSP event loop exchanges
@@ -324,6 +326,26 @@ class Platform(Protocol):
 
     def finalize_cost(self, ctx) -> float: ...
 
+    # ---- elastic-fleet hooks (DESIGN.md §13) --------------------------------
+    def resize_fleet(self, new_w: int) -> None:
+        """Reshape the platform's own fleet view to ``new_w`` workers."""
+        ...
+
+    def resize_cost(self, added: int) -> tuple:
+        """``(seconds, dollars)`` to bring ``added`` joiners up: the clock
+        stall the fleet sees, and the directly-attributable $ reported in
+        the scaling timeline (billing itself flows through the meters)."""
+        ...
+
+    def retire_cost(self, ctx, idx) -> float:
+        """$ the workers at positions ``idx`` have accrued when they are
+        retired at a scale-down (their usage leaves the live arrays)."""
+        ...
+
+    def joiner_speeds(self, ids) -> np.ndarray:
+        """Straggler-jitter multipliers for joiners with stable ids."""
+        ...
+
 
 # ------------------------------------------------------------ base class ----
 
@@ -341,7 +363,8 @@ class BasePlatform:
     comm: CommSpec = field(default_factory=CommSpec)
     sync: object = "bsp"                 # bsp|asp|ssp|ssp:<s>|SyncProtocol
     seed: int = 0
-    scaling: object = "static"           # only "static" (elastic: queue A4)
+    scaling: object = "static"           # static|schedule:<w@r,..>|smlt|
+                                         #   cost_cap:<$>|ScalingPolicy inst.
     ckpt: object = field(default_factory=CheckpointSpec)
                                          # CheckpointSpec | "s3:every=5:sharded"
 
@@ -360,14 +383,31 @@ class BasePlatform:
               trace: bool = False, device=None) -> RunResult:
         """Simulate one training run with every tensor on ``device``
         (``None`` = the card; raises without CUDA unless ``"cpu"``)."""
+        from repro_torch.core.elastic import build_controller
         from repro_torch.core.sync import make_sync
-        check_static_scaling(self.scaling)
         proto = make_sync(self.sync)
         check_sync_codec(proto, self.comm.codec)
-        return simulate(self, proto, model, algo, ds_train, ds_val,
-                        target_loss=target_loss, max_epochs=max_epochs,
-                        eval_every=eval_every, data_local=data_local,
-                        trace=trace, device=device)
+        elastic = build_controller(self.scaling, self.fleet)
+        if elastic is not None and not getattr(proto, "supports_resize",
+                                               False):
+            raise ValueError(
+                f"scaling policy {elastic.policy.name!r} needs a sync "
+                f"protocol that supports mid-run resizing; {proto.name!r} "
+                f"does not declare supports_resize")
+        # elastic runs mutate self.fleet through resize_fleet; restore it
+        # so train() stays repeatable (a second call starts from the
+        # configured width, not wherever the last run ended).  A policy
+        # INSTANCE passed as scaling= keeps its observation state across
+        # calls by design (e.g. CostCapPolicy.max_round_spend); string
+        # specs build fresh.
+        fleet0 = self.fleet
+        try:
+            return simulate(self, proto, model, algo, ds_train, ds_val,
+                            target_loss=target_loss, max_epochs=max_epochs,
+                            eval_every=eval_every, data_local=data_local,
+                            elastic=elastic, trace=trace, device=device)
+        finally:
+            self.fleet = fleet0
 
     # ---- spec-derived hooks -------------------------------------------------
     @property
@@ -406,3 +446,26 @@ class BasePlatform:
     def init_breakdown(self) -> dict:
         return {"startup": 0.0, "load": 0.0, "compute": 0.0, "comm": 0.0}
 
+    # ---- elastic-fleet hooks (DESIGN.md §13) --------------------------------
+    def resize_fleet(self, new_w: int) -> None:
+        """Reshape the fleet spec to ``new_w`` workers.  Only homogeneous
+        fleets can resize (per-worker ``lambda_gb``/``instance`` tuples
+        have no meaning for joiners) -- build_controller rejects
+        heterogeneous fleets before a run starts; this re-checks as a
+        backstop."""
+        import dataclasses
+        for name in ("lambda_gb", "instance"):
+            if isinstance(getattr(self.fleet, name), tuple):
+                raise ValueError(
+                    f"cannot resize a fleet with per-worker {name}: elastic "
+                    f"scaling needs a homogeneous fleet")
+        self.fleet = dataclasses.replace(self.fleet, workers=int(new_w))
+
+    def resize_cost(self, added: int) -> tuple:
+        return 0.0, 0.0
+
+    def retire_cost(self, ctx, idx) -> float:
+        return 0.0
+
+    def joiner_speeds(self, ids) -> np.ndarray:
+        return self.fleet.joiner_speeds(ids, self.seed)

@@ -266,6 +266,22 @@ class FaaSRuntime(BasePlatform):
             ctx.rec.cost("ckpt_service", ckpt_usd)
         return usd_gb_s + usd_req + usd_comm + ctx.retired_cost + ckpt_usd
 
+    # ---- elastic-fleet hooks (DESIGN.md §13) --------------------------------
+    def resize_cost(self, added: int) -> tuple:
+        """Joiners are re-invoked like any fleet of ``added`` Lambdas:
+        hierarchical-invocation startup seconds (Table 6) plus the request
+        fees and the GB-seconds burned while starting (reported for the
+        timeline; the $ themselves flow through invocations/clock)."""
+        dt = interp_startup(_T_FAAS, added)
+        gb = float(self.fleet.gb_array()[0])
+        usd = added * (pricing.LAMBDA_REQUEST + gb * dt * pricing.LAMBDA_GB_S)
+        return dt, usd
+
+    def retire_cost(self, ctx, idx) -> float:
+        gb = self.fleet.gb_array()[idx]
+        return (float(np.dot(gb, ctx.clock[idx] - ctx.joined_at[idx]))
+                * pricing.LAMBDA_GB_S)
+
 
 class IaaSRuntime(BasePlatform):
     """Distributed-PyTorch-style VM cluster: thin builder over the specs.
@@ -429,6 +445,19 @@ class IaaSRuntime(BasePlatform):
             ctx.rec.cost("comm_service", usd_comm)
         return (usd_vm - joined_rebate
                 + ctx.retired_cost + usd_ckpt + usd_comm)
+
+    # ---- elastic-fleet hooks (DESIGN.md §13) --------------------------------
+    def resize_cost(self, added: int) -> tuple:
+        """Provisioning an ``added``-VM extension follows the same Table 6
+        cluster-startup curve as the initial fleet; the reported $ is the
+        provisioning time billed at the (spot-discounted) hourly rate."""
+        dt = interp_startup(_T_IAAS, added)
+        usd = added * float(self._hourly_array()[0]) * dt / 3600.0
+        return dt, usd
+
+    def retire_cost(self, ctx, idx) -> float:
+        span = ctx.clock[idx] - ctx.joined_at[idx]
+        return float(np.dot(self._hourly_array()[idx], span)) / 3600.0
 
 
 # --------------------------------------------------------------- pods -------
@@ -608,3 +637,13 @@ class PodPlatform(BasePlatform):
         return (usd_pod - joined_rebate
                 + ctx.retired_cost + usd_ckpt + usd_comm)
 
+    # ---- elastic-fleet hooks (DESIGN.md §13) --------------------------------
+    def resize_cost(self, added: int) -> tuple:
+        """Growing the mesh by ``added`` slices pays the pod-provisioning
+        queue/topology bring-up curve for the new slices."""
+        dt = interp_startup(_T_POD, added)
+        return dt, added * self._pod_hourly() * dt / 3600.0
+
+    def retire_cost(self, ctx, idx) -> float:
+        span = ctx.clock[idx] - ctx.joined_at[idx]
+        return self._pod_hourly() * float(np.sum(span)) / 3600.0

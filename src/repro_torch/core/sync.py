@@ -21,8 +21,8 @@ every infrastructure (FaaS, IaaS, hybrid, spot, heterogeneous fleets):
 
 Update vectors, merges, residuals and the global model are fp32 tensors on
 the run's device; every merge goes through
-:func:`repro_torch.core.comm.collectives.mean_of`.  Elastic resizing
-(DESIGN.md §13) is not ported yet (ROADMAP.md queue A4).
+:func:`repro_torch.core.comm.collectives.mean_of`.  BSP, SSP/ASP and
+LocalSGD resize elastic fleets (DESIGN.md §13) at their sync boundaries.
 
 Select a protocol with ``sync="bsp"|"asp"|"ssp"`` (or ``"ssp:<s>"``,
 ``"local:<H>"``, ``"diloco:<H>"``, with an optional ``":c8"`` compression
@@ -48,6 +48,22 @@ LOCAL_NAME = "local"
 DILOCO_NAME = "diloco"
 COMPRESS_SUFFIX = "c8"
 
+#: the sync-protocol string grammar, one entry per selectable protocol
+#: (``python -m repro_torch list`` prints it); keep in step with
+#: :func:`make_sync` / :func:`sync_name`
+SYNC_GRAMMARS = (
+    f"{BSP_NAME}",
+    f"{ASP_NAME}",
+    f"{SSP_NAME}[:<staleness>]",
+    f"{LOCAL_NAME}[:<H>][:{COMPRESS_SUFFIX}]",
+    f"{DILOCO_NAME}[:<H>][:{COMPRESS_SUFFIX}]",
+)
+
+
+def list_syncs() -> list:
+    """The selectable sync grammars (``repro_torch list`` prints these)."""
+    return list(SYNC_GRAMMARS)
+
 
 @dataclass(frozen=True)
 class DiLoCoOuter:
@@ -66,14 +82,22 @@ class DiLoCoOuter:
 class SyncProtocol:
     """Base class: a protocol runs the whole training loop over a context."""
     name = "base"
+    #: protocols that call ``ctx.maybe_resize`` at their sync boundaries
+    #: declare True; elastic scaling policies (DESIGN.md §13) refuse to
+    #: pair with protocols that do not
+    supports_resize = False
 
     def run(self, ctx: SimContext) -> None:
         raise NotImplementedError
 
 
 class BSP(SyncProtocol):
-    """Bulk-synchronous rounds with per-round lifetime/failure handling."""
+    """Bulk-synchronous rounds with per-round lifetime/failure handling.
+    Elastic fleets resize at any round boundary (every round IS a sync
+    point); the remaining round budget is rescaled to keep the epoch count,
+    since a resize re-partitions the data and changes rounds-per-epoch."""
     name = BSP_NAME
+    supports_resize = True
 
     def run(self, ctx: SimContext) -> None:
         algo, model = ctx.algo, ctx.model
@@ -95,6 +119,12 @@ class BSP(SyncProtocol):
                 break
             rnd += 1
             ctx.ckpt_boundary(rnd)      # cadence save (DESIGN.md §17)
+            stop, total_rounds, rpe, resized = ctx.elastic_boundary(
+                rnd, total_rounds, rpe)
+            if stop:
+                break
+            if resized:
+                est = float(np.max(ctx.c_round * ctx.speeds)) + 5.0
 
 
 class SSP(SyncProtocol):
@@ -107,8 +137,17 @@ class SSP(SyncProtocol):
     the slowest *active* worker by more than ``s`` parks in a wait set and is
     released (wait time metered under ``"wait"``) when the laggard's next
     update lands.
+
+    Elastic fleets (DESIGN.md §13) resize at eval boundaries, where the
+    global model was just read: the membership change reconciles the
+    staleness clocks -- parked workers are released (wait metered to the
+    boundary), every survivor's completed-round count restarts at 0 so the
+    staleness bound is measured within the new membership, the remaining
+    per-worker round quota is rescaled from the epochs already done, and
+    the event heap is rebuilt over the new fleet.
     """
     name = SSP_NAME
+    supports_resize = True
 
     def __init__(self, staleness: float = 3):
         self.staleness = staleness
@@ -133,8 +172,9 @@ class SSP(SyncProtocol):
         heapq.heapify(heap)
         waiting: dict[int, float] = {}     # worker -> time it parked
         done = 0
-        fleet_round = 0.0      # monotone fleet rounds (checkpoint cadence)
         done_mark = 0          # `done` at the last eval boundary
+        fleet_round = 0.0      # monotone fleet rounds across resize eras
+        epoch_acc = 0.0        # epochs completed across resize eras
         t = float(np.max(ctx.clock))
 
         def active_min() -> int:
@@ -183,7 +223,8 @@ class SSP(SyncProtocol):
                 ctx.rec.span(wid, "comm.put", "comm", s2, t)
             ctx.meter_add("comm", dt1 + dt2)
             # same accounting convention as the BSP backends: one update
-            # vector per per-worker round
+            # vector per per-worker round (BSP meters nbytes once per fleet
+            # round of w worker-rounds)
             ctx.meter_bytes(float(g_flat.nbytes) / ctx.w)
             rounds[i] += 1
             done += 1
@@ -208,7 +249,15 @@ class SSP(SyncProtocol):
                     heapq.heappush(heap, (float(ctx.clock[j]), j))
 
             if done % eval_stride == 0 or done == total:
-                fleet_round += (done - done_mark) / max(w, 1)
+                # era-wise progress counters: `done` mixes worker-rounds
+                # from eras with different fleet widths, so policies get a
+                # MONOTONE fleet-round count (a naive done // w regresses
+                # after a scale-up and would make a schedule oscillate,
+                # re-billing joiner startup every swing) and the epoch
+                # estimate accumulates per era
+                span = done - done_mark
+                fleet_round += span / max(w, 1)
+                epoch_acc += span / max(rpe * w, 1)
                 done_mark = done
                 cur, _ = store.get("global")
                 if ctx.record_eval_at(t, cur.reshape(shape)):
@@ -221,6 +270,42 @@ class SSP(SyncProtocol):
                     t += dt_ck
                     heap = [(tj + dt_ck, j) for tj, j in heap]
                     waiting = {j: tp + dt_ck for j, tp in waiting.items()}
+                if ctx.elastic is not None and done < total:
+                    w_before = w
+                    # resize rebuilds worker state from states[0]: hand it
+                    # the freshly-read global model first
+                    states[0].params = cur.reshape(shape)
+                    if ctx.maybe_resize(int(fleet_round)):
+                        break
+                    if ctx.w != w_before:
+                        # ---- membership change: clock reconciliation ----
+                        for j, t_park in waiting.items():
+                            ctx.meter_add("wait", max(0.0, t - t_park))
+                            if j < ctx.w:
+                                if ctx.rec is None:
+                                    ctx.clock[j] = max(float(ctx.clock[j]), t)
+                                else:
+                                    wait0 = float(ctx.clock[j])
+                                    ctx.clock[j] = max(wait0, t)
+                                    ctx.rec.span(int(ctx.worker_ids[j]),
+                                                 "ssp.wait", "stall", wait0,
+                                                 float(ctx.clock[j]))
+                        waiting.clear()
+                        epochs_done = epoch_acc
+                        rpe = algo.rounds_per_epoch(ctx.parts[0])
+                        per_worker = int(np.ceil(
+                            max(ctx.max_epochs - epochs_done, 0.0) * rpe))
+                        w = ctx.w
+                        states = ctx.states
+                        rounds = np.zeros(w, dtype=int)
+                        total = done + per_worker * w
+                        eval_stride = w * max(rpe // 4, 1)
+                        # the comm stack was re-composed: seed the (carried
+                        # over or fresh) kvstore with the global model
+                        store = ctx.comm.kvstore()
+                        ctx.meter_add("resize", store.put("global", cur))
+                        heap = [(float(ctx.clock[i]), i) for i in range(w)]
+                        heapq.heapify(heap)
 
 
 class ASP(SSP):
@@ -250,8 +335,14 @@ class LocalSGD(SyncProtocol):
     quantization error is carried per worker into the next sync round.
 
     Requires an algorithm with additive updates (``ga_sgd``).
+
+    Elastic fleets (DESIGN.md §13) resize at the averaging boundaries
+    only -- between boundaries workers hold un-merged local state that a
+    membership change would discard -- and the per-worker accumulators
+    (and compression residuals) restart at zero for the new fleet.
     """
     name = LOCAL_NAME
+    supports_resize = True
 
     def __init__(self, h: int = 8, outer: str = "ma", compress: bool = False,
                  outer_lr: float = 0.7, outer_momentum: float = 0.9):
@@ -307,6 +398,7 @@ class LocalSGD(SyncProtocol):
 
         rnd = 0
         while rnd < total_rounds:
+            states = ctx.states
             for i in range(ctx.w):
                 ctx.ensure_alive(i, est)
             updates = [algo.local_update(model, st, rnd) for st in states]
@@ -351,6 +443,17 @@ class LocalSGD(SyncProtocol):
             # cadence saves ride the averaging boundaries too: between them
             # workers hold un-merged local state no checkpoint could restore
             ctx.ckpt_boundary(rnd)
+            # averaging boundary = the only safe membership change: every
+            # worker just resynced to the merged model
+            stop, total_rounds, rpe, resized = ctx.elastic_boundary(
+                rnd, total_rounds, rpe)
+            if stop:
+                break
+            if resized:
+                est = float(np.max(ctx.c_round * ctx.speeds)) + 5.0
+                accs = [torch.zeros_like(base) for _ in range(ctx.w)]
+                if self.compress:
+                    residual = [torch.zeros_like(base) for _ in range(ctx.w)]
 
 
 def sync_name(spec) -> str:

@@ -88,3 +88,9 @@ def make_workload(name: str, *, dataset: str = "higgs", rows: int = 30_000,
     ds = make_dataset(dataset, rows=rows, seed=data_seed)
     tr, va = train_val_split(ds, val_frac=val_frac)
     return make_study_model(name, tr, **model_args), tr, va
+
+
+def list_workloads() -> list[str]:
+    """Every ``ExperimentSpec.model`` value the port trains: the study
+    stand-ins (the architecture workloads are ROADMAP.md queue A6)."""
+    return list(STUDY_MODELS)

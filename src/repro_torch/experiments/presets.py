@@ -2,10 +2,9 @@
 
 Each preset is a declarative bundle of :class:`ExperimentSpec` trials (plus
 a canonical ``base`` spec), the same bundles as the JAX package's, minus
-the ones this port cannot run yet: ``faas_vs_pod`` and ``pod_local_sgd``
-train a model-zoo architecture (ROADMAP.md queue A6) and ``elastic_axis``
-resizes fleets (queue A4).  ``python -m repro_torch run <name>`` consumes
-them.
+the two this port cannot run yet: ``faas_vs_pod`` and ``pod_local_sgd``
+train a model-zoo architecture (ROADMAP.md queue A6).
+``python -m repro_torch run <name>`` consumes them.
 
 Every preset takes ``quick`` (small row counts, CI-friendly) vs full
 paper-scale sizes -- the same knob the benchmark suite always had.
@@ -175,6 +174,27 @@ def _comm_axis(quick: bool) -> list[ExperimentSpec]:
     return specs
 
 
+def _elastic_axis(quick: bool) -> list[ExperimentSpec]:
+    # the elastic-fleet axis (DESIGN.md §13) on the Fig-11 workload: a
+    # fixed fleet vs a declarative resize plan vs SMLT-style adaptive
+    # scaling vs an MLLess-style cost cap, all emitting w(t) in
+    # RunResult.scaling_timeline
+    base = ExperimentSpec(
+        platform="faas", model="lr", dataset="higgs",
+        rows=30_000 if quick else 400_000, algorithm="ga_sgd",
+        algo_args=dict(_GA), max_epochs=6,
+        fleet=FleetSpec(workers=4, min_workers=2, max_workers=16))
+    return [
+        base.with_(name="elastic_static"),
+        base.with_(name="elastic_schedule", scaling="schedule:2@0,8@5"),
+        base.with_(name="elastic_smlt", scaling="smlt"),
+        base.with_(name="elastic_cost_cap",
+                   scaling="cost_cap:0.01" if quick else "cost_cap:0.25"),
+        base.with_(name="elastic_iaas_schedule", platform="iaas",
+                   scaling="schedule:4@0,2@3"),
+    ]
+
+
 PRESETS: dict[str, Preset] = {p.name: p for p in [
     Preset("fig10_breakdown",
            "Fig 10: startup/load/compute/comm breakdown, FaaS channels vs "
@@ -203,6 +223,10 @@ PRESETS: dict[str, Preset] = {p.name: p for p in [
            "Transport x Collective x Codec axis (§12): S3/Memcached/VM-PS, "
            "allreduce vs scatter-reduce vs hierarchical, fp32 vs int8 vs "
            "top-k, + NIC/DCN ring rows", _comm_axis),
+    Preset("elastic_axis",
+           "Elastic fleets (§13): static vs schedule vs SMLT-adaptive vs "
+           "cost-capped scaling on the Fig-11 workload, w(t) in the "
+           "scaling timeline", _elastic_axis),
 ]}
 
 

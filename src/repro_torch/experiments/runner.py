@@ -1,4 +1,4 @@
-"""Experiment runner (DESIGN.md §10).
+"""Experiment runner and sweeps (DESIGN.md §10).
 
 ``run_experiment(spec, device=None)`` executes one :class:`ExperimentSpec`
 through the discrete-event engine on ``device`` (the card unless the
@@ -22,12 +22,17 @@ Records are cached on disk keyed by ``spec_hash`` (pass ``cache_dir``).
 The default cache is ``experiments/runs_torch/``, apart from the JAX
 package's ``experiments/runs/``: a spec hashes the same in both packages,
 so a shared directory would mix their records.  A cached record is reused
-only for the device it was run on.
+only for the device it was run on.  ``sweep()`` expands a cartesian grid of
+dotted-path overrides over a base spec, dedupes identical expansions, and
+optionally fans trials out over a thread pool whose threads share one
+device.
 """
 from __future__ import annotations
 
+import itertools
 import json
 from dataclasses import dataclass
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.device import resolve_device
@@ -111,3 +116,58 @@ def run_experiment(spec: ExperimentSpec, cache_dir: str | Path | None = None,
         cache_file.write_text(json.dumps(rec.to_dict(), indent=1))
         rec.path = str(cache_file)
     return rec
+
+
+def expand_grid(base: ExperimentSpec, grid: dict) -> list[ExperimentSpec]:
+    """Cartesian expansion of ``{dotted.field: [values...]}`` over ``base``.
+    Each expansion is named ``base.name[k=v,...]`` for traceability."""
+    if not grid:
+        return [base]
+    keys = sorted(grid)
+    specs = []
+    for combo in itertools.product(*(grid[k] for k in keys)):
+        over = dict(zip(keys, combo))
+        label = ",".join(f"{k.split('.')[-1]}={v}" for k, v in over.items())
+        s = base.with_(**over)
+        specs.append(s.with_(name=f"{base.name or 'sweep'}[{label}]"))
+    return specs
+
+
+def sweep(base: ExperimentSpec, grid: dict | None = None,
+          cache_dir: str | Path | None = None, max_workers: int = 0,
+          force: bool = False, device=None) -> list[RunRecord]:
+    """Run every point of ``grid`` over ``base`` (see :func:`expand_grid`)
+    on ``device`` (``None`` = the card).
+
+    Trials whose specs hash identically are executed once and the record is
+    shared; ``max_workers > 1`` fans independent trials out over a thread
+    pool.  The threads share the one device (each run's tensors are its
+    own, and every run is deterministic), so records and cache files are
+    the same whatever ``max_workers`` is.  Results come back in grid order
+    regardless of execution order.
+    """
+    dev = resolve_device(device)
+    specs = expand_grid(base, grid or {})
+    unique: dict[str, ExperimentSpec] = {}
+    for s in specs:
+        unique.setdefault(s.spec_hash(), s)
+
+    def _run(s: ExperimentSpec) -> RunRecord:
+        return run_experiment(s, cache_dir=cache_dir, force=force,
+                              device=dev)
+
+    if max_workers and max_workers > 1 and len(unique) > 1:
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            done = dict(zip(unique, pool.map(_run, unique.values())))
+    else:
+        done = {h: _run(s) for h, s in unique.items()}
+
+    out = []
+    for s in specs:
+        rec = done[s.spec_hash()]
+        if rec.spec.name != s.name:      # shared record, caller's label wins
+            rec = RunRecord(spec=s, result=rec.result,
+                            spec_hash=rec.spec_hash, cached=rec.cached,
+                            path=rec.path, device=rec.device)
+        out.append(rec)
+    return out

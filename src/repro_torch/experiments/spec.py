@@ -20,8 +20,8 @@ The spec is the JAX package's, field for field and default for default,
 with the same :data:`HASH_SCHEMA`, so one spec hashes the same in both
 packages.  The device a spec runs on is NOT a spec field: it is an
 argument of :func:`repro_torch.experiments.run_experiment`.  This port
-runs the study models with ``scaling="static"``; architecture workloads
-(queue A6) and elastic scaling (queue A4) raise ``NotImplementedError``.
+runs the study models; architecture workloads (queue A6) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,9 +30,7 @@ import json
 from dataclasses import asdict, dataclass, field, fields, replace
 
 from repro_torch.core.ckpt import CheckpointSpec
-from repro_torch.core.platform import (
-    CommSpec, FailureSpec, FleetSpec, check_static_scaling,
-)
+from repro_torch.core.platform import CommSpec, FailureSpec, FleetSpec
 from repro_torch.core.runtimes import (
     LIFETIME, FaaSRuntime, IaaSRuntime, PodPlatform,
 )
@@ -65,7 +63,9 @@ class ExperimentSpec:
     sync: str = "bsp"                      # bsp | asp | ssp:<s>
                                            #   | local:<H>[:c8] | diloco:<H>[:c8]
     scaling: str = "static"                # elastic fleet policy (§13):
-                                           # only "static" here (queue A4)
+                                           # static | schedule:<w@round,...>
+                                           #   | smlt[:<f>] | cost_cap:<$>
+                                           #   | plan[:cheapest|fastest]
     model: str = "lr"                      # a study stand-in: lr | svm |
                                            # kmeans | mobilenet | resnet50
     model_args: dict = field(default_factory=dict)
@@ -151,11 +151,42 @@ class ExperimentSpec:
         from repro_torch.core.platform import check_sync_codec
         from repro_torch.core.sync import make_sync
         check_sync_codec(make_sync(self.sync), self.comm.codec)
+        # elastic scaling (§13): parse the policy grammar eagerly, reject
+        # sync protocols without a resize path and heterogeneous fleets
+        from repro_torch.core.elastic import build_controller, validate_scaling
         if not isinstance(self.scaling, str):
             raise ValueError(
                 f"ExperimentSpec.scaling must be a policy string (specs are "
-                f"JSON-round-trippable), got {type(self.scaling)}")
-        check_static_scaling(self.scaling)
+                f"JSON-round-trippable); pass policy INSTANCES to the "
+                f"platform classes directly (got {type(self.scaling)})")
+        validate_scaling(self.scaling)
+        if self.scaling.startswith("plan"):
+            if self.platform not in ("faas", "iaas"):
+                raise ValueError(
+                    f"scaling='plan' covers the analytic model's platforms "
+                    f"(faas/iaas), not {self.platform!r}")
+        else:
+            controller = build_controller(self.scaling, self.fleet)
+            if controller is not None and not make_sync(
+                    self.sync).supports_resize:
+                raise ValueError(
+                    f"scaling={self.scaling!r} resizes the fleet mid-run, "
+                    f"which sync={self.sync!r} does not support "
+                    f"(supports_resize=False)")
+            # a declarative schedule names every width it will run at --
+            # validate the comm stack against each one NOW (a round-0 pin
+            # to a width whose scatter-reduce chunk busts a per-item
+            # transport limit should fail here, not mid-simulation)
+            from repro_torch.core.elastic import SchedulePolicy
+            if controller is not None and isinstance(controller.policy,
+                                                     SchedulePolicy):
+                for _rnd, w in controller.policy.plan:
+                    self.comm.validate(
+                        platform=self.platform,
+                        model_bytes=lambda: estimate_update_bytes(
+                            self.model, self.dataset, self.model_args),
+                        workers=max(controller.min_w,
+                                    min(controller.max_w, w)))
 
     # ---- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
@@ -206,21 +237,31 @@ class ExperimentSpec:
 
     # ---- builders -----------------------------------------------------------
     def build_runtime(self):
-        """The platform object a hand-written call would construct."""
+        """The platform object a hand-written call would construct.
+        ``scaling="plan[:objective]"`` resolves HERE: the analytic planner
+        picks the initial width for this spec's platform, and the run
+        itself is static (DESIGN.md §13)."""
+        fleet, scaling = self.fleet, self.scaling
+        if scaling.startswith("plan"):
+            from repro_torch.core.elastic import plan_initial_workers
+            _, _, objective = scaling.partition(":")
+            fleet = replace(fleet, workers=plan_initial_workers(
+                self, objective or "cheapest"))
+            scaling = "static"
         if self.platform == "faas":
             return FaaSRuntime(
-                fleet=self.fleet, failure=self.failure, comm=self.comm,
-                sync=self.sync, seed=self.seed, scaling=self.scaling,
+                fleet=fleet, failure=self.failure, comm=self.comm,
+                sync=self.sync, seed=self.seed, scaling=scaling,
                 ckpt=self.ckpt,
                 lifetime=LIFETIME if self.lifetime is None else self.lifetime)
         if self.platform == "pod":
-            return PodPlatform(fleet=self.fleet, failure=self.failure,
+            return PodPlatform(fleet=fleet, failure=self.failure,
                                comm=self.comm, sync=self.sync,
-                               seed=self.seed, scaling=self.scaling,
+                               seed=self.seed, scaling=scaling,
                                ckpt=self.ckpt, **self.platform_args)
-        return IaaSRuntime(fleet=self.fleet, failure=self.failure,
+        return IaaSRuntime(fleet=fleet, failure=self.failure,
                            comm=self.comm, sync=self.sync, seed=self.seed,
-                           scaling=self.scaling, ckpt=self.ckpt)
+                           scaling=scaling, ckpt=self.ckpt)
 
     def build_workload(self):
         """(workload, algo, ds_train, ds_val) via

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -27,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: one build-and-load at a time: the threads of a sweep share the card, and
+#: two threads building one source would write the same temporary file
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -86,13 +90,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps
     each C entry point to its argtypes (every entry point returns the
     ``int`` of ``cudaGetLastError()``)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LOADED[name] = lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
     return lib
 
 

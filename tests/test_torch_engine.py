@@ -182,7 +182,11 @@ def test_narrow_mlp_codecs_match_jax(comm, loss_rtol):
 
 
 @pytest.mark.parametrize("case", CASES + [
-    {"spec": s.to_dict()} for s in get_preset("comm_axis").build(True)],
+    {"spec": s.to_dict()} for s in get_preset("comm_axis").build(True)
+    + get_preset("elastic_axis").build(True)
+    + get_preset("elastic_axis").build(False)] + [
+    {"spec": {"name": "smlt", "scaling": "smlt"}},
+    {"spec": {"name": "plan", "scaling": "plan:fastest"}}],
     ids=lambda c: c["spec"]["name"])
 def test_spec_hash_equals_the_jax_package(case):
     """Same fields, defaults and HASH_SCHEMA: one spec, one cache key."""
@@ -192,7 +196,6 @@ def test_spec_hash_equals_the_jax_package(case):
 
 @pytest.mark.parametrize("over,match", [
     ({"model": "smollm_360m", "dataset": "tokens"}, "queue A6"),
-    ({"scaling": "smlt"}, "queue A4"),
 ])
 def test_unported_axes_raise_not_implemented(over, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -79,7 +79,11 @@ def test_every_module_is_listed():
                 "kernels.ssd_scan", "kernels.ssd_scan.kernel",
                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
                 "models.ssm", "configs.mamba2_370m", "configs.zamba2_2_7b",
-                "serving", "serving.latency", "launch.serve"):
+                "serving", "serving.latency", "launch.serve",
+                "core.analytical", "core.elastic", "core.elastic.policies",
+                "core.elastic.planner", "core.elastic.telemetry",
+                "core.trace.export", "core.ckpt.localfs", "core.faas",
+                "core.iaas"):
         assert f"repro_torch.{sub}" in names
 
 
@@ -101,6 +105,28 @@ def _cli():
     main(["run", "fig10_breakdown", "--no-cache", "--set", "rows=400"])
 
 
+def _cli_command(argv):
+    def entry():
+        from repro_torch.__main__ import main
+        main(argv)
+    return entry
+
+
+def _sweep():
+    from repro_torch.experiments import ExperimentSpec, sweep
+    sweep(ExperimentSpec(rows=400, max_epochs=1),
+          {"fleet.workers": [1, 2]})
+
+
+def _estimate_epochs():
+    from repro_torch.core import make_algorithm, make_study_model
+    from repro_torch.core.analytical import estimate_epochs
+    from repro_torch.data import make_dataset, train_val_split
+    tr, _ = train_val_split(make_dataset("higgs", rows=400))
+    estimate_epochs(make_study_model("lr", tr), make_algorithm("ga_sgd"),
+                    tr, 0.5)
+
+
 def _build_model():
     from repro_torch.configs import get_reduced
     from repro_torch.models import build_model
@@ -120,9 +146,14 @@ def _serve():
 
 @pytest.mark.parametrize(
     "entry", [_run_experiment, _train, _cli, _build_model, _generator,
-              _serve],
+              _serve, _sweep, _estimate_epochs,
+              _cli_command(["list"]), _cli_command(["plan", "lr_higgs"]),
+              _cli_command(["sweep", "fig8_sync", "--no-cache", "--set",
+                            "rows=400", "--grid", "sync=bsp,asp"]),
+              _cli_command(["trace", "fig10_trace", "--set", "rows=400"])],
     ids=["run_experiment", "train", "cli", "build_model", "generator",
-         "serve"])
+         "serve", "sweep", "estimate_epochs", "cli_list", "cli_plan",
+         "cli_sweep", "cli_trace"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     """No silent CPU fallback: without CUDA and without device='cpu',
     every entry point raises and says how to ask for the CPU."""
