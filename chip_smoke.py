@@ -36,7 +36,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the float64 recurrence at s = 512 and 575 (within twice the error of
    the kernel it replaced, SSD_FP64_PARENT), and timed at every (b, s) of
    3e with a 3xTF32 (the kernels line's), an fp32 and a bytes bound (no
-   PyTorch call computes the SSD: no library time);
+   PyTorch call computes the SSD: no library time); flash attention's
+   backward kernel against autograd of the plain version (FLASH_BWD_TOL
+   of the largest gradient) at the training path's shapes (b 8, s 64; h
+   3 / m 1, d 20 and h 15 / m 5, d 64) in fp32 and bf16 and at b 4, s
+   2048, each fp32 gradient within twice the plain version's error
+   against float64 gradients, two calls bitwise equal, and
+   ``FlashAttention``'s gradient equal to the kernel's; timed backward
+   alone (the kernel, the plain version's autograd backward, SDPA's
+   backward as the library yardstick) and forward + backward, against
+   the 3xTF32 bound of its five s x s x d products (the kernels line's),
+   the fp32 and the bytes bounds;
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -51,8 +61,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    catches a card-side precision fault;
 3b. profile -- torch.profiler over one more run of the int8 and top-k
    specs: device busy seconds, idle share, device time by kernel class;
-3c. presets -- every trial of every ported preset (quick sizes) through
-   ``run_experiment`` on the card and on the CPU, records compared;
+3c. presets -- every trial of every ported study preset (quick sizes)
+   through ``run_experiment`` on the card and on the CPU, records
+   compared (the two presets that train a zoo architecture are 3g's);
 3d. serve -- full-width smollm-360m (fp32, random weights from a seeded
    ``torch.Generator``) through ``Generator`` and ``perplexity`` on
    ``device="cuda"``: (a) the launcher's defaults (2 requests of batch 4,
@@ -90,7 +101,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    trace fig10_trace --quick --export chrome`` in a subprocess on the
    card: every conservation gate OK and every JSON file it writes loads.
    The seconds of (a)-(d) are printed, and the script's total;
-4. summary -- one JSON line listing every ported kernel.
+3g. train smollm-360m -- (a) the 9 trials of ``faas_vs_pod`` and
+   ``pod_local_sgd`` (quick: the reduced config in bf16) on the card and
+   the CPU, records compared within ARCH_CARD_VS_CPU_RTOL, and a control
+   at learning rate x ARCH_CONTROL_LR that must miss it; (b) full width
+   (32 layers, d_model 960, 409,007,040 parameters), one TokenStream
+   batch (b 8, s 64) through ``ArchWorkload.grad`` on the card and the
+   CPU from one seeded init, in fp32 (loss within 1e-5, each leaf within
+   FULL_FP32_GRAD_TOL of its largest |g|, wq/wk/wv non-zero) and bf16,
+   a second card gradient compared leaf by leaf (recorded); (c) one
+   full-width bf16 trial (FULL_TRIAL, cut by FULL_TRIAL_OVER so the CPU
+   side stays near a minute) on both, metered fields equal, losses
+   within FULL_TRIAL_RTOL, a second card run compared (recorded), and
+   exactly the launches of
+   ``flash_attention``, ``flash_attention_bwd`` and ``quantize8_ef`` the
+   spec implies; (d) ``python -m repro_torch serve --grid --no-cache`` on
+   the card: the same text as on the CPU and the frontier's invariants.
+   Launch counters are zeroed before each card run and read after; the
+   training launches join the kernels line's counts.  The seconds of
+   (a)-(d) are printed;
+4. summary -- one JSON line listing every ported kernel and the
+   backward kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository around it, the script exits non-zero and prints no
@@ -146,6 +177,19 @@ FLASH_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
 #: 700 W); the tensor-core kernel may err by at most twice as much
 FLASH_FP64_SEED = 3
 FLASH_FP64_PARENT = 1.1232379750758525e-06
+#: flash attention's backward kernel against autograd of the plain version
+#: on the card, relative to the largest |plain gradient|: fp32 sums in other
+#: orders (up to 2.3e-6 of it measured on an H100); bf16 gradients are
+#: rounded from fp32 by each side, and the plain version rounds each GQA
+#: copy of dk/dv to bf16 before summing them (up to 7.8e-3)
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the training path's attention shapes (b, s, h, m, d): smollm-360m's
+#: reduced config (phase 3g (a)) and full width (3g (b), (c)), at b 8, s 64
+FLASH_BWD_PATH = ((8, 64, 3, 1, 20), (8, 64, *_SMOLLM_ATTN))
+#: timed at the path's full-width shape and at the prefill's b 4, s 2048
+#: (the kernels line's row: long enough to be more than launch latency)
+FLASH_BWD_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
+                   FLASH_BWD_PATH[1], FLASH_BWD_PATH[0])
 #: card vs CPU fp32 logits of full-width smollm-360m, relative to the
 #: largest |logit| (and perplexity, relative): the card's fp32 GEMMs and
 #: the attention kernels sum in other orders than the CPU over 32 layers
@@ -181,6 +225,41 @@ SSD_FP64_PARENT = {512: 1.1245186668702445e-3, 575: 9.388894636970235e-4}
 #: control of phase 3a, which must exceed it.
 CARD_VS_CPU_RTOL = 1e-5
 
+#: phase 3g (a): card vs CPU loss tolerance of the 9 quick zoo-training
+#: trials (smollm-360m reduced, from bf16 parameters, the config's dtype;
+#: fp32 from the first merge on, as in the JAX package): the first
+#: gradients round to bf16 at other places on the card, and fp32 sums run
+#: in other orders.  An H100 read at most 7.98e-6 over the 9 trials; a
+#: learning rate x ARCH_CONTROL_LR on the first trial reads 1.02e-3 and
+#: must miss it
+ARCH_CARD_VS_CPU_RTOL = 1e-4
+ARCH_CONTROL_LR = 1.01
+#: 3g (c): the same for the full-width trial, whose first gradients carry
+#: 32 layers of bf16 rounding at other places: an H100 read 1.26e-3 (and
+#: 8.5e-4, 1.09e-3 in two runs of code that kept the parameters bf16)
+FULL_TRIAL_RTOL = 3e-3
+#: 3g (b): full-width smollm-360m, one batch (b 8, s 64), card vs CPU.  In
+#: fp32 the loss within 1e-5 (relative) and each leaf's gradient within
+#: FULL_FP32_GRAD_TOL of that leaf's largest |g| on the CPU (fp32 sums in
+#: other orders through 32 layers: an H100 read 2.1e-6); in bf16 within
+#: FULL_BF16_LOSS_RTOL and FULL_BF16_GRAD_TOL (bf16 rounding at other
+#: places in each layer: 8.2e-5 and 1.3e-2)
+FULL_LOSS_RTOL = 1e-5
+FULL_FP32_GRAD_TOL = 2e-5
+FULL_BF16_LOSS_RTOL = 1e-3
+FULL_BF16_GRAD_TOL = 5e-2
+FULL_BATCH = dict(b=8, s=64)
+#: 3g (c): one full-width bf16 trial of pod_local_sgd's int8 LocalSGD
+#: row, cut so that the CPU side stays near a minute (a full-width bf16
+#: gradient takes about 8 s on the CPU, an int8 pass of the 409M-element
+#: update a few): 2 workers, 20 rows (18 to train, 9 a worker, so 2 rounds
+#: of batch 8 an epoch), one epoch, the codec at every round (local:1:c8)
+#: -- 4 gradients, two int8 merges of 2 workers.  A time limit, not a
+#: choice that hides a fault.
+FULL_TRIAL = ("pod_local_sgd", "podsgd_local8_c8")
+FULL_TRIAL_OVER = {"model_args": {"reduced": False}, "sync": "local:1:c8",
+                   "rows": 20, "max_epochs": 1, "fleet.workers": 2}
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
@@ -212,7 +291,8 @@ def phase_device():
     from repro_torch.kernels import build
     t0 = time.time()
     libs = build.build(["quant8", "topk_ef", "flash_attention",
-                        "decode_attention", "ssd_scan"])
+                        "flash_attention_bwd", "decode_attention",
+                        "ssd_scan"])
     print(f"build: {time.time() - t0:.2f} s, "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
     return card
@@ -812,6 +892,179 @@ def phase_attention_kernels() -> dict:
     return rows
 
 
+def _attention_f64_grads(q, k, v, do, causal: bool = True):
+    """(dq, dk, dv) of attention computed in float64 end to end (scores,
+    softmax, products and the GQA sums), by autograd."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import fold_gqa
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    b, s, h, d = q.shape
+    qf, kf, vf = fold_gqa(*leaves)
+    sc = torch.einsum("bqd,bkd->bqk", qf, kf) * d ** -0.5
+    if causal:
+        keep = torch.ones(s, kf.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        sc = sc.masked_fill(~keep, NEG_INF)
+    o = torch.einsum("bqk,bkd->bqd", sc.softmax(dim=-1), vf)
+    o = o.reshape(b, h, s, d).transpose(1, 2)
+    return torch.autograd.grad(o, leaves, do.double())
+
+
+def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
+                  timed: bool = False) -> dict:
+    """Flash attention's backward kernel, causal, q/dO (b, s, h, d) and k/v
+    (b, s, m, d), against autograd of the plain version (within
+    FLASH_BWD_TOL of the largest |plain gradient|), two calls compared
+    bitwise; in fp32 also against float64 gradients: each of dq, dk, dv
+    must err by at most twice what the fp32 plain version errs.  With
+    ``timed``: CUDA-event times of the backward alone -- the kernel, the
+    plain version's autograd backward and ``F.scaled_dot_product_attention``'s
+    backward (a library yardstick; the port never calls it), each from a
+    forward made outside the timed call -- and of forward + backward for
+    all three.  Three bounds: five s x s x d products over the causal pairs
+    (S and dP recomputed, dv, dk, dq) as 3xTF32 on the tensor cores, the
+    fastest the card does fp32-accurate products (the kernels line's), the
+    same in fp32 on the CUDA cores, and the bytes (q, k, v, dO and the
+    log-sum-exp read once, dq, dk, dv written)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import (
+        FlashAttention, flash_attention_bwd_plain, flash_attention_plain)
+    q, k, v, do = _attn_inputs(gen, dtype, (b, s, h, d), (b, s, m, d),
+                               (b, s, m, d), (b, s, h, d))
+    _o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+
+    def kernel_fn():
+        return flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
+
+    def plain_fn():
+        return flash_attention_bwd_plain(q, k, v, do, causal=True)
+
+    got, again, plain = kernel_fn(), kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    key = str(dtype).replace("torch.", "")
+    scale = max(float(p.float().abs().max()) for p in plain)
+    err = max(float((a.float() - p.float()).abs().max())
+              for a, p in zip(got, plain))
+    row = {"shape": f"b{b} s{s} h{h} m{m} d{d} causal {key}",
+           "max_abs_err": err, "max_abs_grad": scale,
+           "repeat_bitwise": all(_bits_equal(a, c)
+                                 for a, c in zip(got, again))}
+    check(err <= FLASH_BWD_TOL[key] * scale,
+          f"flash_attention_bwd {row['shape']}: max |kernel - plain| "
+          f"{err:.3e} > {FLASH_BWD_TOL[key]:g} x {scale:.3e}")
+    check(row["repeat_bitwise"], f"flash_attention_bwd {row['shape']}: two "
+                                 f"calls differ")
+    if dtype == torch.float32:
+        exact = _attention_f64_grads(q, k, v, do)
+        row["vs_float64"] = {
+            name: {"kernel": float((a.double() - x).abs().max()),
+                   "plain": float((p.double() - x).abs().max())}
+            for name, a, p, x in zip(("dq", "dk", "dv"), got, plain, exact)}
+        del exact
+        for name, e in row["vs_float64"].items():
+            check(e["kernel"] <= 2 * e["plain"],
+                  f"flash_attention_bwd {row['shape']} {name}: "
+                  f"{e['kernel']:.3e} from float64, over twice the plain "
+                  f"version's {e['plain']:.3e}")
+    if timed:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def library_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def library_fwd_bwd():
+            return torch.autograd.grad(library_fwd(), (qt, kt, vt), dot)
+
+        def kernel_fwd_bwd():
+            o = FlashAttention.apply(*leaves, True)
+            return torch.autograd.grad(o, leaves, do)
+
+        lib = [g.transpose(1, 2) for g in library_fwd_bwd()]
+        row["library_max_abs_err"] = max(
+            float((a.float() - p.float()).abs().max())
+            for a, p in zip(lib, plain))
+        check(row["library_max_abs_err"] <= 1e-3 * scale,
+              "flash_attention_bwd: the library call is not the same "
+              "function")
+        fused = kernel_fwd_bwd()
+        check(all(_bits_equal(a, c) for a, c in zip(fused, got)),
+              "flash_attention_bwd: FlashAttention's gradient is not the "
+              "backward kernel's")
+        del lib, fused
+        es = q.element_size()
+        flop = 5 * 2 * b * h * _causal_pairs(s, s) * d
+        nbytes = es * (2 * b * s * h * d + 2 * b * s * m * d) \
+            + 4 * b * h * s + es * (b * s * h * d + 2 * b * s * m * d)
+        b_ms, by = tf32x3_bound_ms(nbytes, flop)
+        row.update(ms=time_ms(kernel_fn, reps=10),
+                   fwd_bwd_ms=time_ms(kernel_fwd_bwd, reps=10),
+                   plain_fwd_bwd_ms=time_ms(plain_fn, reps=5),
+                   library_fwd_bwd_ms=time_ms(library_fwd_bwd, reps=10))
+        with torch.enable_grad():
+            o_plain = flash_attention_plain(*leaves, causal=True)
+        row["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            o_plain, leaves, do, retain_graph=True), reps=5)
+        del o_plain
+        o_lib = library_fwd()
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True), reps=10)
+        del o_lib
+        row.update(library="F.scaled_dot_product_attention(..., "
+                           "is_causal=True, enable_gqa=True)'s backward "
+                           "(torch.autograd.grad)",
+                   bound_ms=b_ms, bound_by=by,
+                   bound_fp32_ms=bound_ms(nbytes, flop)[0],
+                   bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_bytes=nbytes, bound_flop=flop)
+        del qt, kt, vt, leaves
+    print(f"  flash_attention_bwd {row['shape']}: max|err|={err:.3e} "
+          f"(largest |g| {scale:.3e})"
+          + (f" vs_float64={json.dumps(row['vs_float64'])}"
+             if "vs_float64" in row else "")
+          + (f" backward: ms={row['ms']:.5f} bound_ms="
+             f"{row['bound_ms']:.5f} (3xTF32 {row['bound_by']}; fp32 "
+             f"{row['bound_fp32_ms']:.5f}, bytes {row['bytes_bound_ms']:.5f})"
+             f" plain_ms={row['plain_ms']:.5f} library_ms="
+             f"{row['library_ms']:.5f}; forward + backward: ms="
+             f"{row['fwd_bwd_ms']:.5f} plain_ms={row['plain_fwd_bwd_ms']:.5f}"
+             f" library_ms={row['library_fwd_bwd_ms']:.5f}" if timed else ""))
+    del q, k, v, do, _o, lse, got, again, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_bwd() -> dict:
+    """Flash attention's backward kernel against autograd of the plain
+    version at the training path's shapes (FLASH_BWD_PATH) in fp32 and
+    bf16, and at FLASH_BWD_TIMED's first shape, timed there and at the
+    path's shapes (see :func:`flash_bwd_row`)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in FLASH_BWD_PATH:
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_bwd_row(gen, *shape, dtype)
+    shapes = [flash_bwd_row(gen, *shape, torch.float32, timed=True)
+              for shape in FLASH_BWD_TIMED]
+    main = shapes[0]
+    return {**{k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_fp32_ms",
+                                    "bytes_bound_ms", "library_ms",
+                                    "library", "fwd_bwd_ms",
+                                    "plain_fwd_bwd_ms",
+                                    "library_fwd_bwd_ms", "vs_float64")},
+            "timed_max_abs_err": main["max_abs_err"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "shapes": shapes}
+
+
 def _ssd_inputs(gen, b, s, h, p, n, dtype, model_like: bool):
     """x, dt, a_log, B, C on the card.  ``model_like``: the Mamba2 block's
     ranges at init (a_log = 1, so A = -e; dt a softplus of a normal);
@@ -1182,15 +1435,19 @@ def phase_profile(preset) -> dict:
 # ----------------------------------------------------------- 3c. presets ---
 
 def phase_presets() -> int:
-    """Every trial of every ported preset (quick sizes) through
+    """Every trial of every ported study preset (quick sizes) through
     ``run_experiment`` on the card and on the CPU: the records must agree
     on every metered field and on the losses to CARD_VS_CPU_RTOL.  This
     reaches the paths the comm specs above do not: MA-SGD, ADMM, SSP/ASP,
-    the hybrid PS, spot kills, checkpoint cadences and traces."""
+    the hybrid PS, spot kills, checkpoint cadences and traces.  The
+    presets that train a zoo architecture (bf16) are phase 3g's."""
+    from repro_torch.core.workloads import is_arch_workload
     from repro_torch.experiments import PRESETS
     n, worst = 0, 0.0
     for preset in PRESETS.values():
         for spec in preset.build(True):
+            if is_arch_workload(spec.model):
+                continue
             worst = max(worst, _records_agree(spec))
             n += 1
     print(f"  {n} preset trials: card records equal the CPU's (losses "
@@ -1198,10 +1455,10 @@ def phase_presets() -> int:
     return n
 
 
-def _records_agree(spec) -> float:
+def _records_agree(spec, rtol: float = CARD_VS_CPU_RTOL) -> float:
     """One spec through ``run_experiment`` on the card and on the CPU: the
     records must agree on every metered field (``scaling_timeline``
-    included) and on the losses to CARD_VS_CPU_RTOL.  Returns the largest
+    included) and on the losses to ``rtol``.  Returns the largest
     relative loss gap."""
     from repro_torch.experiments import run_experiment
     worst = 0.0
@@ -1215,7 +1472,7 @@ def _records_agree(spec) -> float:
           == [t for t, _ in cpu["history"]],
           f"{spec.name}: history timestamps differ on the card")
     for (_, a), (_, b) in zip(card["history"], cpu["history"]):
-        check(abs(a - b) <= CARD_VS_CPU_RTOL * abs(b),
+        check(abs(a - b) <= rtol * abs(b),
               f"{spec.name}: card loss {a!r} vs cpu {b!r}")
         worst = max(worst, abs(a - b) / abs(b))
     return worst
@@ -1395,10 +1652,12 @@ def phase_elastic(preset) -> dict:
 # ------------------------------------------------------------- 3d. serve ---
 
 def _path_launches() -> dict:
+    """The serving path's kernels (flash attention's backward is 3g's)."""
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
-    return {**fk.launches, **dk.launches, **sk.launches}
+    return {"flash_attention": fk.launches["flash_attention"], **dk.launches,
+            **sk.launches}
 
 
 def _reset_path_launches() -> None:
@@ -1767,6 +2026,313 @@ def phase_serve_ssm() -> dict:
     return {"runs": rows, "launches": totals, "mamba2_decode_profile": prof}
 
 
+# ------------------------------------------------- 3g. train smollm-360m ---
+
+def _train_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.quant8 import kernel as qk
+    return {**fk.launches, "quantize8_ef": qk.launches["quantize8_ef"]}
+
+
+def _reset_train_launches() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.quant8 import kernel as qk
+    fk.reset_launches()
+    qk.reset_launches()
+
+
+def _add(totals: dict, more: dict) -> None:
+    for k, v in more.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def _smollm_full(dtype: str, device: str):
+    """Full-width smollm-360m as an ``ArchWorkload`` whose config's dtype
+    is ``dtype`` (the parameter layout does not depend on the dtype)."""
+    from repro_torch.core.workloads import ArchWorkload
+    from repro_torch.models.common import DTYPES
+    wl = ArchWorkload("smollm_360m", reduced=False, device=device)
+    wl.cfg = wl.cfg.replace(dtype=dtype)
+    wl.arch = wl.arch.replace(model=wl.cfg)
+    wl.dtype = DTYPES[dtype]
+    return wl
+
+
+def _full_grads(dtype: str, params32, totals: dict) -> dict:
+    """3g (b): one TokenStream batch through the full-width model's loss
+    and gradient on the card and on the CPU, from ``params32`` (the seeded
+    fp32 init, cast to ``dtype`` as the init casts each leaf)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    wl = _smollm_full(dtype, "cuda")
+    b = TokenStream(wl.cfg.vocab_size, seed=0).batch(FULL_BATCH["b"],
+                                                     FULL_BATCH["s"])
+    batch = {"x": torch.from_numpy(b["tokens"]),
+             "y": torch.from_numpy(b["labels"])}
+    params = params32.to(wl.dtype)
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    _reset_train_launches()
+    t0 = time.time()
+    loss_c, g_c = wl.grad(params.cuda(), card_batch)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    launches = _train_launches()
+    _add(totals, launches)
+    # is the card's gradient repeatable?  A second call, compared leaf by
+    # leaf (its launches are not the path's)
+    loss_r, g_r = wl.grad(params.cuda(), card_batch)
+    repeat = {"loss_bitwise": _bits_equal(loss_c, loss_r),
+              "grad_bitwise": _bits_equal(g_c, g_r),
+              "max_abs_diff": float((g_c.float() - g_r.float()).abs().max())}
+    repeat["leaves_differ"] = [
+        "/".join(path) for path, a, b2 in zip(
+            wl.layout, *(wl._views(g)[1] for g in (g_c, g_r)))
+        if not _bits_equal(a, b2)]
+    del g_r
+    L = wl.cfg.num_layers
+    check(launches["flash_attention"] == L
+          and launches["flash_attention_bwd"] == L,
+          f"full {dtype}: {launches}, want {L} forward and {L} backward "
+          f"flash launches")
+    t0 = time.time()
+    loss_h, g_h = wl.grad(params, batch)
+    cpu_s = time.time() - t0
+    g_c = g_c.float().cpu().numpy()
+    g_h = g_h.float().numpy()
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    loss_tol = FULL_LOSS_RTOL if dtype == "float32" else FULL_BF16_LOSS_RTOL
+    grad_tol = FULL_FP32_GRAD_TOL if dtype == "float32" else \
+        FULL_BF16_GRAD_TOL
+    rel_loss = abs(loss_c - loss_h) / abs(loss_h)
+    check(np.isfinite(loss_c) and rel_loss <= loss_tol,
+          f"full {dtype}: card loss {loss_c!r} vs cpu {loss_h!r}")
+    leaves = {}
+    off = 0
+    for path, shape in wl.layout:
+        n = int(np.prod(shape))
+        c, h = g_c[off:off + n], g_h[off:off + n]
+        off += n
+        name = "/".join(path)
+        big = float(np.abs(h).max())
+        leaves[name] = float(np.abs(c - h).max()) / big if big else 0.0
+        check(np.isfinite(c).all() and leaves[name] <= grad_tol,
+              f"full {dtype} {name}: max |card - cpu| is {leaves[name]:.3e} "
+              f"of its largest |g| ({big:.3e})")
+        if path[-1] in ("wq", "wk", "wv"):
+            check(float(np.abs(c).max()) > 0.0,
+                  f"full {dtype} {name}: zero gradient on the card")
+    out = {"dtype": dtype, "n_params": wl.n_params, "loss_card": loss_c,
+           "loss_cpu": loss_h, "rel_loss": rel_loss,
+           "worst_leaf": max(leaves, key=leaves.get),
+           "worst_leaf_rel": max(leaves.values()), "leaf_rel": leaves,
+           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+           "card_repeat": repeat}
+    print(f"  full width {dtype}: {wl.n_params} parameters, loss card "
+          f"{loss_c!r} cpu {loss_h!r} (rel {rel_loss:.3e}); worst leaf "
+          f"{out['worst_leaf']} {out['worst_leaf_rel']:.3e} of its largest "
+          f"|g|; card {card_s:.2f} s, cpu {cpu_s:.2f} s; launches "
+          f"{launches}; a second card gradient: " + json.dumps(repeat))
+    del params, g_c, g_h
+    torch.cuda.empty_cache()
+    return out
+
+
+def _counted(wl) -> dict:
+    """Count ``wl``'s gradient and evaluation calls (wraps them)."""
+    n = {"grad": 0, "eval": 0}
+    grad, eval_loss = wl.grad, wl.eval_loss
+
+    def counted_grad(*a, **k):
+        n["grad"] += 1
+        return grad(*a, **k)
+
+    def counted_eval(*a, **k):
+        n["eval"] += 1
+        return eval_loss(*a, **k)
+
+    wl.grad, wl.eval_loss = counted_grad, counted_eval
+    return n
+
+
+def _full_trial(totals: dict) -> dict:
+    """3g (c): FULL_TRIAL at full width in bf16 on the card and the CPU:
+    metered fields equal, losses within FULL_TRIAL_RTOL, and the
+    launches the spec implies: flash forward per layer per gradient and
+    per evaluation, backward per layer per gradient (one gradient per
+    worker per round), quantize8_ef per worker per sync (local:1 syncs
+    every round)."""
+    import torch
+    from repro_torch.experiments import get_preset
+    preset, name = FULL_TRIAL
+    spec = next(s for s in get_preset(preset).build(True) if s.name == name)
+    spec = spec.with_(**FULL_TRIAL_OVER)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        wl, algo, tr, va = spec.build_workload(device)
+        n = _counted(wl)
+        _reset_train_launches()
+        t0 = time.time()
+        res = spec.build_runtime().train(wl, algo, tr, va,
+                                         max_epochs=spec.max_epochs,
+                                         device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (res, n, _train_launches(), time.time() - t0)
+        check(not res.error, f"full trial on {device}: {res.error}")
+    (card, n, launches, card_s), (cpu, _n, _l, cpu_s) = \
+        runs["cuda"], runs["cpu"]
+    _add(totals, launches)
+    w, L = spec.fleet.workers, wl.cfg.num_layers
+    want = {"flash_attention": L * (n["grad"] + n["eval"]),
+            "flash_attention_bwd": L * n["grad"],
+            "quantize8_ef": w * card.rounds}
+    check(n["grad"] == w * card.rounds and n["eval"] == len(card.history),
+          f"full trial: {n} for {card.rounds} rounds of {w} workers")
+    check(launches == want, f"full trial launches {launches}, want {want}")
+    check(_metered(card) == _metered(cpu),
+          "full trial: metered fields differ between the card and the CPU")
+    card_l, cpu_l = _history_losses(card), _history_losses(cpu)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    check(rel <= FULL_TRIAL_RTOL,
+          f"full trial: card losses {card_l} vs cpu {cpu_l}")
+    # is the card's training repeatable?  A second card run (its launches
+    # are not the path's)
+    wl, algo, tr, va = spec.build_workload("cuda")
+    again = _history_losses(spec.build_runtime().train(
+        wl, algo, tr, va, max_epochs=spec.max_epochs, device="cuda"))
+    out = {"spec": spec.name, "over": FULL_TRIAL_OVER, "rounds": card.rounds,
+           "grads": n["grad"], "evals": n["eval"], "launches": launches,
+           "losses_card": card_l, "losses_cpu": cpu_l, "rel_loss": rel,
+           "card_repeat_equal": again == card_l, "losses_card_again": again,
+           "card_s": card_s, "cpu_s": cpu_s}
+    print(f"  full-width trial {spec.name} {FULL_TRIAL_OVER}: {card.rounds} "
+          f"rounds, {n['grad']} gradients, launches {launches}; losses card "
+          f"{card_l} cpu {cpu_l} (rel {rel:.3e}); a second card run "
+          f"{'repeats them' if again == card_l else 'reads ' + str(again)}; "
+          f"card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_grid(device: str) -> str:
+    """``serve --grid --no-cache``'s text: the command itself in a
+    subprocess on the card, its ``main`` in this process on the CPU."""
+    argv = ["serve", "--grid", "--no-cache", "--device", device]
+    if device == "cpu":
+        import contextlib
+        import io
+        from repro_torch.__main__ import main as cli
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli(argv) == 0, "serve --grid on the CPU failed")
+        return buf.getvalue()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch", *argv], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"serve --grid on {device}: {out.stderr}")
+    return out.stdout
+
+
+def _check_serve_grid(text: str) -> dict:
+    """The frontier's invariants (the JAX package's verify recipe): faas
+    cheapest on the poisson:0.005 and flash: rows, iaas cheapest and pod
+    fastest on poisson:5, every cost nonzero unless no request came."""
+    rows = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if not parts or line.startswith("#") or parts[0] == "name":
+            continue
+        platform, arrival = parts[0].split("/", 1)
+        rows.setdefault(arrival, {})[platform] = {
+            "req": int(parts[2]), "p99_ms": float(parts[6]),
+            "cost": float(parts[7])}
+    check(len(rows) == 3 and all(len(r) == 3 for r in rows.values()),
+          f"serve --grid: rows {rows}")
+    for arrival, by in rows.items():
+        cheapest = min(by, key=lambda p: by[p]["cost"])
+        if arrival == "poisson:5":
+            check(cheapest == "iaas", f"serve {arrival}: cheapest {cheapest}")
+            fastest = min(by, key=lambda p: by[p]["p99_ms"])
+            check(fastest == "pod", f"serve {arrival}: fastest {fastest}")
+        else:
+            check(cheapest == "faas", f"serve {arrival}: cheapest {cheapest}")
+        for p, r in by.items():
+            check(r["cost"] > 0 or r["req"] == 0,
+                  f"serve {p}/{arrival}: zero cost for {r['req']} requests")
+    return rows
+
+
+def phase_train() -> dict:
+    """3g: (a) every trial of the two presets that train smollm-360m
+    (quick: reduced, bf16) on the card and the CPU, records compared within
+    ARCH_CARD_VS_CPU_RTOL, and a control with the learning rate x
+    ARCH_CONTROL_LR that must miss it; (b) full-width gradients card vs
+    CPU in fp32 and bf16; (c) one full-width bf16 trial with exact launch
+    counts; (d) the serving simulator's frontier on the card, equal to the
+    CPU's text and holding its invariants.  Returns the training launches
+    (they join the kernels line) and each part's numbers and seconds."""
+    import torch
+    from repro_torch.core.workloads import is_arch_workload
+    from repro_torch.experiments import PRESETS, run_experiment
+    totals: dict = {}
+    out = {"seconds": {}}
+    t0 = time.time()
+    trials = [spec for preset in PRESETS.values()
+              for spec in preset.build(True) if is_arch_workload(spec.model)]
+    check(len(trials) == 9, f"3g (a): {len(trials)} zoo-training trials, "
+                            f"want 9")
+    n, worst = len(trials), 0.0
+    for spec in trials:
+        _reset_train_launches()
+        worst = max(worst, _records_agree(spec, ARCH_CARD_VS_CPU_RTOL))
+        _add(totals, _train_launches())
+    first = trials[0]
+    ctrl = first.with_(algo_args={
+        **first.algo_args, "lr": first.algo_args["lr"] * ARCH_CONTROL_LR})
+    card_l = [l for _, l in run_experiment(ctrl, device="cuda")
+              .result["history"]]
+    cpu_l = [l for _, l in run_experiment(first, device="cpu")
+             .result["history"]]
+    ctrl_gap = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    print(f"  (a) {n} zoo-training trials: card records equal the CPU's "
+          f"(losses within {ARCH_CARD_VS_CPU_RTOL:g}; largest gap "
+          f"{worst:.3e}); control lr x{ARCH_CONTROL_LR}: gap {ctrl_gap:.3e}")
+    check(ctrl_gap > ARCH_CARD_VS_CPU_RTOL,
+          f"3g control (lr x{ARCH_CONTROL_LR}) within "
+          f"{ARCH_CARD_VS_CPU_RTOL:g} of the CPU: the tolerance would not "
+          f"catch it")
+    out["presets"] = {"trials": n, "worst_rel_loss": worst,
+                      "control_rel_loss": ctrl_gap}
+    out["seconds"]["a"] = time.time() - t0
+    t0 = time.time()
+    params32 = _smollm_full("float32", "cuda").init(
+        torch.Generator().manual_seed(0))
+    out["full"] = [_full_grads(dtype, params32, totals)
+                   for dtype in ("float32", "bfloat16")]
+    del params32
+    out["seconds"]["b"] = time.time() - t0
+    t0 = time.time()
+    out["trial"] = _full_trial(totals)
+    out["seconds"]["c"] = time.time() - t0
+    t0 = time.time()
+    card_text = _serve_grid("cuda")
+    check(card_text == _serve_grid("cpu"),
+          "serve --grid prints other rows on the card than on the CPU")
+    out["serve_grid"] = _check_serve_grid(card_text)
+    print("  (d) serve --grid: faas cheapest on the trickle and flash rows, "
+          "iaas cheapest and pod fastest on poisson:5, card == cpu text")
+    out["seconds"]["d"] = time.time() - t0
+    out["launches"] = totals
+    for name in ("flash_attention", "flash_attention_bwd", "quantize8_ef"):
+        check(totals.get(name, 0) > 0,
+              f"{name} never launched on the training path")
+    print("  3g seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
 # ----------------------------------------------------------------- main ----
 
 KERNELS = [
@@ -1787,6 +2353,11 @@ ATTN_KERNELS = [
 ]
 SSD_KERNEL = ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan/kernel.py:70")
+#: the gradient of flash attention: the JAX package has no backward Pallas
+#: kernel (its models differentiate the jnp attention, ``_sdpa``)
+BWD_KERNEL = ("flash_attention_bwd",
+              "src/repro_torch/csrc/flash_attention_bwd.cu",
+              "src/repro/models/attention.py:56")
 PATH_KERNELS = ("quantize8_ef", "topk_ef")
 
 
@@ -1802,6 +2373,7 @@ def main() -> int:
     phase("2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
+    bwd = phase_flash_bwd()
     ssd = phase_ssd_kernel()
     phase("3: path")
     launches, preset, cpu_losses = phase_path()
@@ -1822,13 +2394,18 @@ def main() -> int:
     phase("3f: elastic, planner and CLI")
     elastic = phase_elastic(preset)
     print(json.dumps({"elastic": elastic}))
+    phase("3g: train smollm-360m")
+    train = phase_train()
+    print(json.dumps({"train": {k: v for k, v in train.items()
+                                if k != "full"}}))
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
-        + elastic["launches"]
+        + elastic["launches"] + train["launches"]["quantize8_ef"]
     serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
                       for k in serve["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         check(serve_launches[name] > 0,
               f"{name} never launched on the serving path")
+    serve_launches["flash_attention"] += train["launches"]["flash_attention"]
     phase("4: summary")
     summary = []
     for name, source, replaces in KERNELS:
@@ -1867,6 +2444,25 @@ def main() -> int:
               f"{entry['bound_ms']:.5f} plain_ms={entry['plain_ms']:.5f} "
               f"library_ms={entry['library_ms']:.5f} "
               f"launches_on_path={entry['launches']}")
+    name, source, replaces = BWD_KERNEL
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "replaces_note": "no TPU kernel: the gradient of _sdpa's jnp "
+                              "attention",
+             "launches": train["launches"]["flash_attention_bwd"],
+             **{k: bwd[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "shape", "library", "bound_fp32_ms",
+                 "bytes_bound_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+                 "library_fwd_bwd_ms", "timed_max_abs_err", "vs_float64",
+                 "shapes")},
+             "held_against_plain": True}
+    summary.append(entry)
+    print(f"  {name:16s} held within {FLASH_BWD_TOL} of its plain version; "
+          f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
+          f"plain_ms={entry['plain_ms']:.5f} "
+          f"library_ms={entry['library_ms']:.5f} "
+          f"launches_on_path={entry['launches']}")
     name, source, replaces = SSD_KERNEL
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": serve_launches[name],

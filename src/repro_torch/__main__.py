@@ -7,6 +7,7 @@
     python -m repro_torch sweep fig8_sync --grid fleet.workers=4,8 --grid sync=bsp,asp
     python -m repro_torch plan lr_higgs --objective cheapest
     python -m repro_torch trace fig10_trace --export chrome
+    python -m repro_torch serve --grid              # serving frontier
 
 ``run`` executes a preset (or a JSON file holding a spec, a record, or a
 list of either) and ``sweep`` expands a cartesian ``--grid`` over the
@@ -14,10 +15,11 @@ preset's base spec; both write ``repro.experiment/v2`` records into the
 spec-hash cache (default ``experiments/runs_torch/``) and print a summary
 table.  ``plan`` ranks platform x fleet width by the §5.3 analytic model
 (DESIGN.md §13), and ``trace`` runs a preset with the span recorder on
-(DESIGN.md §18).  Every command works on the card unless ``--device cpu``
-is given; without CUDA and without ``--device cpu`` it fails.  The JAX
-package's ``serve`` (ROADMAP.md queue A5) and ``lint`` (queue A9) are not
-ported.
+(DESIGN.md §18).  ``serve`` runs the request-driven serving simulator
+(DESIGN.md §14; numpy, ``repro.serving/v1`` records in the same cache).
+Every command works on the card unless ``--device cpu`` is given; without
+CUDA and without ``--device cpu`` it fails.  The JAX package's ``lint``
+(ROADMAP.md queue A9) is not ported.
 """
 from __future__ import annotations
 
@@ -112,8 +114,8 @@ def _finish(records: list[RunRecord], out: str | None) -> None:
 
 def cmd_list(args) -> int:
     """The presets and every registry's grammar, as the JAX package's
-    ``list`` prints them, without the serving arrival processes (queue A5)
-    and the lint checkers (queue A9), which the port does not have."""
+    ``list`` prints them, without the lint checkers (queue A9), which the
+    port does not have."""
     resolve_device(args.device)
     for name in sorted(PRESETS):
         p = PRESETS[name]
@@ -143,6 +145,11 @@ def cmd_list(args) -> int:
     print(f"\nfailure processes (--set failure.trace=... / failure.rate=..., "
           f"DESIGN.md §17):")
     for line in list_failures().values():
+        print(f"  {line}")
+    from repro_torch.serving.arrivals import list_arrivals
+    print(f"\narrival processes (repro_torch serve --arrival ..., "
+          f"DESIGN.md §14):")
+    for line in list_arrivals().values():
         print(f"  {line}")
     from repro_torch.core.trace import list_exporters
     print(f"\ntrace exporters (repro_torch trace --export ..., "
@@ -214,7 +221,7 @@ def cmd_trace(args) -> int:
     rc = 0
     for k, spec in enumerate(specs):
         spec = spec.with_(trace=True)
-        model, algo, tr, va = spec.build_workload()
+        model, algo, tr, va = spec.build_workload(device)
         res = spec.build_runtime().train(
             model, algo, tr, va, target_loss=spec.target_loss,
             max_epochs=spec.max_epochs, eval_every=spec.eval_every,
@@ -267,6 +274,64 @@ def cmd_sweep(args) -> int:
                     force=args.force, device=args.device)
     _finish(records, args.out)
     return 1 if any(r.result.get("error") for r in records) else 0
+
+
+def _print_serve_records(records) -> None:
+    wname = max(len(r.spec.name or r.spec.platform) for r in records)
+    print(f"{'name':<{wname}s} {'w':>5s} {'req':>6s} {'done':>6s} "
+          f"{'cold':>5s} {'p50_ms':>10s} {'p99_ms':>10s} {'cost_$':>10s} "
+          f"{'$/1k':>9s}  note")
+    for r in records:
+        d = r.result
+        name = r.spec.name or r.spec.platform
+        p50 = d.get("p50_ms")
+        p99 = d.get("p99_ms")
+        perk = d.get("usd_per_1k")
+        print(f"{name:<{wname}s} {d.get('workers0', 0):5d} "
+              f"{d.get('requests', 0):6d} {d.get('completed', 0):6d} "
+              f"{d.get('cold_starts', 0):5d} "
+              f"{p50 if p50 is not None else float('nan'):10.1f} "
+              f"{p99 if p99 is not None else float('nan'):10.1f} "
+              f"{d.get('cost_usd', 0):10.5f} "
+              f"{perk if perk is not None else float('nan'):9.4f}  "
+              f"{'cached' if r.cached else ''}")
+
+
+def cmd_serve(args) -> int:
+    """Request-driven serving simulator (DESIGN.md §14; numpy: the device
+    is resolved like every command's, and nothing runs on it)."""
+    from repro_torch.experiments.serving import (
+        ServingSpec, frontier, run_serving)
+    resolve_device(args.device)
+    cache = None if args.no_cache else args.cache
+    overrides = _parse_set(args.set or [])
+    if args.grid:
+        records = frontier(duration_s=args.duration_s, reduced=args.reduced,
+                           cache_dir=cache, force=args.force)
+        print("# cost-vs-p99 frontier: FaaS vs IaaS vs pod x arrival shape")
+    else:
+        if args.target:
+            path = Path(args.target)
+            if not path.exists():
+                raise SystemExit(f"spec file not found: {args.target}")
+            data = json.loads(path.read_text())
+            items = data if isinstance(data, list) else [data]
+            specs = [ServingSpec.from_dict(_unwrap(d)) for d in items]
+        else:
+            specs = [ServingSpec(name="serve", arrival=args.arrival,
+                                 duration_s=args.duration_s,
+                                 reduced=args.reduced)]
+        if overrides:
+            specs = [s.with_(**overrides) for s in specs]
+        records = [run_serving(s, cache_dir=cache, force=args.force)
+                   for s in specs]
+    _print_serve_records(records)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(
+            json.dumps([r.to_dict() for r in records], indent=1))
+        print(f"# {len(records)} record(s) -> {args.out}", file=sys.stderr)
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -358,6 +423,39 @@ def main(argv: list[str] | None = None) -> int:
     trace_p.add_argument("--out", default=None,
                          help="export file name (default <name>.chrome.json)")
     trace_p.set_defaults(fn=cmd_trace)
+
+    serve_p = sub.add_parser(
+        "serve", parents=[device],
+        help="request-driven serving simulator (DESIGN.md §14): open-loop "
+             "traffic, cold starts, continuous batching")
+    serve_p.add_argument("target", nargs="?", default=None,
+                         help="ServingSpec JSON file (default: a single "
+                              "built-in spec shaped by --arrival)")
+    serve_p.add_argument("--grid", action="store_true",
+                         help="run the cost-vs-p99 frontier: faas/iaas/pod "
+                              "x trickle/sustained/flash")
+    serve_p.add_argument("--arrival", default="poisson:1",
+                         metavar="PROCESS",
+                         help="arrival grammar for the default spec "
+                              "(poisson:<qps> | diurnal:... | flash:... | "
+                              "trace:<file>)")
+    serve_p.add_argument("--duration-s", type=float, default=300.0,
+                         help="simulated traffic window (default 300)")
+    serve_p.add_argument("--reduced", action="store_true",
+                         help="serve the CPU-sized reduced arch variant")
+    serve_p.add_argument("--set", action="append", metavar="FIELD=VALUE",
+                         help="override a ServingSpec field (dotted paths "
+                              "reach the fleet)")
+    serve_p.add_argument("--cache", default=str(DEFAULT_CACHE),
+                         help="record cache dir (default "
+                              "experiments/runs_torch/)")
+    serve_p.add_argument("--no-cache", action="store_true",
+                         help="do not read or write the record cache")
+    serve_p.add_argument("--force", action="store_true",
+                         help="re-run even on a cache hit")
+    serve_p.add_argument("--out", default=None,
+                         help="also write all records to this JSON file")
+    serve_p.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     return args.fn(args)

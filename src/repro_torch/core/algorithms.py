@@ -9,6 +9,14 @@ parameter tensor's own row-major order, see :mod:`.mlmodels`).  Each
 worker's data partition moves to the device once, in :meth:`init_worker`;
 rounds slice it there.  Parameters are only ever replaced, never updated in
 place, so worker states may share one tensor.
+
+Update vectors are fp32, as the JAX package ravels them (``np.float32``):
+:func:`wire` casts an update to the wire.  Every assignment back to
+parameters goes through :func:`unravel`, which keeps the vector's dtype as
+the JAX ``unravel`` of a single-dtype tree does: a bfloat16 architecture's
+parameters (the config's dtype) become fp32 at their first merge, in both
+packages, and local steps before it stay bfloat16.  Both are free for fp32
+study models.
 """
 from __future__ import annotations
 
@@ -19,6 +27,18 @@ import torch
 
 from repro_torch.core.mlmodels import StudyModel, device_data, rows
 from repro_torch.data.synthetic import Dataset
+
+
+def wire(x: torch.Tensor) -> torch.Tensor:
+    """A parameter-shaped tensor as a flat fp32 update vector."""
+    return x.reshape(-1).to(torch.float32)
+
+
+def unravel(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``flat`` as parameters of ``like``'s shape, in ``flat``'s dtype (the
+    JAX ``unravel`` of a single-dtype tree splits and reshapes, and casts
+    nothing); ``like`` may be a meta tensor."""
+    return flat.reshape(like.shape)
 
 
 def _batches(st: "WorkerState", batch_size: int):
@@ -88,10 +108,10 @@ class GASGD(Algorithm):
         bs = min(self.batch_size, n)
         lo = (rnd * bs) % max(n - bs + 1, 1)
         _, g = model.grad(st.params, rows(st.data, lo, lo + bs))
-        return g.reshape(-1)
+        return wire(g)
 
     def apply_merged(self, model, st, merged, w):
-        st.params = (st.flat - self.lr * merged).reshape(st.params.shape)
+        st.params = unravel(st.flat - self.lr * merged, st.params)
 
 
 class MASGD(Algorithm):
@@ -117,10 +137,10 @@ class MASGD(Algorithm):
                 _, g = model.grad(params, b)
                 params = params - self.lr * g
         st.params = params
-        return params.reshape(-1)
+        return wire(params)
 
     def apply_merged(self, model, st, merged, w):
-        st.params = merged.reshape(st.params.shape)
+        st.params = unravel(merged, st.params)
 
 
 class ADMM(Algorithm):
@@ -145,21 +165,20 @@ class ADMM(Algorithm):
 
     def init_worker(self, model, params, part):
         st = super().init_worker(model, params, part)
-        flat = st.flat.to(torch.float32)
+        flat = wire(st.params)
         st.extra["x"] = flat.clone()
         st.extra["u"] = torch.zeros_like(flat)
         st.extra["z"] = flat.clone()
         return st
 
     def local_update(self, model, st, rnd):
-        shape = st.params.shape
         x = st.extra["x"]
         zu = st.extra["z"] - st.extra["u"]
         rho = self.rho
         for _ in range(self.local_epochs):
             for b in _batches(st, self.batch_size):
-                _, g = model.grad(x.reshape(shape), b)
-                g = g.reshape(-1) + rho * (x - zu)
+                _, g = model.grad(unravel(x, st.params), b)
+                g = wire(g) + rho * (x - zu)
                 x = x - self.lr * g
         st.extra["x"] = x
         return st.extra["x"] + st.extra["u"]
@@ -169,7 +188,7 @@ class ADMM(Algorithm):
         z = merged * (w * self.rho / (self.l2 + w * self.rho))
         st.extra["u"] = st.extra["u"] + st.extra["x"] - z
         st.extra["z"] = z
-        st.params = z.reshape(st.params.shape)
+        st.params = unravel(z, st.params)
 
 
 class EMKMeans(Algorithm):

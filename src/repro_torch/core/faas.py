@@ -10,9 +10,12 @@ surface:
 
     from repro_torch.core.faas import FaaSRuntime, LIFETIME
 
-The serving half of the JAX package's surface (``KEEP_WARM_S``,
-``ServingHooks``) is ROADMAP.md queue A5.
+Serving reuses the same measured constants: ``KEEP_WARM_S`` (sandbox
+warm-pool retention) and ``ServingHooks`` (the per-platform serving
+contract, DESIGN.md §14) are re-exported here because the serving simulator
+documents its FaaS cold starts as "drawn from core/faas.py".
 """
 from repro_torch.core.runtimes import (  # noqa: F401
-    FaaSRuntime, LIFETIME, LIFETIME_MARGIN, RunResult, interp_startup,
+    FaaSRuntime, KEEP_WARM_S, LIFETIME, LIFETIME_MARGIN, RunResult,
+    ServingHooks, interp_startup,
 )

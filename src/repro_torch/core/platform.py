@@ -271,6 +271,57 @@ def check_sync_codec(proto, codec: str) -> None:
             f"store moves raw fp32 -- drop the codec or switch sync")
 
 
+# ------------------------------------------------------- serving hooks ------
+
+@dataclass(frozen=True)
+class ServingHooks:
+    """What the request-driven serving simulator needs from a platform
+    (DESIGN.md §14) -- the serving-side mirror of the engine hooks.
+
+    ``billing`` selects the simulator's money model: ``"request"`` platforms
+    (FaaS) pay per-request GB-seconds + an invocation fee and scale to zero;
+    ``"provisioned"`` platforms (IaaS, pods) pay hourly per replica from the
+    moment a replica is requested until it is retired.  All constants come
+    from the same :mod:`repro_torch.core.cost` tables the training engine bills
+    against, so a serving dollar is traceable to the same sources as a
+    training dollar.
+    """
+
+    system: str                    # platform tag for results ("faas"/...)
+    billing: str                   # "request" | "provisioned"
+    flops: float                   # per-replica FLOP/s (homogeneous fleet)
+    memory_bytes: float            # per-replica RAM/HBM: weights + KV budget
+    mem_bandwidth: float           # bytes/s weight-streaming floor
+    hourly_usd: float = 0.0        # per replica (provisioned billing)
+    gb: float = 0.0                # FaaS memory size (request billing)
+    gb_s_usd: float = 0.0          # FaaS $ per GB-second
+    request_fee_usd: float = 0.0   # FaaS $ per invocation
+    keep_warm_s: float = 0.0       # FaaS sandbox warm-pool retention
+    cold_start_s: float = 0.0      # sandbox/VM bring-up, EXCLUDING model load
+    load_bandwidth: float = 1.0    # bytes/s for pulling weights on cold start
+    load_latency: float = 0.0      # per-pull latency (S3 round trip)
+    load_shards: int = 1           # weight objects pulled (sharded ckpt)
+    provision_table: tuple = ()    # ((w, s), ...) fleet-extension curve
+
+    def model_load_s(self, model_bytes: float) -> float:
+        """Seconds to pull the weights into a fresh replica (one latency
+        per checkpoint shard, bandwidth over the full byte size)."""
+        return self.load_shards * self.load_latency \
+            + model_bytes / self.load_bandwidth
+
+    def cold_start_total_s(self, model_bytes: float) -> float:
+        """Full cold start: sandbox/VM bring-up + weight pull."""
+        return self.cold_start_s + self.model_load_s(model_bytes)
+
+    def provision_s(self, added: int) -> float:
+        """Seconds to extend a provisioned fleet by ``added`` replicas
+        (same Table 6 interpolation as the elastic training hooks)."""
+        if not self.provision_table:
+            return 0.0
+        from repro_torch.core.runtimes import interp_startup
+        return interp_startup(dict(self.provision_table), added)
+
+
 # --------------------------------------------------------------- protocol ----
 
 @runtime_checkable

@@ -59,7 +59,8 @@ from repro_torch.core.engine import (  # noqa: F401  (RunResult re-exported)
     PSComm, RunResult, StragglerProcess, simulate,
 )
 from repro_torch.core.platform import (  # noqa: F401  (specs re-exported)
-    BasePlatform, CommSpec, FailureSpec, FleetSpec, Platform, per_worker,
+    BasePlatform, CommSpec, FailureSpec, FleetSpec, Platform, ServingHooks,
+    per_worker,
 )
 
 # Table 6 startup constants (seconds) -- see interp_startup for how worker
@@ -81,6 +82,7 @@ L_NET = {"t2.medium": NIC_LATENCY, "c5.large": 1.5e-4}
 
 LIFETIME = 900.0          # Lambda max duration (s)
 LIFETIME_MARGIN = 20.0
+KEEP_WARM_S = 600.0       # Lambda sandbox warm-pool retention (serving)
 
 
 def interp_startup(table: dict, w: int) -> float:
@@ -282,6 +284,31 @@ class FaaSRuntime(BasePlatform):
         return (float(np.dot(gb, ctx.clock[idx] - ctx.joined_at[idx]))
                 * pricing.LAMBDA_GB_S)
 
+    # ---- serving hooks (DESIGN.md §14) --------------------------------------
+    def serving_hooks(self) -> ServingHooks:
+        """Request-billed serving: one Lambda per in-flight request, the
+        sandbox invoke curve as the cold start, S3 as the weight store."""
+        if isinstance(self.fleet.lambda_gb, tuple):
+            raise ValueError("serving needs a homogeneous fleet: per-worker "
+                             "lambda_gb tuples cannot autoscale")
+        gb = float(self.fleet.gb_array()[0])
+        if self.ckpt.transport is not None:   # weights live where ckpts do
+            ch = ckpt_transport_constants(self.ckpt.transport)
+            load_bw, load_lat = ch.bandwidth, ch.latency
+        else:
+            load_bw, load_lat = B_S3, L_S3
+        return ServingHooks(
+            system="faas", billing="request",
+            flops=float(self.worker_flops_array(None)[0]),
+            memory_bytes=gb * 1e9,
+            mem_bandwidth=pricing.LAMBDA_MEM_BW,
+            gb=gb, gb_s_usd=pricing.LAMBDA_GB_S,
+            request_fee_usd=pricing.LAMBDA_REQUEST,
+            keep_warm_s=KEEP_WARM_S,
+            cold_start_s=self.restart_time(),
+            load_bandwidth=load_bw, load_latency=load_lat,
+            load_shards=self.ckpt.shards(self.workers))
+
 
 class IaaSRuntime(BasePlatform):
     """Distributed-PyTorch-style VM cluster: thin builder over the specs.
@@ -458,6 +485,37 @@ class IaaSRuntime(BasePlatform):
     def retire_cost(self, ctx, idx) -> float:
         span = ctx.clock[idx] - ctx.joined_at[idx]
         return float(np.dot(self._hourly_array()[idx], span)) / 3600.0
+
+    # ---- serving hooks (DESIGN.md §14) --------------------------------------
+    def serving_hooks(self) -> ServingHooks:
+        """Provisioned serving: hourly-billed VM replicas, Table 6 cluster
+        bring-up as the provisioning curve, S3 as the weight store.  GPU
+        fleets serve from device memory at device bandwidth."""
+        if isinstance(self.fleet.instance, tuple):
+            raise ValueError("serving needs a homogeneous fleet: per-worker "
+                             "instance tuples cannot autoscale")
+        inst = str(self.fleet.instances()[0])
+        if self.fleet.gpu:
+            mem_gb = pricing.GPU_HBM_GB.get(inst, 16.0)
+            mem_bw = pricing.VM_GPU_MEM_BW.get(
+                inst, pricing.VM_GPU_MEM_BW_DEFAULT)
+        else:
+            mem_gb = pricing.EC2_RAM_GB.get(inst, 4.0)
+            mem_bw = pricing.VM_MEM_BW
+        if self.ckpt.transport is not None:   # weights live where ckpts do
+            ch = ckpt_transport_constants(self.ckpt.transport)
+            load_bw, load_lat = ch.bandwidth, ch.latency
+        else:
+            load_bw, load_lat = B_S3, 0.0
+        return ServingHooks(
+            system=self.system_name(), billing="provisioned",
+            flops=float(self.worker_flops_array(None)[0]),
+            memory_bytes=mem_gb * 1e9, mem_bandwidth=mem_bw,
+            hourly_usd=float(self._hourly_array()[0]),
+            cold_start_s=self.restart_time(),
+            load_bandwidth=load_bw, load_latency=load_lat,
+            load_shards=self.ckpt.shards(self.workers),
+            provision_table=tuple(sorted(_T_IAAS.items())))
 
 
 # --------------------------------------------------------------- pods -------
@@ -647,3 +705,24 @@ class PodPlatform(BasePlatform):
     def retire_cost(self, ctx, idx) -> float:
         span = ctx.clock[idx] - ctx.joined_at[idx]
         return self._pod_hourly() * float(np.sum(span)) / 3600.0
+
+    # ---- serving hooks (DESIGN.md §14) --------------------------------------
+    def serving_hooks(self) -> ServingHooks:
+        """Provisioned serving on pod slices: weights shard across the
+        slice, so the streaming floor rides the aggregate HBM bandwidth --
+        which is exactly why continuous batching pays on this platform."""
+        if self.ckpt.transport is not None:   # weights live where ckpts do
+            ch = ckpt_transport_constants(self.ckpt.transport)
+            load_bw, load_lat = ch.bandwidth, ch.latency
+        else:
+            load_bw, load_lat = B_S3, L_S3
+        return ServingHooks(
+            system=self.system_name(), billing="provisioned",
+            flops=self.chips_per_pod * pricing.PEAK_FLOPS * self.mfu,
+            memory_bytes=self.chips_per_pod * pricing.POD_HBM_GB * 1e9,
+            mem_bandwidth=self.chips_per_pod * pricing.HBM_BW,
+            hourly_usd=self._pod_hourly(),
+            cold_start_s=self.restart_time(),
+            load_bandwidth=load_bw, load_latency=load_lat,
+            load_shards=self.ckpt.shards(self.workers),
+            provision_table=tuple(sorted(_T_POD.items())))

@@ -20,8 +20,10 @@ every infrastructure (FaaS, IaaS, hybrid, spot, heterogeneous fleets):
   (``compress=True``, the quant8 kernel).  ``LocalSGD(h=1)`` IS BSP.
 
 Update vectors, merges, residuals and the global model are fp32 tensors on
-the run's device; every merge goes through
-:func:`repro_torch.core.comm.collectives.mean_of`.  BSP, SSP/ASP and
+the run's device; every assignment back to parameters goes through
+:func:`repro_torch.core.algorithms.unravel`, so a bfloat16 model's
+parameters become fp32 at their first merge, as the JAX package's do.
+Every merge goes through :func:`repro_torch.core.comm.collectives.mean_of`.  BSP, SSP/ASP and
 LocalSGD resize elastic fleets (DESIGN.md §13) at their sync boundaries.
 
 Select a protocol with ``sync="bsp"|"asp"|"ssp"`` (or ``"ssp:<s>"``,
@@ -37,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.algorithms import unravel, wire
 from repro_torch.core.comm.codecs import int8_encode_decode, int8_wire_floats
 from repro_torch.core.comm.collectives import mean_of
 from repro_torch.core.engine import SimContext
@@ -159,8 +162,8 @@ class SSP(SyncProtocol):
         algo, states, model = ctx.algo, ctx.states, ctx.model
         w = ctx.w
         store = ctx.comm.kvstore()
-        shape = states[0].params.shape
-        store.put("global", states[0].flat.to(torch.float32).clone())
+        like = torch.empty_like(states[0].params, device="meta")
+        store.put("global", wire(states[0].params).clone())
         rpe = algo.rounds_per_epoch(ctx.parts[0])
         per_worker = ctx.max_epochs * rpe
         total = per_worker * w
@@ -194,7 +197,7 @@ class SSP(SyncProtocol):
             t = float(ctx.clock[i])
 
             g_flat, dt1 = store.get("global")
-            states[i].params = g_flat.reshape(shape)
+            states[i].params = unravel(g_flat, like)
             upd = algo.local_update(model, states[i], done)
             T = max(done // (rpe * w), 1)
             lr = float(algo.lr / np.sqrt(T))   # 1/sqrt(T) decay (paper §4.5)
@@ -260,7 +263,7 @@ class SSP(SyncProtocol):
                 epoch_acc += span / max(rpe * w, 1)
                 done_mark = done
                 cur, _ = store.get("global")
-                if ctx.record_eval_at(t, cur.reshape(shape)):
+                if ctx.record_eval_at(t, unravel(cur, like)):
                     break
                 # cadence save at the eval boundary (the global model was
                 # just read); the fleet-wide stall shifts every pending
@@ -274,7 +277,7 @@ class SSP(SyncProtocol):
                     w_before = w
                     # resize rebuilds worker state from states[0]: hand it
                     # the freshly-read global model first
-                    states[0].params = cur.reshape(shape)
+                    states[0].params = unravel(cur, like)
                     if ctx.maybe_resize(int(fleet_round)):
                         break
                     if ctx.w != w_before:
@@ -389,8 +392,8 @@ class LocalSGD(SyncProtocol):
         diloco = self.outer == "diloco"
 
         states = ctx.states
-        shape = states[0].params.shape
-        base = states[0].flat.to(torch.float32).clone()   # params at last sync
+        like = torch.empty_like(states[0].params, device="meta")
+        base = wire(states[0].params).clone()   # params at last sync
         momentum = torch.zeros_like(base) if diloco else None
         residual = ([torch.zeros_like(base) for _ in range(ctx.w)]
                     if self.compress else None)
@@ -416,20 +419,20 @@ class LocalSGD(SyncProtocol):
             if not diloco:
                 merged = self._merge(ctx, accs, residual, f"l{rnd}")
                 for st in states:
-                    st.params = base.reshape(shape)
+                    st.params = unravel(base, like)
                     algo.apply_merged(model, st, merged, ctx.w)
-                base = states[0].flat
+                base = wire(states[0].params)
             else:
                 deltas = []
                 for st, acc in zip(states, accs):
-                    st.params = base.reshape(shape)
+                    st.params = unravel(base, like)
                     algo.apply_merged(model, st, acc, 1)
-                    deltas.append(base - st.flat)   # DiLoCo pseudo-gradient
+                    deltas.append(base - wire(st.params))   # pseudo-gradient
                 mean_delta = self._merge(ctx, deltas, residual, f"l{rnd}")
                 base, momentum = self.outer_opt.step(base, momentum,
                                                      mean_delta)
                 for st in states:
-                    st.params = base.reshape(shape)
+                    st.params = unravel(base, like)
             for acc in accs:
                 acc.zero_()
             # h == 1 keeps BSP's exact eval cadence (eval_every respected);

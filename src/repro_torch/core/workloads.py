@@ -1,27 +1,62 @@
-"""The ``Workload`` layer, study half (DESIGN.md §11).
+"""The ``Workload`` layer: one model interface for the whole design space
+(DESIGN.md §11).
 
 The engine and the algorithms program against a small duck-typed model
 surface -- ``init``/``grad``/``eval_loss`` plus the ``convex`` and
-``flops_per_row`` metadata -- which the paper's study stand-ins
-(:class:`repro_torch.core.mlmodels.StudyModel`) satisfy.  This module
-builds ``(workload, ds_train, ds_val)`` for a study name and gives the two
-analytic sizes the §5.3 cost model and spec-time validation need.
+``flops_per_row`` metadata.  Two families implement it:
 
-Training the architecture workloads (``smollm_360m``, ``mamba2_370m``, ...
--- the model zoo) is ROADMAP.md queue A6: their names raise
-``NotImplementedError``.
+- a study name (``"lr"``, ``"svm"``, ``"kmeans"``, ``"mobilenet"``,
+  ``"resnet50"``) gives the paper's stand-in
+  (:class:`repro_torch.core.mlmodels.StudyModel`);
+- an architecture name (``"smollm_360m"``, ``"mamba2_370m"``, ... -- the
+  model zoo) gives an :class:`ArchWorkload`: the port's functional model
+  (:func:`repro_torch.models.transformer.loss_fn`), its autograd
+  gradient, and the deterministic token corpus
+  (:class:`repro_torch.data.tokens.TokenStream`).
+
+An architecture's parameters are ONE flat tensor in the config's dtype, in
+the JAX package's ``ravel_pytree`` order (dict keys sorted at every level,
+each stacked ``(L, ...)`` leaf raveled row-major), so the engine, the
+algorithms, the comm stack and the codecs take it as they take a study
+model's, and the int8 codec's 256-element blocks cover the same elements
+as the reference's.  The MoE family is not built yet (ROADMAP.md queue A6,
+MoE and MLA); encoder and VLM archs need non-token inputs and raise as in
+the JAX package.  On the card, attention's gradient comes from the CUDA
+backward kernel; the SSD scan has none yet, so the ssm and hybrid families
+train on the CPU only (ROADMAP.md queue A6, SSD backward).
+
+This module also gives the two analytic sizes the §5.3 cost model and
+spec-time validation need.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, spec_name
+from repro_torch.configs import (
+    ARCH_IDS, arch_key, get_arch, get_reduced, spec_name,
+)
 from repro_torch.core.mlmodels import STUDY_MODELS, _mlp_sizes, make_study_model
-from repro_torch.data.synthetic import make_dataset, train_val_split
+from repro_torch.data.synthetic import Dataset, make_dataset, train_val_split
+from repro_torch.data.tokens import TokenStream
+from repro_torch.kernels.ssd_scan.ops import SSD_BACKWARD_ITEM
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import (
+    DTYPES, init_params, is_spec, param_count, tree_map,
+)
 
 #: architecture workloads train on the synthetic LM corpus, not on the
 #: paper's feature datasets
 TOKEN_DATASET = "tokens"
+
+#: default sequence length for arch workloads -- one data "row" is one
+#: training sequence of this many tokens
+DEFAULT_SEQ_LEN = 64
+
+#: rows of the validation set :meth:`ArchWorkload.eval_loss` reads
+EVAL_ROWS = 512
 
 #: the architecture ids of the port's config registry, as spec-friendly
 #: model names
@@ -32,18 +67,38 @@ def is_arch_workload(name: str) -> bool:
     return name in ARCH_NAMES
 
 
-def check_study_workload(name: str) -> None:
+def _lm_arch(name: str) -> bool:
+    cfg = get_arch(arch_key(name)).model
+    return cfg.family not in ("encoder", "vlm") and not cfg.is_encoder
+
+
+def check_pairing(name: str, dataset: str) -> None:
+    """Raise unless model ``name`` can train on ``dataset``: architectures
+    on the LM corpus, study stand-ins on a feature dataset.  An
+    architecture whose family the port cannot build yet raises too (MoE:
+    ROADMAP.md queue A6, MoE and MLA), so a sweep rejects it at expansion;
+    encoder/VLM names raise ``ValueError`` at construction, as in the JAX
+    package."""
     if is_arch_workload(name):
-        raise NotImplementedError(
-            f"model {name!r} is an architecture workload; the PyTorch port "
-            f"trains the study models {', '.join(STUDY_MODELS)} only -- "
-            f"training the model zoo is ROADMAP.md queue A6")
+        if dataset != TOKEN_DATASET:
+            raise ValueError(
+                f"architecture workload {name!r} trains on the synthetic "
+                f"LM corpus; set dataset={TOKEN_DATASET!r} "
+                f"(got {dataset!r})")
+        if _lm_arch(name):
+            tfm.check_family(get_arch(arch_key(name)).model)
+    elif dataset == TOKEN_DATASET:
+        raise ValueError(
+            f"dataset={TOKEN_DATASET!r} is the architecture workloads' "
+            f"corpus; model {name!r} is a study stand-in -- pick one of the "
+            f"feature datasets (higgs, rcv1, ...)")
 
 
 def update_vector_bytes(workload, params=None) -> int:
     """Bytes of the flat fp32 parameter-shaped update vector one worker
     ships per round -- the ``m`` of the analytical model (4 bytes per
-    parameter; EM k-means ships ``k`` floats more)."""
+    parameter whatever the model dtype: the wire is fp32; EM k-means ships
+    ``k`` floats more)."""
     if params is None:
         params = workload.init(torch.Generator().manual_seed(0))
     return int(params.numel()) * 4
@@ -56,6 +111,11 @@ _DATASET_SHAPES = {"higgs": (28, 2), "rcv1": (47_236, 2),
                    "criteo": (1_000_000, 2)}
 
 
+def _arch_config(name: str, reduced: bool):
+    arch_id = arch_key(name)
+    return get_reduced(arch_id) if reduced else get_arch(arch_id)
+
+
 def estimate_update_bytes(model: str, dataset: str = "higgs",
                           model_args: dict | None = None) -> int | None:
     """fp32 update-vector bytes one worker ships per metered reduce,
@@ -63,6 +123,9 @@ def estimate_update_bytes(model: str, dataset: str = "higgs",
     validation checks against transport per-item limits (the DynamoDB
     400 KB rule of Table 1).  ``None`` when not statically known."""
     model_args = dict(model_args or {})
+    if is_arch_workload(model):
+        arch = _arch_config(model, bool(model_args.get("reduced", True)))
+        return param_count(tfm.model_spec(arch.model)) * 4
     if dataset not in _DATASET_SHAPES:
         return None
     d, n_classes = _DATASET_SHAPES[dataset]
@@ -79,18 +142,202 @@ def estimate_update_bytes(model: str, dataset: str = "higgs",
     return None
 
 
+# ---------------------------------------------------------- arch workloads --
+
+def ravel_layout(spec, path=()):
+    """``[(path, shape), ...]`` of a spec tree in ``ravel_pytree`` order:
+    dict keys sorted at every level."""
+    if is_spec(spec):
+        return [(path, spec[0])]
+    return [leaf for k in sorted(spec) for leaf in
+            ravel_layout(spec[k], path + (k,))]
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _stack_depth(path: tuple, cfg) -> int:
+    """How many leading layer dims a leaf at ``path`` carries: 1 under
+    ``blocks``, 2 under a hybrid group's ``ssm``, else 0."""
+    if path[0] != "blocks":
+        return 0
+    return 2 if cfg.family == "hybrid" and path[1] == "ssm" else 1
+
+
+def _split(t: torch.Tensor, depth: int):
+    """A stacked leaf as nested lists of its per-layer slices (views)."""
+    if depth == 0:
+        return t
+    return [_split(t[i], depth - 1) for i in range(t.shape[0])]
+
+
+def _flatten(x) -> list:
+    return [y for v in x for y in _flatten(v)] if isinstance(x, list) else [x]
+
+
+class ArchWorkload:
+    """A model-zoo architecture as an engine workload.
+
+    ``grad`` is the autograd gradient of the model's next-token loss
+    (:func:`repro_torch.models.transformer.loss_fn`), so every simulated
+    round runs genuine forward/backward numerics.  Batches arrive in the
+    engine's ``{"x", "y"}`` convention (int32 token / label matrices, one
+    row = one sequence).  ``reduced=True`` (default) uses the arch's
+    CPU-sized ``reduced()`` variant; ``reduced=False`` builds the published
+    config (same code path, only the shapes change).  ``flops_per_row`` is
+    the ``6 * n_params * seq_len`` training-FLOPs estimate, which is what
+    the platforms' FLOP/s hooks divide.  The parameters are one flat tensor
+    (see the module docstring); ``grad`` views it as the parameter dict.
+    """
+
+    convex = False
+
+    def __init__(self, name: str, *, reduced: bool = True,
+                 seq_len: int = DEFAULT_SEQ_LEN, device=None):
+        if not is_arch_workload(name):
+            raise KeyError(f"unknown architecture workload {name!r}")
+        self.name = name
+        self.seq_len = int(seq_len)
+        self.arch = _arch_config(name, reduced)
+        cfg = self.cfg = self.arch.model
+        if cfg.is_encoder or cfg.family == "vlm":
+            raise ValueError(
+                f"arch workload {name!r}: encoder/VLM batches need "
+                "frames/images; only LM-style archs run through the engine")
+        self.spec = tfm.model_spec(cfg)
+        self.layout = ravel_layout(self.spec)
+        self.n_params = param_count(self.spec)
+        self.flops_per_row = 6.0 * self.n_params * self.seq_len
+        self.dtype = DTYPES[cfg.dtype]
+        # the SSD scan kernel has no backward yet: the ssm and hybrid
+        # families train on the CPU only (``device`` is where the caller
+        # will train; None leaves that to the engine, whose SSD calls raise)
+        if (device is not None and torch.device(device).type != "cpu"
+                and cfg.family in ("ssm", "hybrid")):
+            raise NotImplementedError(
+                f"arch workload {self.name!r} ({self.cfg.family}) trains "
+                f"through the SSD scan, whose kernel has no backward yet "
+                f"({SSD_BACKWARD_ITEM}); run it with device='cpu'")
+
+    # ---- the flat parameter tensor ----
+    def _views(self, flat: torch.Tensor, split: bool = False):
+        """The parameter dict over ``flat`` (views, no copies).  With
+        ``split``, stacked leaves become nested lists of per-layer views,
+        each a leaf of its own (see :meth:`grad`).  -> (tree, leaves)."""
+        tree: dict = {}
+        leaves = []
+        off = 0
+        for path, shape in self.layout:
+            n = math.prod(shape)
+            leaf = flat[off:off + n].view(shape)
+            off += n
+            if split:
+                leaf = _split(leaf, _stack_depth(path, self.cfg))
+            leaves.append(leaf)
+            _put(tree, path, leaf)
+        return tree, leaves
+
+    def params(self, flat: torch.Tensor) -> dict:
+        """The parameter dict the model takes, as views of ``flat``."""
+        return self._views(flat)[0]
+
+    def flatten(self, tree: dict) -> torch.Tensor:
+        """A parameter dict (the port's keys and shapes) as the flat
+        tensor, in ``ravel_pytree`` order and the config's dtype."""
+        parts = []
+        for path, shape in self.layout:
+            leaf = tree
+            for k in path:
+                leaf = leaf[k]
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(leaf.shape)}, the spec wants "
+                                 f"{shape}")
+            parts.append(leaf.reshape(-1).to(self.dtype))
+        return torch.cat(parts)
+
+    def init(self, gen: torch.Generator) -> torch.Tensor:
+        """Seeded parameters on the CPU (the engine moves them): the model
+        zoo's init rule drawn from ``gen``, flattened."""
+        with torch.no_grad():
+            return self.flatten(init_params(gen, self.spec, self.cfg.dtype))
+
+    # ---- numerics ----
+    def _loss(self, tree, batch) -> torch.Tensor:
+        loss, _metrics = tfm.loss_fn(
+            tree, {"tokens": batch["x"], "labels": batch["y"]}, self.cfg)
+        return loss
+
+    def grad(self, params: torch.Tensor, batch: dict):
+        """-> (loss, flat gradient in the params' dtype).  Each per-layer
+        slice of the flat tensor is its own autograd leaf, so the backward
+        never materialises a full-size zero tensor per layer; the leaves'
+        gradients are copied into one flat gradient."""
+        flat = params.detach()
+        tree, leaves = self._views(flat, split=True)
+        leaves = _flatten(leaves)
+        for t in leaves:
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            loss = self._loss(tree, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        g = torch.empty_like(flat)
+        _, g_leaves = self._views(g, split=True)
+        for dst, src in zip(_flatten(g_leaves), grads):
+            dst.copy_(src)
+        return loss.detach(), g
+
+    @torch.no_grad()
+    def eval_loss(self, params: torch.Tensor, data: dict,
+                  max_rows: int = EVAL_ROWS) -> float:
+        n = min(int(data["x"].shape[0]), max_rows)
+        return float(self._loss(self.params(params),
+                                {"x": data["x"][:n], "y": data["y"][:n]}))
+
+    def make_data(self, rows: int, seed: int = 0) -> Dataset:
+        """Deterministic LM corpus: ``rows`` sequences of ``seq_len`` tokens
+        (x) with next-token labels (y), from the Zipf+bigram TokenStream."""
+        b = TokenStream(self.cfg.vocab_size, seed).batch(rows, self.seq_len)
+        return Dataset(TOKEN_DATASET, b["tokens"], b["labels"],
+                       n_classes=self.cfg.vocab_size)
+
+
+def flat_from_numpy(tree: dict, workload: ArchWorkload) -> torch.Tensor:
+    """The JAX package's parameter tree (nested dicts of numpy arrays, its
+    keys, stacked ``(L, ...)`` leaves) as ``workload``'s flat tensor, on the
+    CPU -- how parity tests give both packages one starting point."""
+    return workload.flatten(tree_map(
+        lambda a: torch.from_numpy(np.array(a, np.float32)), tree))
+
+
+# ---------------------------------------------------------------- factory ---
+
 def make_workload(name: str, *, dataset: str = "higgs", rows: int = 30_000,
-                  data_seed: int = 0, val_frac: float = 0.1, **model_args):
-    """Build ``(workload, ds_train, ds_val)`` for a study model name, in the
-    JAX package's construction order (dataset -> split -> model-on-train),
-    so the datasets are byte-identical to the reference's."""
-    check_study_workload(name)
+                  data_seed: int = 0, val_frac: float = 0.1, device=None,
+                  **model_args):
+    """Build ``(workload, ds_train, ds_val)`` for any point of the model
+    axis, in the JAX package's construction order (study: dataset -> split
+    -> model-on-train; architecture: model -> corpus -> split), so the
+    datasets are byte-identical to the reference's.  Architecture names
+    require ``dataset="tokens"`` and accept ``reduced``/``seq_len``;
+    ``device`` is where the caller will train (see :class:`ArchWorkload`)."""
+    check_pairing(name, dataset)
+    if is_arch_workload(name):
+        wl = ArchWorkload(name, device=device, **model_args)
+        ds = wl.make_data(rows, seed=data_seed)
+        tr, va = train_val_split(ds, val_frac=val_frac)
+        return wl, tr, va
     ds = make_dataset(dataset, rows=rows, seed=data_seed)
     tr, va = train_val_split(ds, val_frac=val_frac)
     return make_study_model(name, tr, **model_args), tr, va
 
 
 def list_workloads() -> list[str]:
-    """Every ``ExperimentSpec.model`` value the port trains: the study
-    stand-ins (the architecture workloads are ROADMAP.md queue A6)."""
-    return list(STUDY_MODELS)
+    """Every valid ``ExperimentSpec.model`` value (study stand-ins + the
+    LM-style architectures; encoder/VLM archs need non-token inputs and are
+    excluded)."""
+    archs = sorted(n for n in ARCH_NAMES if _lm_arch(n))
+    return list(STUDY_MODELS) + archs

@@ -57,6 +57,11 @@
 //   the ragged last tile); a warp skips the 8-key groups above its own
 //   rows on the diagonal, and rows past sq are never stored.
 //
+// With a non-null lse pointer the kernel also writes each row's natural
+// log-sum-exp of the scaled scores, (m + log2 l) ln 2, as fp32 (b, h, sq):
+// the offset the backward kernel (flash_attention_bwd.cu) recomputes P
+// from.  A null pointer (the serving path) skips that store.
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -79,6 +84,7 @@ constexpr int kNH = 4;            // 8-key groups per compute step
 constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {                  // in elements; head_dim is contiguous
   long long b, s, h;
@@ -90,6 +96,7 @@ struct Params {
   const T* k;
   const T* v;
   T* o;
+  float* lse;                     // (b, h, sq) or null
   int heads, group, sq, sk, d;
   Strides qs, ks, vs, os;
   float sm_scale;
@@ -425,6 +432,9 @@ flash_attention_kernel(const Params<T> P) {
     const int row = r0 + g + 8 * hr;
     if (row >= P.sq) continue;
     const float denom = fmaxf(l[hr], 1e-30f);
+    if (P.lse != nullptr && t == 0)
+      P.lse[static_cast<long long>(bh) * P.sq + row] =
+          (m[hr] + log2f(denom)) * kLn2;
     T* orow = P.o + b * P.os.b + row * P.os.s + h * P.os.h;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
@@ -461,7 +471,8 @@ cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int batch, int heads, int group, int sq, int sk, int d,
+                     float* lse, int batch, int heads, int group, int sq,
+                     int sk, int d,
                      const Strides* st, float sm_scale, int causal,
                      cudaStream_t stream) {
   const long long es = sizeof(T);
@@ -472,9 +483,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     vec = vec && aligned16(st[i].b * es) && aligned16(st[i].s * es) &&
           aligned16(st[i].h * es);
   const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), static_cast<T*>(o), heads,
-                    group, sq, sk, d, st[0], st[1], st[2], st[3], sm_scale,
-                    causal, int(vec)};
+                    static_cast<const T*>(v), static_cast<T*>(o), lse,
+                    heads, group, sq, sk, d, st[0], st[1], st[2], st[3],
+                    sm_scale, causal, int(vec)};
   switch ((d + 15) / 16) {
 #define REPRO_FA_CASE(NC) \
   case NC:                \
@@ -496,9 +507,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 host integers, the
-// (batch, position, head) strides in elements of q, k, v and o.
+// (batch, position, head) strides in elements of q, k, v and o.  lse: fp32
+// (b, h, sq) contiguous, or null.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o, float* lse,
+                                      int dtype,
                                       int batch, int heads, int kv_heads,
                                       int sq, int sk, int d,
                                       const long long* strides,
@@ -513,11 +526,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int group = heads / kv_heads;
   const cudaError_t err =
       dtype == 0
-          ? dispatch<float>(q, k, v, o, batch, heads, group, sq, sk, d, st,
-                            sm_scale, causal, stream)
+          ? dispatch<float>(q, k, v, o, lse, batch, heads, group, sq, sk, d,
+                            st, sm_scale, causal, stream)
       : dtype == 1
-          ? dispatch<__nv_bfloat16>(q, k, v, o, batch, heads, group, sq, sk,
-                                    d, st, sm_scale, causal, stream)
+          ? dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, heads, group,
+                                    sq, sk, d, st, sm_scale, causal, stream)
           : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

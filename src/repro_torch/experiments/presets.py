@@ -1,10 +1,10 @@
 """Named experiment presets: the paper's figures as specs, not scripts.
 
 Each preset is a declarative bundle of :class:`ExperimentSpec` trials (plus
-a canonical ``base`` spec), the same bundles as the JAX package's, minus
-the two this port cannot run yet: ``faas_vs_pod`` and ``pod_local_sgd``
-train a model-zoo architecture (ROADMAP.md queue A6).
-``python -m repro_torch run <name>`` consumes them.
+a canonical ``base`` spec), the same eleven bundles as the JAX package's;
+``faas_vs_pod`` and ``pod_local_sgd`` train a model-zoo architecture
+(smollm-360m) through the engine.  ``python -m repro_torch run <name>``
+consumes them.
 
 Every preset takes ``quick`` (small row counts, CI-friendly) vs full
 paper-scale sizes -- the same knob the benchmark suite always had.
@@ -144,6 +144,27 @@ def _hetero_fleet(quick: bool) -> list[ExperimentSpec]:
     ]
 
 
+def _faas_vs_pod(quick: bool) -> list[ExperimentSpec]:
+    # a REAL smollm-360m-config workload running genuine fwd/bwd numerics
+    # through the engine on all three infrastructures (the reduced config;
+    # --set model_args={"reduced":false} builds the published 360M shapes
+    # -- same code path).  LocalSGD(H=8) on the pod platform is the paper's
+    # reduced-communication regime: ~8x fewer metered cross-pod comm
+    # seconds/bytes at matching statistical efficiency.
+    base = ExperimentSpec(
+        model="smollm_360m", dataset="tokens",
+        rows=256 if quick else 16_384,
+        algorithm="ga_sgd", algo_args={"lr": 0.05, "batch_size": 8},
+        max_epochs=2, fleet=FleetSpec(workers=4))
+    return [
+        base.with_(name="pods_faas_bsp", platform="faas",
+                   comm=CommSpec(channel="memcached")),
+        base.with_(name="pods_iaas_bsp", platform="iaas"),
+        base.with_(name="pods_pod_bsp", platform="pod"),
+        base.with_(name="pods_pod_local8", platform="pod", sync="local:8"),
+    ]
+
+
 def _comm_axis(quick: bool) -> list[ExperimentSpec]:
     # the Transport x Collective x Codec axis (DESIGN.md §12) on one
     # CNN-sized workload: Table 3's allreduce-vs-scatter-reduce, the
@@ -172,6 +193,24 @@ def _comm_axis(quick: bool) -> list[ExperimentSpec]:
     specs.append(base.with_(name="comm_pod_dcn_ring_int8", platform="pod",
                             comm="dcn/ring/int8"))
     return specs
+
+
+def _pod_local_sgd(quick: bool) -> list[ExperimentSpec]:
+    # communication-interval sweep on the pod platform: BSP GA-SGD vs
+    # LocalSGD(H) vs DiLoCo, with and without int8 delta compression (the
+    # quant8 kernel on the card)
+    base = ExperimentSpec(
+        platform="pod", model="smollm_360m", dataset="tokens",
+        rows=256 if quick else 16_384,
+        algorithm="ga_sgd", algo_args={"lr": 0.05, "batch_size": 8},
+        max_epochs=2, fleet=FleetSpec(workers=4))
+    return [
+        base.with_(name="podsgd_bsp"),
+        base.with_(name="podsgd_local1", sync="local:1"),
+        base.with_(name="podsgd_local8", sync="local:8"),
+        base.with_(name="podsgd_local8_c8", sync="local:8:c8"),
+        base.with_(name="podsgd_diloco8", sync="diloco:8"),
+    ]
 
 
 def _elastic_axis(quick: bool) -> list[ExperimentSpec]:
@@ -219,6 +258,14 @@ PRESETS: dict[str, Preset] = {p.name: p for p in [
     Preset("hetero_fleet",
            "Heterogeneous fleets: mixed 1/3 GB Lambdas and mixed instance "
            "types", _hetero_fleet),
+    Preset("faas_vs_pod",
+           "Real smollm-360m workload (genuine PyTorch fwd/bwd) on all three "
+           "infrastructures: FaaS vs IaaS vs accelerator pods, + "
+           "LocalSGD(H=8) on pods", _faas_vs_pod),
+    Preset("pod_local_sgd",
+           "Pod platform comm-interval sweep: BSP vs LocalSGD(H) vs DiLoCo "
+           "vs int8-compressed deltas (MA-SGD insight on pod meshes)",
+           _pod_local_sgd),
     Preset("comm_axis",
            "Transport x Collective x Codec axis (§12): S3/Memcached/VM-PS, "
            "allreduce vs scatter-reduce vs hierarchical, fp32 vs int8 vs "

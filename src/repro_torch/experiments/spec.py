@@ -19,9 +19,9 @@ entry points for the same seed.
 The spec is the JAX package's, field for field and default for default,
 with the same :data:`HASH_SCHEMA`, so one spec hashes the same in both
 packages.  The device a spec runs on is NOT a spec field: it is an
-argument of :func:`repro_torch.experiments.run_experiment`.  This port
-runs the study models; architecture workloads (queue A6) raise
-``NotImplementedError``.
+argument of :func:`repro_torch.experiments.run_experiment`.  The model
+axis takes the study models and the model zoo's LM architectures; the MoE
+family (ROADMAP.md queue A6, MoE and MLA) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,8 +66,9 @@ class ExperimentSpec:
                                            # static | schedule:<w@round,...>
                                            #   | smlt[:<f>] | cost_cap:<$>
                                            #   | plan[:cheapest|fastest]
-    model: str = "lr"                      # a study stand-in: lr | svm |
-                                           # kmeans | mobilenet | resnet50
+    model: str = "lr"                      # any core.workloads name: a study
+                                           # stand-in (lr/svm/...) or a real
+                                           # arch (smollm_360m, mamba2_370m...)
     model_args: dict = field(default_factory=dict)
     algorithm: str = "ga_sgd"              # make_algorithm name
     algo_args: dict = field(default_factory=dict)
@@ -105,15 +106,8 @@ class ExperimentSpec:
                 f"failure scenario come from fleet/failure)")
         # fail the workload/dataset pairing eagerly (a sweep should reject
         # at expansion, not crash mid-batch inside build_workload)
-        from repro_torch.core.workloads import (
-            TOKEN_DATASET, check_study_workload,
-        )
-        check_study_workload(self.model)
-        if self.dataset == TOKEN_DATASET:
-            raise ValueError(
-                f"dataset={TOKEN_DATASET!r} is the architecture workloads' "
-                f"corpus; model {self.model!r} is a study stand-in -- pick "
-                f"one of the feature datasets (higgs, rcv1, ...)")
+        from repro_torch.core.workloads import check_pairing
+        check_pairing(self.model, self.dataset)
         object.__setattr__(self, "sync", sync_name(self.sync))
         if isinstance(self.comm, str):     # "transport/collective/codec"
             object.__setattr__(self, "comm", CommSpec.parse(self.comm))
@@ -263,16 +257,17 @@ class ExperimentSpec:
                            comm=self.comm, sync=self.sync, seed=self.seed,
                            scaling=scaling, ckpt=self.ckpt)
 
-    def build_workload(self):
+    def build_workload(self, device=None):
         """(workload, algo, ds_train, ds_val) via
         :func:`repro_torch.core.workloads.make_workload` (the JAX package's
         construction order, byte-identical datasets).  Deterministic in
-        (dataset, rows, data_seed, val_frac, model, algorithm)."""
+        (dataset, rows, data_seed, val_frac, model, algorithm).  ``device``
+        is where the caller will train (an architecture checks it)."""
         from repro_torch.core.algorithms import make_algorithm
         from repro_torch.core.workloads import make_workload
         wl, tr, va = make_workload(
             self.model, dataset=self.dataset, rows=self.rows,
-            data_seed=self.data_seed, val_frac=self.val_frac,
+            data_seed=self.data_seed, val_frac=self.val_frac, device=device,
             **self.model_args)
         algo = make_algorithm(self.algorithm, **self.algo_args)
         return wl, algo, tr, va

@@ -1,11 +1,15 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
+and its gradient, ``csrc/flash_attention_bwd.cu``).
 
-The wrapper takes q (b, sq, h, d) and k/v (b, sk, m, d) on one card, in
-the model's layout (any batch/position/head strides, head_dim contiguous),
-checks what the kernel takes, allocates o (b, sq, h, d) with
-``torch.empty``, launches on the current stream, raises if the launch was
-refused, and adds one to :data:`launches`.  It replaces the Pallas TPU
-kernel of the JAX package's ``kernels/flash_attention/kernel.py``.
+The forward wrapper takes q (b, sq, h, d) and k/v (b, sk, m, d) on one
+card, in the model's layout (any batch/position/head strides, head_dim
+contiguous), checks what the kernel takes, allocates o (b, sq, h, d) -- and,
+when asked, the rows' log-sum-exp (b, h, sq) -- with ``torch.empty``,
+launches on the current stream, raises if the launch was refused, and adds
+one to :data:`launches`.  It replaces the Pallas TPU kernel of the JAX
+package's ``kernels/flash_attention/kernel.py``.  The backward wrapper
+takes the forward's inputs, its log-sum-exp and the upstream gradient, and returns (dq, dk, dv); the JAX package has no backward kernel
+(its models differentiate the jnp attention).
 """
 from __future__ import annotations
 
@@ -16,19 +20,23 @@ import torch
 from repro_torch.kernels.build import check_launch, load
 
 #: launches since the last reset (chip_smoke reads it)
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_launch": [
-    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
+_BWD_SIGNATURES = {"flash_attention_bwd_launch": [
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def check_attention_inputs(what: str, q, k, v) -> None:
@@ -51,10 +59,18 @@ def check_attention_inputs(what: str, q, k, v) -> None:
         raise ValueError(f"{what}: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
 
 
+def _strides(*tensors):
+    """The (batch, position, head) strides of each tensor, as C integers."""
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool) -> torch.Tensor:
+                           *, causal: bool, with_lse: bool = False):
     """q (b, sq, h, d), k/v (b, sk, m, d), h % m == 0 -> o (b, sq, h, d)
-    in q's dtype; sm_scale = d**-0.5; causal keeps qpos >= kpos."""
+    in q's dtype; sm_scale = d**-0.5; causal keeps qpos >= kpos.  With
+    ``with_lse`` -> (o, lse): lse (b, h, sq) fp32, each row's natural
+    log-sum-exp of its scaled, masked scores (what the backward needs)."""
     check_attention_inputs("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: want q (b, sq, h, d) and k/v "
@@ -65,16 +81,56 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: {h} query heads over {m} kv "
                          f"heads, {sk} keys")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+        return (o, lse) if with_lse else o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = load("flash_attention", _SIGNATURES).flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            DTYPE_CODES[q.dtype], b, h, m, sq, sk, d, strides, d ** -0.5,
-            int(causal), stream)
+            None if lse is None else lse.data_ptr(),
+            DTYPE_CODES[q.dtype], b, h, m, sq, sk, d, _strides(q, k, v, o),
+            d ** -0.5, int(causal), stream)
     check_launch(rc, "flash_attention")
     launches["flash_attention"] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
+    """The gradient of :func:`flash_attention_kernel`: q, do (b, sq, h, d),
+    k/v (b, sk, m, d), lse (b, h, sq) fp32 from the forward ->
+    (dq, dk, dv), contiguous, in q's dtype."""
+    check_attention_inputs("flash_attention_bwd", q, k, v)
+    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
+            or do.stride(-1) != 1):
+        raise ValueError(f"flash_attention_bwd: do must be like q "
+                         f"{tuple(q.shape)} {q.dtype} with head_dim "
+                         f"contiguous, got {tuple(do.shape)} {do.dtype}")
+    b, sq, h, d = q.shape
+    sk, m = k.shape[1], k.shape[2]
+    if h % m or sk < 1:
+        raise ValueError(f"flash_attention_bwd: {h} query heads over {m} kv "
+                         f"heads, {sk} keys")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be fp32 "
+                         f"{(b, h, sq)} contiguous, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, m, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    rows = torch.empty((b, h, sq, 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = load("flash_attention_bwd",
+                  _BWD_SIGNATURES).flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), rows.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), DTYPE_CODES[q.dtype], b, h, m, sq, sk, d,
+            _strides(q, k, v, do), d ** -0.5, int(causal), stream)
+    check_launch(rc, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -5,12 +5,20 @@ k/v (b, sk, m, d) in place and maps query head i to kv head i // g.  A CPU
 tensor takes the plain version on the folded layout, with the JAX
 wrapper's plumbing: heads flattened into the batch, each kv head repeated
 g times.  The tensor's device decides; nothing falls back.
+
+Gradients: on the card, when grad mode is on and q, k or v requires grad,
+the call goes through :class:`FlashAttention`, whose forward is the CUDA
+kernel (keeping each row's log-sum-exp) and whose backward is the CUDA
+backward kernel.  On the CPU autograd differentiates the plain version
+(:func:`flash_attention_bwd_plain` states that gradient).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_kernel, flash_attention_kernel,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -32,10 +40,43 @@ def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 
+def flash_attention_bwd_plain(q, k, v, do, *, causal: bool):
+    """(dq, dk, dv): autograd of :func:`flash_attention_plain` at q, k, v
+    for the upstream gradient ``do`` -- what the backward kernel computes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_plain(*leaves, causal=causal)
+        return torch.autograd.grad(o, leaves, do)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                        with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:           # the kernel reads head_dim in rows
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, do, lse,
+                                                causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (b, sq, h, d); k/v (b, sk, m, d) with h % m == 0 (GQA) ->
     (b, sq, h, d) in q's dtype."""
     if q.device.type != "cpu":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return FlashAttention.apply(q, k, v, causal)
         return flash_attention_kernel(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal)

@@ -7,6 +7,10 @@ version (``ref.ssd_scan_chunked``, the JAX model's ``ssd_scan``).  The
 tensor's device decides; nothing falls back.  ``ssd_scan_recurrence`` is
 the exact recurrence behind the JAX wrapper's plumbing (heads folded into
 the batch, B/C broadcast over the heads), for holding either one.
+
+The kernel has no backward yet: on a non-CPU tensor, a call that autograd
+would have to differentiate raises (ROADMAP.md queue A6, SSD backward)
+instead of handing back an output no gradient flows through.
 """
 from __future__ import annotations
 
@@ -49,6 +53,20 @@ def ssd_scan_recurrence(x, dt, a_log, B, C, init_state=None):
     return y.reshape(b, h, s, p).transpose(1, 2), st.reshape(b, h, p, n)
 
 
+SSD_BACKWARD_ITEM = "ROADMAP.md queue A6, SSD backward"
+
+
+def check_no_grad(*tensors) -> None:
+    """Raise when grad mode is on and any input requires grad: the CUDA
+    scan sits outside autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"ssd_scan_fused: the SSD scan kernel has no backward yet "
+            f"({SSD_BACKWARD_ITEM}); training the ssm and hybrid families "
+            f"runs on the CPU only")
+
+
 def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
                    init_state: torch.Tensor | None = None):
@@ -56,5 +74,6 @@ def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (plus ``init_state``).  ``chunk`` is the plain version's; the kernel
     takes its own (the rounding moves, not the function)."""
     if x.device.type != "cpu":
+        check_no_grad(x, dt, a_log, B, C, init_state)
         return ssd_scan_kernel(x, dt, decay_rates(a_log), B, C, init_state)
     return ssd_scan_chunked(x, dt, a_log, B, C, chunk, init_state)

@@ -6,8 +6,13 @@ the JAX package's does, and prices them under a :class:`LatencyModel`
 (``simulated_latency_s``).  Temperature sampling draws from
 ``softmax(logits / T)`` with a ``torch.Generator`` seeded by ``seed``: it is
 deterministic per seed but does not reproduce ``jax.random.categorical``'s
-draws bit for bit.  The arrival processes and the serving simulator of the
-JAX package's ``serving/`` are ROADMAP.md queue A5.
+draws bit for bit.
+
+Traffic-scale serving lives next door (DESIGN.md §14), numpy copies of
+the JAX package's modules: open-loop arrival processes in
+:mod:`repro_torch.serving.arrivals`, the analytic per-step
+:class:`~repro_torch.serving.latency.LatencyModel`, and the request-driven
+discrete-event simulator in :mod:`repro_torch.serving.sim`.
 """
 from __future__ import annotations
 
@@ -19,7 +24,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import Model, build_model
+from repro_torch.serving.arrivals import (  # noqa: F401
+    ARRIVALS, ArrivalProcess, list_arrivals, make_arrivals,
+)
 from repro_torch.serving.latency import LatencyModel  # noqa: F401
+from repro_torch.serving.sim import (  # noqa: F401
+    ServingResult, ServingSMLT, make_autoscaler, provision_for, serve,
+)
 
 
 @dataclass

@@ -1,9 +1,9 @@
 """Analytic per-step serving latency from zoo arch dims + platform constants.
 
 The port's copy of the JAX package's ``serving/latency.py`` (pure Python).
-One ``LatencyModel`` prices the decode steps the real ``Generator`` counts
-(``Generator.simulated_latency_s``); the discrete-event serving simulator
-that shares it in the JAX package is ROADMAP.md queue A5.
+One ``LatencyModel`` is shared by the discrete-event serving simulator
+(``sim.py``) and the real ``Generator``, which prices the decode steps it
+counts (``Generator.simulated_latency_s``).
 
 The model is the standard decode roofline: a step over a batch of B
 requests costs

@@ -5,12 +5,16 @@ Pallas kernels in interpret mode (as tests/test_kernels.py runs them), on
 the CPU.
 
 Tolerances are those of tests/test_kernels.py: 2e-5 for float32; 2e-2
-(flash) and 3e-2 (decode) for bfloat16.  The CUDA kernels are held against
+(flash) and 3e-2 (decode) for bfloat16.  The gradient the backward kernel
+computes (``flash_attention_bwd_plain``, autograd of the plain version) is
+held against ``jax.vjp`` of the JAX oracle at the same tolerances, relative
+to each gradient's largest element.  The CUDA kernels are held against
 these plain versions on the card by ``chip_smoke.py``.  The last tests
 state the tensor-core flash kernel's algebra in plain torch: its 3xTF32
 products against one-pass TF32, and its fragment maps (the key order that
 keeps P in registers, the head_dim layout of its wide loads).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +27,9 @@ from repro.kernels.flash_attention.ref import attention_ref as jfa_ref
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_bwd_plain,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": {"flash": 2e-2, "decode": 3e-2}}
 
@@ -130,6 +136,22 @@ def test_flash_gqa_reads_kv_head_i_over_g():
     assert (moved[:3] == 0).all() and (moved[3:] > 0).all()
 
 
+@pytest.mark.parametrize("case", FLASH + FLASH_RAGGED, ids=str)
+def test_flash_backward_plain_matches_jax_vjp(case):
+    b, sq, _, h, _, d, causal, dtype = case
+    ((jq, q), (jk, k), (jv, v)), causal, dtype = _flash_inputs(case, seed=2)
+    ((jdo, do),) = _arrays([(b, sq, h, d)], dtype, seed=3)
+    _, vjp = jax.vjp(lambda q_, k_, v_: _jax_flash_ref(q_, k_, v_, causal),
+                     jq, jk, jv)
+    for got, want, t in zip(flash_attention_bwd_plain(q, k, v, do,
+                                                      causal=causal),
+                            vjp(jdo), (q, k, v)):
+        assert got.shape == t.shape and got.dtype == t.dtype
+        scale = float(np.abs(np.asarray(want, np.float32)).max())
+        _close(got / scale, np.asarray(want, np.float32) / scale,
+               _tol(dtype, "flash"))
+
+
 # ------------------------------------------------------------ decode ---------
 
 # (b, h, m, d, S, length, dtype); S divisible by the Pallas block (64)
@@ -184,8 +206,10 @@ def test_decode_ignores_cache_past_length():
 
 @pytest.mark.parametrize("call", [
     lambda q, k: fa_kernel.flash_attention_kernel(q, k, k, causal=True),
+    lambda q, k: fa_kernel.flash_attention_bwd_kernel(
+        q, k, k, q, torch.zeros(1, 2, 4), causal=True),
     lambda q, k: dec_kernel.decode_attention_kernel(q[:, 0], k, k, 4),
-], ids=["flash_attention", "decode_attention"])
+], ids=["flash_attention", "flash_attention_bwd", "decode_attention"])
 def test_kernel_wrappers_take_cuda_tensors_only(call):
     """The wrappers launch on the card or raise: a CPU tensor never reaches
     them by accident, and no launch is counted."""
@@ -196,6 +220,18 @@ def test_kernel_wrappers_take_cuda_tensors_only(call):
     flash_attention(q, k, k, causal=True)
     decode_attention(q[:, 0], k, k, 4)
     assert {**fa_kernel.launches, **dec_kernel.launches} == before
+
+
+def test_gradients_off_the_cpu_take_the_kernels():
+    """Under autograd a non-CPU tensor goes to the CUDA forward (and its
+    backward kernel): on a meta tensor that route raises, it never falls
+    back to the differentiable plain version."""
+    q = torch.zeros(1, 4, 2, 16, device="meta", requires_grad=True)
+    k = torch.zeros(1, 4, 1, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, k, causal=True)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, k, causal=True)
 
 
 # ------------------------------------------------- split-KV plumbing ---------

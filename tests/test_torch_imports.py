@@ -83,7 +83,8 @@ def test_every_module_is_listed():
                 "core.analytical", "core.elastic", "core.elastic.policies",
                 "core.elastic.planner", "core.elastic.telemetry",
                 "core.trace.export", "core.ckpt.localfs", "core.faas",
-                "core.iaas"):
+                "core.iaas", "core.workloads", "data.tokens",
+                "serving.arrivals", "serving.sim", "experiments.serving"):
         assert f"repro_torch.{sub}" in names
 
 

@@ -146,6 +146,16 @@ def test_other_families_raise_naming_their_roadmap_item(name):
     arch = tconfigs.get_reduced(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(arch, device="cpu")
+    # training: LM families the port cannot build raise at spec time;
+    # encoder/VLM archs are no training workload at all, as in JAX
+    from repro_torch.experiments import ExperimentSpec
+    model = tconfigs.spec_name(name)
+    if model in tworkloads.list_workloads():
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ExperimentSpec(model=model, dataset="tokens")
+    else:
+        with pytest.raises(ValueError, match="encoder/VLM"):
+            tworkloads.ArchWorkload(model)
 
 
 # -------------------------------------------------------------- numerics ----
