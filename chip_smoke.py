@@ -38,15 +38,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    3e with a 3xTF32 (the kernels line's), an fp32 and a bytes bound (no
    PyTorch call computes the SSD: no library time); flash attention's
    backward kernel against autograd of the plain version (FLASH_BWD_TOL
-   of the largest gradient) at the training path's shapes (b 8, s 64; h
-   3 / m 1, d 20 and h 15 / m 5, d 64) in fp32 and bf16 and at b 4, s
-   2048, each fp32 gradient within twice the plain version's error
-   against float64 gradients, two calls bitwise equal, and
-   ``FlashAttention``'s gradient equal to the kernel's; timed backward
-   alone (the kernel, the plain version's autograd backward, SDPA's
-   backward as the library yardstick) and forward + backward, against
-   the 3xTF32 bound of its five s x s x d products (the kernels line's),
-   the fp32 and the bytes bounds;
+   of the largest gradient) over FLASH_BWD_SWEEP (head dims 20 to 128,
+   GQA groups, causal and full, ragged lengths, sq != sk), at the
+   training path's shapes (b 8, s 64; h 3 / m 1, d 20 and h 15 / m 5, d
+   64) in fp32 and bf16 and at b 4, s 2048, each fp32 gradient within
+   twice the plain version's error against float64 gradients, two calls
+   bitwise equal, and ``FlashAttention``'s gradient equal to the
+   kernel's; timed backward alone (the kernel, the plain version's
+   autograd backward, SDPA's backward as the library yardstick; the
+   kernel's time by launch) and forward + backward, against the 3xTF32
+   bound of its five s x s x d products (the kernels line's), the fp32
+   and the bytes bounds; then each fp32 gradient against float64 at b 4,
+   s 2048 on seeded inputs within twice the error of the kernel it
+   replaced (FLASH_BWD_FP64_PARENT; ``redesign_baseline`` reads it in any
+   checkout);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -129,6 +134,7 @@ result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -177,6 +183,16 @@ FLASH_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
 #: 700 W); the tensor-core kernel may err by at most twice as much
 FLASH_FP64_SEED = 3
 FLASH_FP64_PARENT = 1.1232379750758525e-06
+#: flash attention's backward kernel against float64 gradients (the main
+#: shape, FLASH_PATH with smollm's heads, inputs from FLASH_BWD_FP64_SEED):
+#: the CUDA-core kernel that the tensor-core one replaced read these max
+#: |g - exact| per gradient on these inputs (``flash_bwd_vs_float64`` run
+#: in its checkout, NVIDIA H100 80GB HBM3 at 700 W); the tensor-core kernel
+#: may err by at most twice as much
+FLASH_BWD_FP64_SEED = 4
+FLASH_BWD_FP64_PARENT = {"dq": 1.1793459622211344e-06,
+                         "dk": 3.1825717510258755e-06,
+                         "dv": 4.822609632526564e-06}
 #: flash attention's backward kernel against autograd of the plain version
 #: on the card, relative to the largest |plain gradient|: fp32 sums in other
 #: orders (up to 2.3e-6 of it measured on an H100); bf16 gradients are
@@ -186,6 +202,16 @@ FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the training path's attention shapes (b, s, h, m, d): smollm-360m's
 #: reduced config (phase 3g (a)) and full width (3g (b), (c)), at b 8, s 64
 FLASH_BWD_PATH = ((8, 64, 3, 1, 20), (8, 64, *_SMOLLM_ATTN))
+#: the backward kernel against autograd of the plain version over head
+#: dims, GQA groups, causal and full attention, ragged lengths and sq != sk
+#: (b, sq, sk, h, m, d, causal): every code path of its launches
+FLASH_BWD_SWEEP = ((2, 47, 47, 3, 3, 20, True), (2, 47, 47, 3, 1, 20, False),
+                   (1, 577, 577, 15, 5, 64, True),
+                   (1, 130, 577, 6, 2, 64, False),
+                   (1, 577, 130, 6, 2, 64, True),
+                   (2, 200, 200, 4, 1, 80, True),
+                   (1, 150, 150, 4, 2, 128, True),
+                   (1, 150, 150, 2, 2, 128, False))
 #: timed at the path's full-width shape and at the prefill's b 4, s 2048
 #: (the kernels line's row: long enough to be more than launch latency)
 FLASH_BWD_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
@@ -589,6 +615,9 @@ def flash_vs_float64() -> dict:
     out = {key: float((val.double() - exact).abs().max())
            for key, val in got.items()}
     out["max_abs_o"] = float(exact.abs().max())
+    # the serving path's output bits, comparable across checkouts
+    out["kernel_sha256"] = hashlib.sha256(
+        got["kernel"].cpu().numpy().tobytes()).hexdigest()
     print(f"  flash_attention vs float64 (b{b} s{s} h{h} m{m} d{d} causal): "
           + json.dumps(out))
     return out
@@ -626,22 +655,30 @@ def prefill_timed(reps: int = 5) -> dict:
     return out
 
 
-def redesign_baseline() -> dict:
+def redesign_baseline(only: str | None = None) -> dict:
     """The redesigned kernels' readings alone, for a checkout of any commit
-    with this file copied to its root: decode attention, the SSD scan and
-    flash attention at their timed shapes, the SSD and flash kernels
-    against float64, and smollm-360m's prefill end to end.  ``python3 -c 'import chip_smoke as c;
+    with this file copied to its root: decode attention, the SSD scan,
+    flash attention and its backward at their timed shapes, the SSD and
+    flash kernels and the backward against float64, and smollm-360m's
+    prefill end to end.  ``only="flash_attention_bwd"`` takes the
+    backward's rows alone.  ``python3 -c 'import chip_smoke as c;
     c.phase_device(); c.redesign_baseline()'``."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"decode_attention": [decode_timed_row(gen, *shape)
-                                for shape in DECODE_TIMED],
-           "ssd_scan": [ssd_timed_row(gen, b, s)[0] for b, s in SSD_TIMED],
-           "ssd_vs_float64": ssd_vs_float64(),
-           "flash_attention": [flash_timed_row(gen, *shape)
-                               for shape in FLASH_TIMED],
-           "flash_vs_float64": flash_vs_float64(),
-           "prefill": prefill_timed()}
+    out = {"flash_attention_bwd": [
+               flash_bwd_row(gen, *shape, torch.float32, timed=True)
+               for shape in FLASH_BWD_TIMED],
+           "flash_bwd_vs_float64": flash_bwd_vs_float64()}
+    if only != "flash_attention_bwd":
+        out.update(
+            decode_attention=[decode_timed_row(gen, *shape)
+                              for shape in DECODE_TIMED],
+            ssd_scan=[ssd_timed_row(gen, b, s)[0] for b, s in SSD_TIMED],
+            ssd_vs_float64=ssd_vs_float64(),
+            flash_attention=[flash_timed_row(gen, *shape)
+                             for shape in FLASH_TIMED],
+            flash_vs_float64=flash_vs_float64(),
+            prefill=prefill_timed())
     print(json.dumps({"redesign_baseline": out}))
     return out
 
@@ -911,6 +948,73 @@ def _attention_f64_grads(q, k, v, do, causal: bool = True):
     return torch.autograd.grad(o, leaves, do.double())
 
 
+def _bwd_kernel(q, k, v, do, causal: bool = True):
+    """(dq, dk, dv) of the backward kernel on a forward made here."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    _o, lse = flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
+    return flash_attention_bwd_kernel(q, k, v, do, lse, causal=causal)
+
+
+def flash_bwd_sweep(gen) -> float:
+    """The backward kernel against autograd of the plain version at every
+    FLASH_BWD_SWEEP shape in fp32 and bf16 (within FLASH_BWD_TOL of the
+    largest |plain gradient|); returns the largest fp32 error relative to
+    that."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain)
+    worst = 0.0
+    for b, sq, sk, h, m, d, causal in FLASH_BWD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _attn_inputs(gen, dtype, (b, sq, h, d),
+                                       (b, sk, m, d), (b, sk, m, d),
+                                       (b, sq, h, d))
+            got = _bwd_kernel(q, k, v, do, causal)
+            plain = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+            torch.cuda.synchronize()
+            key = str(dtype).replace("torch.", "")
+            scale = max(float(p.float().abs().max()) for p in plain)
+            err = max(float((a.float() - p.float()).abs().max())
+                      for a, p in zip(got, plain))
+            check(err <= FLASH_BWD_TOL[key] * scale,
+                  f"flash_attention_bwd b{b} sq{sq} sk{sk} h{h} m{m} d{d} "
+                  f"causal={causal} {key}: max |kernel - plain| {err:.3e} > "
+                  f"{FLASH_BWD_TOL[key]:g} x {scale:.3e}")
+            if dtype == torch.float32:
+                worst = max(worst, err / scale)
+    print(f"  flash_attention_bwd sweep: {len(FLASH_BWD_SWEEP)} shapes x "
+          f"fp32/bf16 within FLASH_BWD_TOL (fp32 worst {worst:.3e} of the "
+          f"largest gradient)")
+    return worst
+
+
+def flash_bwd_vs_float64() -> dict:
+    """Rounding at the main shape: the backward kernel and the plain
+    version's autograd against float64 gradients, causal, smollm's heads,
+    on inputs from their own seed (the same in every checkout)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain)
+    b, s = FLASH_PATH["b"], FLASH_PATH["s"]
+    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(FLASH_BWD_FP64_SEED)
+    q, k, v, do = _attn_inputs(gen, torch.float32, (b, s, h, d),
+                               (b, s, m, d), (b, s, m, d), (b, s, h, d))
+    got = _bwd_kernel(q, k, v, do)
+    plain = flash_attention_bwd_plain(q, k, v, do, causal=True)
+    exact = _attention_f64_grads(q, k, v, do)
+    out = {name: {"kernel": float((a.double() - x).abs().max()),
+                  "plain": float((p.double() - x).abs().max()),
+                  "max_abs_grad": float(x.abs().max())}
+           for name, a, p, x in zip(("dq", "dk", "dv"), got, plain, exact)}
+    del q, k, v, do, got, plain, exact
+    torch.cuda.empty_cache()
+    print(f"  flash_attention_bwd vs float64 (b{b} s{s} h{h} m{m} d{d} "
+          f"causal): " + json.dumps(out))
+    return out
+
+
 def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
                   timed: bool = False) -> dict:
     """Flash attention's backward kernel, causal, q/dO (b, s, h, d) and k/v
@@ -1005,6 +1109,7 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
             + 4 * b * h * s + es * (b * s * h * d + 2 * b * s * m * d)
         b_ms, by = tf32x3_bound_ms(nbytes, flop)
         row.update(ms=time_ms(kernel_fn, reps=10),
+                   launch_us=_launch_profile(kernel_fn),
                    fwd_bwd_ms=time_ms(kernel_fwd_bwd, reps=10),
                    plain_fwd_bwd_ms=time_ms(plain_fn, reps=5),
                    library_fwd_bwd_ms=time_ms(library_fwd_bwd, reps=10))
@@ -1035,7 +1140,8 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
              f" plain_ms={row['plain_ms']:.5f} library_ms="
              f"{row['library_ms']:.5f}; forward + backward: ms="
              f"{row['fwd_bwd_ms']:.5f} plain_ms={row['plain_fwd_bwd_ms']:.5f}"
-             f" library_ms={row['library_fwd_bwd_ms']:.5f}" if timed else ""))
+             f" library_ms={row['library_fwd_bwd_ms']:.5f} launch_us="
+             + json.dumps(row["launch_us"]) if timed else ""))
     del q, k, v, do, _o, lse, got, again, plain
     torch.cuda.empty_cache()
     return row
@@ -1043,25 +1149,36 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
 
 def phase_flash_bwd() -> dict:
     """Flash attention's backward kernel against autograd of the plain
-    version at the training path's shapes (FLASH_BWD_PATH) in fp32 and
-    bf16, and at FLASH_BWD_TIMED's first shape, timed there and at the
-    path's shapes (see :func:`flash_bwd_row`)."""
+    version over FLASH_BWD_SWEEP and at the training path's shapes
+    (FLASH_BWD_PATH) in fp32 and bf16, and at FLASH_BWD_TIMED's first
+    shape, timed there and at the path's shapes (see
+    :func:`flash_bwd_row`); then against float64 gradients within twice
+    the replaced kernel's error (FLASH_BWD_FP64_PARENT)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(5)
+    sweep = flash_bwd_sweep(gen)
     for shape in FLASH_BWD_PATH:
         for dtype in (torch.float32, torch.bfloat16):
             flash_bwd_row(gen, *shape, dtype)
     shapes = [flash_bwd_row(gen, *shape, torch.float32, timed=True)
               for shape in FLASH_BWD_TIMED]
+    vs_fp64 = flash_bwd_vs_float64()
+    for name, e in vs_fp64.items():
+        check(e["kernel"] <= 2 * FLASH_BWD_FP64_PARENT[name],
+              f"flash_attention_bwd vs float64 {name}: {e['kernel']:.3e}, "
+              f"over twice the replaced kernel's "
+              f"{FLASH_BWD_FP64_PARENT[name]:.3e}")
     main = shapes[0]
     return {**{k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "bound_fp32_ms",
                                     "bytes_bound_ms", "library_ms",
                                     "library", "fwd_bwd_ms",
                                     "plain_fwd_bwd_ms",
-                                    "library_fwd_bwd_ms", "vs_float64")},
+                                    "library_fwd_bwd_ms", "vs_float64",
+                                    "launch_us")},
             "timed_max_abs_err": main["max_abs_err"],
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "sweep_rel_err": sweep, "vs_float64_seeded": vs_fp64,
             "shapes": shapes}
 
 
@@ -2455,6 +2572,7 @@ def main() -> int:
                  "library_ms", "shape", "library", "bound_fp32_ms",
                  "bytes_bound_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
                  "library_fwd_bwd_ms", "timed_max_abs_err", "vs_float64",
+                 "launch_us", "sweep_rel_err", "vs_float64_seeded",
                  "shapes")},
              "held_against_plain": True}
     summary.append(entry)

@@ -71,7 +71,7 @@
 
 #include <type_traits>
 
-#include "mma_tf32.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -86,10 +86,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-struct Strides {                  // in elements; head_dim is contiguous
-  long long b, s, h;
-};
-
 template <typename T>
 struct Params {
   const T* q;
@@ -103,69 +99,6 @@ struct Params {
   int causal, vec;                // vec: K/V rows copied 16 bytes at a time
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// one element of a K/V row into shared memory, zero when !valid: a 4-byte
-// cp.async for fp32, a plain load for bfloat16
-__device__ __forceinline__ void copy_elem(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          bool valid) {
-  *dst = valid ? *src : zero<__nv_bfloat16>();
-}
-
-// 4 consecutive elements of a shared row (16-byte aligned in fp32, 8 in
-// bfloat16), widened to fp32 exactly
-__device__ __forceinline__ void load4(const float* p, float (&out)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&out)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  out[0] = __uint_as_float(v.x << 16);
-  out[1] = __uint_as_float(v.x & 0xffff0000u);
-  out[2] = __uint_as_float(v.y << 16);
-  out[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-// 2 consecutive elements (8-byte aligned in fp32, 4 in bfloat16)
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
-  return make_float2(__uint_as_float(v << 16),
-                     __uint_as_float(v & 0xffff0000u));
-}
-
-// shared row strides in elements: K's keeps the two keys that one
-// quarter-warp's 16-byte loads read 16 banks apart, V's the four key rows
-// of an 8-byte load 8 banks apart (fp32)
-template <typename T, int DP>
-__host__ __device__ constexpr int k_stride() {
-  return DP + 16 / int(sizeof(T));
-}
-template <typename T, int DP>
-__host__ __device__ constexpr int v_stride() {
-  return DP + 32 / int(sizeof(T));
-}
 template <typename T, int DP>
 __host__ __device__ constexpr size_t stage_elems() {
   return size_t(kBK) * (k_stride<T, DP>() + v_stride<T, DP>());
@@ -208,27 +141,8 @@ flash_attention_kernel(const Params<T> P) {
 
   auto issue = [&](int tile) {    // K/V tile into its ring stage
     T* sk = smem + (tile % kStages) * stage_elems<T, kDP>();
-    T* sv = sk + kBK * kLK;
-    const int k0 = tile * kBK;
-    if (P.vec) {
-      constexpr int kE = 16 / sizeof(T);
-      const int pieces = P.d / kE;
-      for (int i = tid; i < kBK * pieces; i += kThreads) {
-        const int r = i / pieces, c = (i % pieces) * kE;
-        const bool ok = k0 + r < k_end;
-        const long long row = ok ? k0 + r : 0;
-        cp_async16(sk + r * kLK + c, kb + row * P.ks.s + c, ok);
-        cp_async16(sv + r * kLV + c, vb + row * P.vs.s + c, ok);
-      }
-    } else {
-      for (int i = tid; i < kBK * P.d; i += kThreads) {
-        const int r = i / P.d, c = i % P.d;
-        const bool ok = k0 + r < k_end;
-        const long long row = ok ? k0 + r : 0;
-        copy_elem(sk + r * kLK + c, kb + row * P.ks.s + c, ok);
-        copy_elem(sv + r * kLV + c, vb + row * P.vs.s + c, ok);
-      }
-    }
+    copy_rows2(sk, kLK, kb, P.ks.s, sk + kBK * kLK, kLV, vb, P.vs.s,
+               tile * kBK, kBK, k_end, P.d, P.vec, tid, kThreads);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
@@ -247,21 +161,8 @@ flash_attention_kernel(const Params<T> P) {
   // Q's A fragments, straight from global memory: row r0 + g (+ 8), dims
   // 16j + 4t .. + 3 (k-step 2j takes the first two, 2j + 1 the last two)
   float qv[NC][2][4];
-  {
-    const T* qb = P.q + b * P.qs.b + h * P.qs.h;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = r0 + g + 8 * hr;
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 16 * j + 4 * t + e;
-          qv[j][hr][e] = row < P.sq && c < P.d ? to_f32(qb[row * P.qs.s + c])
-                                               : 0.0f;
-        }
-    }
-  }
+  load_frag_rows<T, NC>(qv, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, r0, P.sq,
+                        P.d, g, t);
 
   float acc[kND][4];
 #pragma unroll

@@ -8,65 +8,102 @@
 // kernel.py), so that training on the card never differentiates the plain
 // version.  With P = softmax(S), S = q k^T d^-1/2 (causal: qpos >= kpos,
 // top-left aligned) and o = P v, for an upstream gradient dO:
-//   dP = dO v^T,   D = rowsum(P dP),   dS = P (dP - D)
+//   dP = dO v^T,   D = rowsum(P dP) = rowsum(dO o),   dS = P (dP - D)
 //   dv = P^T dO,   dk = dS^T q d^-1/2,   dq = dS k d^-1/2
 // P is recomputed from the forward's per-row log-sum-exp (fp32 (b, h, sq),
 // natural log of the scaled scores) and renormalised here:
-//   P~ = exp2(S d^-1/2 log2 e - lse log2 e),   l = rowsum(P~),   P = P~ / l.
-// l is 1 up to rounding, but dividing by it cancels any error common to a
-// row: the fp32 lse near 8 carries ~1e-6 of rounding, and the forward's
-// 3xTF32 scores differ from these fp32 ones, and either put dq's and dk's
-// errors against float64 at over twice the plain version's on an H100.
-// For the same reason D is summed from P dP here, not taken as
-// rowsum(dO o) (FlashAttention-2's shortcut reads the forward's o).
+//   P~ = exp2(S d^-1/2 log2 e - lse log2 e),   l = rowsum(P~),   P = P~ / l,
+// and D is summed from the same P~ and dP: D = rowsum(P~ dP) / l.  l is 1
+// up to rounding, but dividing by it cancels any error common to a row
+// (the fp32 lse carries ~5e-7 of rounding), and a D consistent with P
+// makes each row of dS sum to zero, so the part of k or q common to a row
+// cancels from dq and dk.  FlashAttention-2's D = rowsum(dO o) reads the
+// forward's o, whose rounding is not P's: with it dq erred 2.2x as much
+// against float64 as the kernel this one replaces (PERF.md section 6).
 // GQA: query head h reads kv head h / g; dk and dv sum over the g query
 // heads of the group.
 //
 // Layout and types: q, dO (b, sq, h, d) and k, v (b, sk, m, d) read in
 // place through their batch/position/head strides (head_dim contiguous),
-// float32 or bfloat16, widened to fp32 in shared memory; dq (b, sq, h, d)
-// and dk, dv (b, sk, m, d) are written contiguous in the input type; every
-// sum is fp32.  Any head_dim <= 128, any sq and sk (ragged tiles masked).
+// float32 or bfloat16; dq (b, sq, h, d) and dk, dv (b, sk, m, d) are
+// written contiguous in the input type; every sum is fp32.  Any head_dim
+// <= 128 (padded with zeros to a multiple of 16 on chip), any sq and sk
+// (ragged tiles masked).
 //
-// Bound: five s x s x d products (the two recomputed score products S and
-// dP, and dv, dk, dq), about halved when causal, far above the bytes of the
-// tensors.  A simple design, on the CUDA cores in fp32 FMAs, that does
-// nine: S and dP three times each.
-// - Two launches on the caller's stream: dq (one block of 256 threads per
-//   (b, query head, 64-row tile), heavy causal tiles first, walking the
-//   64-key tiles its rows can see twice: once for l and D, which it also
-//   writes out, then for dq); then dk and dv (one block per (b, kv head,
-//   64-key tile), walking the g query heads of its group and the query
-//   tiles that can see its keys, 32 rows at a time: the block owns its
-//   keys' gradients, so no atomics).
-// - Each step stages the two tiles in shared memory (rows padded to an odd
-//   stride, so a warp's reads of 32 rows at one column are conflict-free),
-//   computes the tile's S and dP (each thread 8 or 16 entries of one
-//   column, the other operand broadcast), writes P and dS to shared memory,
-//   and accumulates the products it owns from there.
-// - Each step's contribution is summed from zero and then added to the
-//   fp32 accumulator, so long sums lose fewer bits (as the forward does).
+// Bound: five s x s x d products (S, dP, dv, dk, dq), about halved when
+// causal, far above the bytes of the tensors.  This design does nine (S
+// and dP three times: for l and D, for dq, for dk and dv), on the
+// forward's machinery (flash_tiles.cuh, mma_tf32.cuh):
+// - Every product runs on the tensor cores (mma.sync m16n8k8) as 3xTF32,
+//   never one-pass TF32; bfloat16 inputs are exact in TF32 and need no lo
+//   parts (P and dS always do).  The tensor cores truncate where they
+//   add, so no long sum runs inside them: every hi x hi product is taken
+//   from zero and added in fp32 with rounding to nearest, the small
+//   products go to accumulators of their own, and each step's dq (8 keys),
+//   dk and dv (32 query rows; 16 above head_dim 64) contribution is summed
+//   from zero and then added to the fp32 accumulator.  With the tensor
+//   cores' own sums, as the forward keeps them, dk missed the gate of
+//   twice the plain version's float64 error (PERF.md section 6).
+// - Launch 1, l, D and dq (one block of 4 warps per (b, query head,
+//   64-row tile), heavy causal tiles first): each warp keeps its 16 query
+//   rows of Q and dO in registers as A fragments.  K/V tiles of 64 keys
+//   stream through a two-stage cp.async ring, twice: pass 1 sums l and D
+//   (written out for launch 2), pass 2 forms dS and dq.  A warp takes 32
+//   keys a step (16 above head_dim 64): S = Q K^T and dP = dO V^T with
+//   the keys read in the forward's permuted order, so that dS, in the C
+//   fragment, is the A fragment of dq += dS K.
+// - Launch 2, dk and dv (one block of 4 warps per (b, kv head, 64-key
+//   tile), or per (b, query head, 64-key tile) when that many blocks are
+//   too few for the card): each warp keeps its 16 keys of K and V in
+//   registers and streams 64-row tiles of Q and dO (with their rows' lse,
+//   l and D) through the ring, over the g query heads of the group and the
+//   query tiles that can see its keys; per 32 query rows (16 above
+//   head_dim 64) it forms S^T = K Q^T and dP^T = V dO^T, the query rows
+//   read in the permuted order, so that P^T and dS^T in the C fragment
+//   are the A fragments of dv += P^T dO and dk += dS^T Q.  dk and dv
+//   stay in registers to the block's end.  S^T takes the same products in
+//   the same order as launch 1's S, so both launches form the same P bit
+//   for bit.
+// - Launch 3, only when launch 2 was split over query heads: the g fp32
+//   partials of each dk and dv row summed in head order (no atomics: two
+//   calls give the same bits).
+// - Shared row strides keep the 16-byte fragment loads (the permuted
+//   order) free of bank conflicts; the 8-byte loads of the second product
+//   of each operand have 2-way conflicts in fp32.
 //
-// Allocates nothing (l and D live in a scratch buffer the wrapper
+// Allocates nothing (l, D and the partials live in scratch the wrapper
 // allocates), and returns cudaGetLastError() so the wrapper can raise on a
-// refused launch.  dq's launch must finish before dk/dv's, which reads l
-// and D: both run on one stream, in that order.
+// refused launch.  The launches run on one stream, in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;    // keys per dk/dv block and per dq step
-constexpr int kBQ = 32;    // query rows per dk/dv step
-constexpr int kBQ2 = 64;   // query rows per dq block
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16 * kWarps;  // resident rows a block: query rows or keys
+constexpr int kBN = 64;           // streamed rows a tile: keys or query rows
+constexpr int kNT = kBN / 8;      // 8-row groups a tile
+constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {           // in elements; head_dim is contiguous
-  long long b, s, h;
-};
+// d += a b with the tensor cores' sum taken from zero and added in fp32
+// with rounding to nearest: the tensor cores truncate where they add, and
+// a long chain of truncations into one accumulator drifts (see the head
+// of this file)
+__device__ __forceinline__ void mma_rn(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(t, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
 
 template <typename T>
 struct Params {
@@ -74,308 +111,592 @@ struct Params {
   const T* k;
   const T* v;
   const T* dout;
-  const float* lse;        // (b, h, sq) from the forward
-  float* rows;             // (b, h, sq, 2) scratch: l and D per row
+  const float* lse;               // (b, h, sq) from the forward
+  float* rows;                    // (b, h, sq, 2): l and D, by launch 1
+  float* part;                    // (b, h, sk, 2, d) or null: see launch 3
   T* dq;
   T* dk;
   T* dv;
-  int batch, heads, kv_heads, group, sq, sk, d;
+  int heads, kv_heads, group, sq, sk, d;
   Strides qs, ks, vs, dos;
   float sm_scale;
-  int causal;
+  int causal, vec_kv, vec_qdo;    // 16-byte copies of K/V and of Q/dO rows
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// rows [r0, r0 + n) of one head of a (b, s, head) strided tensor into a
-// shared n x ld fp32 tile; rows at or past `limit` are zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
-                                          long long row_stride, int r0, int n,
-                                          int limit, int d) {
-  for (int idx = threadIdx.x; idx < n * d; idx += kThreads) {
-    const int r = idx / d, c = idx % d;
-    const int row = r0 + r;
-    dst[r * ld + c] =
-        row < limit ? to_f32(base[static_cast<long long>(row) * row_stride + c])
-                    : 0.0f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T over an NI x NJ tile (query rows q0 + i, keys
-// k0 + j) from shared tiles; P = exp2(S scale2 - rm) / rl where the mask
-// keeps the pair, else 0; writes P (when Ps is not null) and dS = P (dP -
-// D) (with rl = 1 and D = 0: P~ and P~ dP, the terms of l and D).  Thread
-// t takes key column t % NJ and rows t / NJ + (256 / NJ) r.
-template <int NI, int NJ>
-__device__ __forceinline__ void p_ds_tile(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    int ld, int d, const float* rm, const float* rl, const float* dl, int q0,
-    int k0, int sq, int sk, int causal, float scale2, float* Ps, float* dSs,
-    int ldp) {
-  constexpr int kRows = kThreads / NJ;
-  constexpr int kR = NI / kRows;
-  const int j = threadIdx.x % NJ, i0 = threadIdx.x / NJ;
-  float s[kR], dp[kR];
+// C (+)= X Y^T for a warp's 16 resident rows and kNH 8-row groups n0 ..
+// of a shared tile: X as fp32 A fragments (load_frag_rows), Y read in the
+// permuted order -- lane group g reads row g / 2 + 4 (g % 2) of each
+// group, dims 16 j + 4 t .. + 3 (yrow points at row (g / 2 + 4 (g % 2)),
+// dim 4 t of the tile) -- so that C's columns 2t, 2t + 1 hold the group's
+// rows t and t + 4.  The hi x hi products go to c (each from zero, added
+// with rounding), the small ones to c_lo, in the forward's order: for Q
+// K^T with X = Q (kSwap false) X_lo Y_hi then X_hi Y_lo; for K Q^T with X
+// = K (kSwap) X_hi Y_lo then X_lo Y_hi -- the same products in the same
+// order, so S^T is bitwise S and both launches form the same P.  kEdge:
+// groups from ntc on are skipped.
+template <typename T, int NC, int kNH, bool kSwap, bool kEdge>
+__device__ __forceinline__ void xyt(const float (&x)[NC][2][4],
+                                    const T* yrow, int ld, int n0, int ntc,
+                                    float (&c)[kNH][4],
+                                    float (&c_lo)[kNH][4]) {
+  constexpr bool kExact = sizeof(T) == 2;
 #pragma unroll
-  for (int r = 0; r < kR; ++r) s[r] = dp[r] = 0.0f;
-  for (int c = 0; c < d; ++c) {
-    const float kc = Ks[j * ld + c], vc = Vs[j * ld + c];
+  for (int j = 0; j < NC; ++j) {
+    uint32_t ah[2][4];
+    [[maybe_unused]] uint32_t al[2][4];
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = i0 + kRows * r;
-      s[r] = fmaf(Qs[i * ld + c], kc, s[r]);
-      dp[r] = fmaf(dOs[i * ld + c], vc, dp[r]);
+    for (int ks = 0; ks < 2; ++ks) {
+      float av[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[e] = x[j][e & 1][2 * ks + (e >> 1)];
+      if constexpr (kExact) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ah[ks][e] = __float_as_uint(av[e]);
+      } else {
+        split(av, ah[ks], al[ks]);
+      }
     }
-  }
-  const int key = k0 + j;
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = i0 + kRows * r, row = q0 + i;
-    const bool keep = row < sq && key < sk && !(causal && key > row);
-    const float p = keep ? exp2f(s[r] * scale2 - rm[i]) / rl[i] : 0.0f;
-    if (Ps != nullptr) Ps[i * ldp + j] = p;
-    dSs[i * ldp + j] = p * (dp[r] - dl[i]);
-  }
-}
-
-// lse (as base 2) of query rows [q0, q0 + n) of one head into shared, and
-// their l and D from ``rows`` unless it is null (then 1 and 0); rows past
-// sq get (0, 1, 0)
-template <int N>
-__device__ __forceinline__ void load_rows(float* rm, float* rl, float* dl,
-                                          const float* lse,
-                                          const float* rows, int q0,
-                                          int sq) {
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    const int row = q0 + i;
-    const bool ok = row < sq;
-    rm[i] = ok ? lse[row] * kLog2e : 0.0f;
-    rl[i] = ok && rows != nullptr ? rows[2 * row] : 1.0f;
-    dl[i] = ok && rows != nullptr ? rows[2 * row + 1] : 0.0f;
-  }
-}
-
-template <int NC>
-__host__ __device__ constexpr size_t dkdv_smem_floats() {
-  return size_t(2 * kBK + 2 * kBQ) * (16 * NC + 1) +
-         size_t(2 * kBQ) * (kBK + 1) + 3 * kBQ;
-}
-template <int NC>
-__host__ __device__ constexpr size_t dq_smem_floats() {
-  return size_t(2 * kBQ2 + 2 * kBK) * (16 * NC + 1) +
-         size_t(2 * kBQ2) * (kBK + 1) + 3 * kBQ2;
-}
-
-// dk and dv of one (b, kv head, 64-key tile); NC = padded head_dim / 16
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC, kLD = kDP + 1, kLDP = kBK + 1;
-  constexpr int kU = kBK * kDP / kThreads;   // accumulator entries a thread
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBK * kLD;
-  float* Qs = Vs + kBK * kLD;
-  float* dOs = Qs + kBQ * kLD;
-  float* Ps = dOs + kBQ * kLD;
-  float* dSs = Ps + kBQ * kLDP;
-  float* rm = dSs + kBQ * kLDP;
-  float* rl = rm + kBQ;
-  float* dl = rl + kBQ;
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / P.kv_heads, kvh = blockIdx.x % P.kv_heads;
-  const int k0 = blockIdx.y * kBK;
-  load_tile(Ks, kLD, P.k + b * P.ks.b + kvh * P.ks.h, P.ks.s, k0, kBK, P.sk,
-            P.d);
-  load_tile(Vs, kLD, P.v + b * P.vs.b + kvh * P.vs.h, P.vs.s, k0, kBK, P.sk,
-            P.d);
-  const float scale2 = P.sm_scale * kLog2e;
-
-  float dk[kU], dv[kU];
+    for (int nt = 0; nt < kNH; ++nt) {
+      if (kEdge && n0 + nt >= ntc) continue;
+      float yv[4];
+      load4(yrow + 8 * (n0 + nt) * ld + 16 * j, yv);
 #pragma unroll
-  for (int u = 0; u < kU; ++u) dk[u] = dv[u] = 0.0f;
-  // query rows before k0 see none of these keys when causal
-  const int q_first = P.causal ? (k0 / kBQ) * kBQ : 0;
-  for (int gi = 0; gi < P.group; ++gi) {
-    const int h = kvh * P.group + gi;
-    const T* qb = P.q + b * P.qs.b + h * P.qs.h;
-    const T* dob = P.dout + b * P.dos.b + h * P.dos.h;
-    const long long row0 = (static_cast<long long>(b) * P.heads + h) * P.sq;
-    for (int q0 = q_first; q0 < P.sq; q0 += kBQ) {
-      __syncthreads();              // the last step's readers are done
-      load_tile(Qs, kLD, qb, P.qs.s, q0, kBQ, P.sq, P.d);
-      load_tile(dOs, kLD, dob, P.dos.s, q0, kBQ, P.sq, P.d);
-      load_rows<kBQ>(rm, rl, dl, P.lse + row0, P.rows + 2 * row0, q0, P.sq);
-      __syncthreads();
-      p_ds_tile<kBQ, kBK>(Qs, dOs, Ks, Vs, kLD, P.d, rm, rl, dl, q0, k0,
-                          P.sq, P.sk, P.causal, scale2, Ps, dSs, kLDP);
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int e = tid + kThreads * u, r = e / kDP, c = e % kDP;
-        if (c >= P.d) continue;
-        float tv = 0.0f, tk = 0.0f;
-#pragma unroll 8
-        for (int i = 0; i < kBQ; ++i) {
-          tv = fmaf(Ps[i * kLDP + r], dOs[i * kLD + c], tv);
-          tk = fmaf(dSs[i * kLDP + r], Qs[i * kLD + c], tk);
+      for (int ks = 0; ks < 2; ++ks) {
+        const float bv[2] = {yv[2 * ks], yv[2 * ks + 1]};
+        if constexpr (kExact) {
+          const uint32_t bh[2] = {__float_as_uint(bv[0]),
+                                  __float_as_uint(bv[1])};
+          mma_rn(c[nt], ah[ks], bh);
+        } else {
+          uint32_t bh[2], bl[2];
+          split(bv, bh, bl);
+          if constexpr (kSwap) {
+            mma_tf32(c_lo[nt], ah[ks], bl);
+            mma_tf32(c_lo[nt], al[ks], bh);
+          } else {
+            mma_tf32(c_lo[nt], al[ks], bh);
+            mma_tf32(c_lo[nt], ah[ks], bl);
+          }
+          mma_rn(c[nt], ah[ks], bh);
         }
-        dv[u] += tv;
-        dk[u] += tk;
       }
     }
   }
+}
+
+// acc[2i + u] += A Z over kNH k-steps: k-step ks's A is the C fragment
+// a[ks] of a product above (columns 2t, 2t + 1: the group's rows t, t + 4)
+// reordered {c0, c2, c1, c3}; Z is rows t, t + 4 of group n0 + ks of a
+// shared tile in natural order, columns 16 i + 2 g, + 1 (zrow points at
+// row t, dim 2 g), so the lane ends up with output dims 16 i + 4 t .. + 3
+// of its two rows (n-tiles 2i, 2i + 1).  The sum is taken from zero --
+// the hi x hi products (each from zero, added with rounding) apart from
+// the small ones -- and added to acc after every k-step (kPerKStep) or
+// after all kNH.  kEdge: k-steps from ntc on are skipped.
+template <typename T, int NC, int kNH, bool kEdge, bool kPerKStep>
+__device__ __forceinline__ void add_az(const float (&a)[kNH][4],
+                                       const T* zrow, int ld, int n0,
+                                       int ntc, float (&acc)[2 * NC][4]) {
+  constexpr bool kExact = sizeof(T) == 2;
+  float st[2 * NC][4], sl[2 * NC][4];
+  auto clear = [&]() {
 #pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int e = tid + kThreads * u, r = e / kDP, c = e % kDP;
-    const int key = k0 + r;
-    if (c >= P.d || key >= P.sk) continue;
-    const long long at =
-        ((static_cast<long long>(b) * P.sk + key) * P.kv_heads + kvh) * P.d +
-        c;
-    store(P.dk + at, dk[u] * P.sm_scale);
-    store(P.dv + at, dv[u]);
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = sl[n][e] = 0.0f;
+  };
+  auto flush = [&]() {
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += st[n][e] + sl[n][e];
+  };
+  clear();
+#pragma unroll
+  for (int ks = 0; ks < kNH; ++ks) {
+    if (kEdge && n0 + ks >= ntc) continue;
+    const float av[4] = {a[ks][0], a[ks][2], a[ks][1], a[ks][3]};
+    uint32_t ph[4], pl[4];
+    split(av, ph, pl);
+    const T* zk = zrow + 8 * (n0 + ks) * ld;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float2 z0 = load2(zk + 16 * i);
+      const float2 z1 = load2(zk + 4 * ld + 16 * i);
+      const float bv[2][2] = {{z0.x, z1.x}, {z0.y, z1.y}};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float (&d)[4] = st[2 * i + u];
+        float (&dl)[4] = sl[2 * i + u];
+        if constexpr (kExact) {
+          const uint32_t bh[2] = {__float_as_uint(bv[u][0]),
+                                  __float_as_uint(bv[u][1])};
+          mma_tf32(dl, pl, bh);
+          if constexpr (kPerKStep) mma_tf32(d, ph, bh);
+          else mma_rn(d, ph, bh);
+        } else {
+          uint32_t bh[2], bl[2];
+          split(bv[u], bh, bl);
+          mma_tf32(dl, pl, bh);
+          mma_tf32(dl, ph, bl);
+          if constexpr (kPerKStep) mma_tf32(d, ph, bh);
+          else mma_rn(d, ph, bh);
+        }
+      }
+    }
+    if constexpr (kPerKStep) {
+      flush();
+      clear();
+    }
+  }
+  if constexpr (!kPerKStep) flush();
+}
+
+// a warp's accumulator (rows r + g, r + 8 + g; dims 16 i + 4 t .. + 3)
+// times `scale` into a contiguous (row, d) output with row stride `ld`,
+// rows below `limit`
+template <typename T, int NC>
+__device__ __forceinline__ void store_acc(const float (&acc)[2 * NC][4],
+                                          float scale, T* base, long long ld,
+                                          int r, int limit, int d, int g,
+                                          int t) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r + g + 8 * hr;
+    if (row >= limit) continue;
+    T* out = base + row * ld;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float val[4] = {acc[2 * i][2 * hr], acc[2 * i + 1][2 * hr],
+                            acc[2 * i][2 * hr + 1],
+                            acc[2 * i + 1][2 * hr + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 16 * i + 4 * t + e;
+        if (c < d) store(out + c, val[e] * scale);
+      }
+    }
   }
 }
 
-// l, D and dq of one (b, query head, 64-row tile)
+// a ring stage: two 64-row tiles, then (launch 2) lse, l and D of 64 rows
+template <typename T, int DP>
+__host__ __device__ constexpr size_t stage_bytes(bool rows) {
+  return sizeof(T) * 2 * kBN * k_stride<T, DP>() +
+         (rows ? sizeof(float) * 3 * kBN : 0);
+}
+
+// head_dim padding of both tiles of every stage: zero once, never copied
+// over (the tiles' rows are 16 * NC wide, d of them copied)
+template <typename T, int DP>
+__device__ __forceinline__ void zero_pad(unsigned char* smem, size_t stage,
+                                         int d, int tid) {
+  if (DP == d) return;
+  constexpr int kL = k_stride<T, DP>();
+  const int pad = DP - d;
+  for (int i = tid; i < kStages * 2 * kBN * pad; i += kThreads) {
+    const int r = i / pad, c = d + i % pad;   // r over both tiles, stages
+    T* tile = reinterpret_cast<T*>(smem + (r / (2 * kBN)) * stage);
+    tile[(r % (2 * kBN)) * kL + c] = zero<T>();
+  }
+}
+
+// l, D and dq of one (b, query head, 64-row tile); NC = padded head_dim / 16
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC, kLD = kDP + 1, kLDP = kBK + 1;
-  constexpr int kU = kBQ2 * kDP / kThreads;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ2 * kLD;
-  float* Ks = dOs + kBQ2 * kLD;
-  float* Vs = Ks + kBK * kLD;
-  float* Ps = Vs + kBK * kLD;
-  float* dSs = Ps + kBQ2 * kLDP;
-  float* rm = dSs + kBQ2 * kLDP;
-  float* rl = rm + kBQ2;
-  float* dl = rl + kBQ2;
+  constexpr int kDP = 16 * NC, kL = k_stride<T, kDP>();
+  constexpr int kNH = NC <= 4 ? 4 : 2;   // 8-key groups a step
+  constexpr size_t kStage = stage_bytes<T, kDP>(false);
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / P.heads, h = blockIdx.x % P.heads;
-  const int kvh = h / P.group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ2;   // heavy tiles first
-  const long long row0 = (static_cast<long long>(b) * P.heads + h) * P.sq;
-  load_tile(Qs, kLD, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, q0, kBQ2, P.sq,
-            P.d);
-  load_tile(dOs, kLD, P.dout + b * P.dos.b + h * P.dos.h, P.dos.s, q0, kBQ2,
-            P.sq, P.d);
-  load_rows<kBQ2>(rm, rl, dl, P.lse + row0, nullptr, q0, P.sq);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / P.heads, h = bh % P.heads, kvh = h / P.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heavy tiles first
+  const int r0 = q0 + 16 * warp;
   const T* kb = P.k + b * P.ks.b + kvh * P.ks.h;
   const T* vb = P.v + b * P.vs.b + kvh * P.vs.h;
-  const float scale2 = P.sm_scale * kLog2e;
-  const int k_end = P.causal ? min(P.sk, min(q0 + kBQ2, P.sq)) : P.sk;
+  const int last_row = min(q0 + kBM, P.sq) - 1;
+  const int k_end = P.causal ? min(P.sk, last_row + 1) : P.sk;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int w_end = r0 >= P.sq ? 0
+                    : P.causal ? min(P.sk, min(r0 + 16, P.sq))
+                               : P.sk;
 
-  auto stage = [&](int k0) {        // K/V tile k0 into shared
-    __syncthreads();                // the last step's readers are done
-    load_tile(Ks, kLD, kb, P.ks.s, k0, kBK, P.sk, P.d);
-    load_tile(Vs, kLD, vb, P.vs.s, k0, kBK, P.sk, P.d);
-    __syncthreads();
+  // the ring walks the key tiles twice: pass 1 (l and D), pass 2 (dq)
+  auto issue = [&](int it) {      // K/V tile it % n_tiles into its stage
+    T* sk = reinterpret_cast<T*>(smem + (it % kStages) * kStage);
+    copy_rows2(sk, kL, kb, P.ks.s, sk + kBN * kL, kL, vb, P.vs.s,
+               (it % n_tiles) * kBN, kBN, k_end, P.d, P.vec_kv, tid,
+               kThreads);
+    cp_async_commit();
   };
-  // pass 1: l = rowsum(P~) and D = rowsum(P~ dP) / l, each tile's part
-  // summed from zero (rl is 1 and dl 0 here, so the tile's P is P~ and its
-  // dS is P~ dP); thread i < 64 owns row i
-  float l_acc = 0.0f, d_acc = 0.0f;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    stage(k0);
-    p_ds_tile<kBQ2, kBK>(Qs, dOs, Ks, Vs, kLD, P.d, rm, rl, dl, q0, k0,
-                         P.sq, P.sk, P.causal, scale2, Ps, dSs, kLDP);
-    __syncthreads();
-    if (tid < kBQ2) {
-      float tl = 0.0f, td = 0.0f;
-      for (int j = 0; j < kBK; ++j) {
-        tl += Ps[tid * kLDP + j];
-        td += dSs[tid * kLDP + j];
+  if (n_tiles > 0) issue(0);
+  zero_pad<T, kDP>(smem, kStage, P.d, tid);
+
+  float qv[NC][2][4], dov[NC][2][4];
+  load_frag_rows<T, NC>(qv, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, r0, P.sq,
+                        P.d, g, t);
+  load_frag_rows<T, NC>(dov, P.dout + b * P.dos.b + h * P.dos.h, P.dos.s,
+                        r0, P.sq, P.d, g, t);
+  const long long row0 = static_cast<long long>(bh) * P.sq;
+  float m2[2], l[2] = {0.0f, 0.0f}, D[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {  // the offset, lse in base 2 (unfused
+                                    // multiplies: launch 2 forms the same)
+    const int row = r0 + g + 8 * hr;
+    m2[hr] = row < P.sq ? __fmul_rn(P.lse[row0 + row], kLog2e) : 0.0f;
+  }
+
+  float acc[2 * NC][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  const float scale = P.sm_scale * kLog2e;
+  const int prow = (g >> 1) + 4 * (g & 1);   // the permuted row of a group
+
+  // one K/V tile for this warp's rows, kNH 8-key groups a step.  Pass 1
+  // (kGrad false) adds this lane's P~ and P~ dP to tl and td; pass 2 forms
+  // dS = P (dP - D) and adds the step's dS K to acc
+  float tl[2], td[2];
+  auto attend = [&](const T* sk, const T* sv, int k0, int ntc, auto edge,
+                    auto grad) {
+    constexpr bool kEdge = decltype(edge)::value;
+    constexpr bool kGrad = decltype(grad)::value;
+#pragma unroll
+    for (int n0 = 0; n0 < kNT; n0 += kNH) {
+      if (kEdge && n0 >= ntc) break;
+      float s[kNH][4], s_lo[kNH][4], dp[kNH][4], dp_lo[kNH][4];
+#pragma unroll
+      for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = s_lo[nt][e] = dp[nt][e] = dp_lo[nt][e] = 0.0f;
+      xyt<T, NC, kNH, false, kEdge>(qv, sk + prow * kL + 4 * t, kL, n0, ntc,
+                                    s, s_lo);
+      xyt<T, NC, kNH, false, kEdge>(dov, sv + prow * kL + 4 * t, kL, n0,
+                                    ntc, dp, dp_lo);
+      // c0, c1 are row g's keys t and t + 4 of each group, c2, c3 row
+      // g + 8's
+#pragma unroll
+      for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          bool keep = true;
+          if constexpr (kEdge) {
+            const int row = r0 + g + 8 * hr;
+            const int key = k0 + 8 * (n0 + nt) + t + 4 * (e & 1);
+            keep = key < P.sk && !(P.causal && key > row);
+          }
+          const float pt =
+              keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) - m2[hr])
+                   : 0.0f;
+          const float dpv = dp[nt][e] + dp_lo[nt][e];
+          if constexpr (kGrad) {
+            dp[nt][e] = pt / l[hr] * (dpv - D[hr]);
+          } else {
+            tl[hr] += pt;
+            td[hr] = fmaf(pt, dpv, td[hr]);
+          }
+        }
+      if constexpr (kGrad)
+        add_az<T, NC, kNH, kEdge, true>(dp, sk + t * kL + 2 * g, kL, n0,
+                                        ntc, acc);
+    }
+  };
+
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();              // tile landed; the other stage is free
+    if (it + 1 < 2 * n_tiles) issue(it + 1);
+    const bool grad = it >= n_tiles;
+    if (it == n_tiles) {          // pass 1 done: the quad's sums
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+        D[hr] += __shfl_xor_sync(0xffffffffu, D[hr], 1);
+        D[hr] += __shfl_xor_sync(0xffffffffu, D[hr], 2);
+        l[hr] = fmaxf(l[hr], 1e-30f);
+        D[hr] /= l[hr];
+        const int row = r0 + g + 8 * hr;
+        if (row < P.sq && t == 0) {
+          P.rows[2 * (row0 + row)] = l[hr];
+          P.rows[2 * (row0 + row) + 1] = D[hr];
+        }
       }
-      l_acc += tl;
-      d_acc += td;
+    }
+    const int k0 = (it % n_tiles) * kBN;
+    const int keys = min(kBN, w_end - k0);
+    if (keys <= 0) continue;      // every key of the tile masked here
+    const int ntc = (keys + 7) / 8;
+    const T* sk = reinterpret_cast<const T*>(smem + (it % kStages) * kStage);
+    const T* sv = sk + kBN * kL;
+    const bool edge = ntc < kNT || k0 + kBN > P.sk ||
+                      (P.causal && k0 + kBN - 1 > r0);
+    if (grad) {
+      if (edge)
+        attend(sk, sv, k0, ntc, std::true_type{}, std::true_type{});
+      else
+        attend(sk, sv, k0, kNT, std::false_type{}, std::true_type{});
+    } else {                      // each tile's sums from zero, then added
+      tl[0] = tl[1] = td[0] = td[1] = 0.0f;
+      if (edge)
+        attend(sk, sv, k0, ntc, std::true_type{}, std::false_type{});
+      else
+        attend(sk, sv, k0, kNT, std::false_type{}, std::false_type{});
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        l[hr] += tl[hr];
+        D[hr] += td[hr];
+      }
     }
   }
-  __syncthreads();                  // every pass-1 read of rl and dl is done
-  if (tid < kBQ2) {
-    const float l = fmaxf(l_acc, 1e-30f), dd = d_acc / l;
-    rl[tid] = l;
-    dl[tid] = dd;
-    if (q0 + tid < P.sq) {
-      P.rows[2 * (row0 + q0 + tid)] = l;
-      P.rows[2 * (row0 + q0 + tid) + 1] = dd;
+  store_acc<T, NC>(acc, P.sm_scale,
+                   P.dq + (static_cast<long long>(b) * P.sq * P.heads + h) *
+                              P.d,
+                   static_cast<long long>(P.heads) * P.d, r0, P.sq, P.d, g,
+                   t);
+}
+
+// dk and dv of one (b, kv head, 64-key tile) -- or, with P.part, one
+// query head's share of them, (b, query head, 64-key tile), as fp32
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
+  constexpr int kDP = 16 * NC, kL = k_stride<T, kDP>();
+  constexpr int kNH = NC <= 4 ? 4 : 2;   // 8-row query groups a step
+  constexpr size_t kStage = stage_bytes<T, kDP>(true);
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool split = P.part != nullptr;
+  const int units = split ? P.heads : P.kv_heads;
+  const int b = blockIdx.x / units, u = blockIdx.x % units;
+  const int kvh = split ? u / P.group : u;
+  const int h_first = split ? u : kvh * P.group;
+  const int n_heads = split ? 1 : P.group;
+  const int k0 = blockIdx.y * kBM;        // heavy causal tiles first
+  const int kw = k0 + 16 * warp;          // this warp's first key
+  // query rows before k0 see none of these keys when causal (k0 is a
+  // multiple of the 64-row tile)
+  const int q_first = P.causal ? k0 : 0;
+  const int n_qt = q_first < P.sq ? (P.sq - q_first + kBN - 1) / kBN : 0;
+  const int n_steps = n_heads * n_qt;
+
+  auto issue = [&](int step) {    // Q/dO tile, with lse, l, D of its rows
+    unsigned char* st = smem + (step % kStages) * kStage;
+    T* sq_ = reinterpret_cast<T*>(st);
+    const int h = h_first + step / n_qt;
+    const int q0 = q_first + (step % n_qt) * kBN;
+    copy_rows2(sq_, kL, P.q + b * P.qs.b + h * P.qs.h, P.qs.s,
+               sq_ + kBN * kL, kL, P.dout + b * P.dos.b + h * P.dos.h,
+               P.dos.s, q0, kBN, P.sq, P.d, P.vec_qdo, tid, kThreads);
+    float* rows = reinterpret_cast<float*>(st + stage_bytes<T, kDP>(false));
+    const long long row0 = (static_cast<long long>(b) * P.heads + h) * P.sq;
+    for (int i = tid; i < 3 * kBN; i += kThreads) {
+      const int r = i % kBN, what = i / kBN;     // 0: lse, 1: l, 2: D
+      const bool ok = q0 + r < P.sq;
+      const long long at = row0 + (ok ? q0 + r : 0);
+      copy_elem(rows + i, what == 0 ? P.lse + at : P.rows + 2 * at + what - 1,
+                ok);
+    }
+    cp_async_commit();
+  };
+  if (n_steps > 0) issue(0);
+  zero_pad<T, kDP>(smem, kStage, P.d, tid);
+
+  float kf[NC][2][4], vf[NC][2][4];
+  load_frag_rows<T, NC>(kf, P.k + b * P.ks.b + kvh * P.ks.h, P.ks.s, kw,
+                        P.sk, P.d, g, t);
+  load_frag_rows<T, NC>(vf, P.v + b * P.vs.b + kvh * P.vs.h, P.vs.s, kw,
+                        P.sk, P.d, g, t);
+  float dk[2 * NC][4], dv[2 * NC][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const float scale = P.sm_scale * kLog2e;
+  const int prow = (g >> 1) + 4 * (g & 1);
+
+  // one Q/dO tile (query rows q0 ..) for this warp's keys, kNH 8-row
+  // groups a step
+  auto attend = [&](const T* sq_, const T* sdo, const float* rows, int q0,
+                    int n0, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    float s[kNH][4], s_lo[kNH][4], dp[kNH][4], dp_lo[kNH][4];
+#pragma unroll
+    for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = s_lo[nt][e] = dp[nt][e] = dp_lo[nt][e] = 0.0f;
+    xyt<T, NC, kNH, true, false>(kf, sq_ + prow * kL + 4 * t, kL, n0, kNT,
+                                 s, s_lo);
+    xyt<T, NC, kNH, false, false>(vf, sdo + prow * kL + 4 * t, kL, n0, kNT,
+                                  dp, dp_lo);
+    // P^T and dS^T in place of s and dp: c0, c1 are key g's query rows t
+    // and t + 4 of each group, c2, c3 key g + 8's
+#pragma unroll
+    for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * (n0 + nt) + t + 4 * (e & 1);   // in the tile
+        bool keep = true;
+        if constexpr (kEdge) {
+          const int key = kw + g + 8 * (e >> 1), row = q0 + qi;
+          keep = row < P.sq && !(P.causal && key > row);
+        }
+        const float p =
+            keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) -
+                         __fmul_rn(rows[qi], kLog2e)) /
+                       rows[kBN + qi]
+                 : 0.0f;
+        s[nt][e] = p;
+        dp[nt][e] = p * ((dp[nt][e] + dp_lo[nt][e]) - rows[2 * kBN + qi]);
+      }
+    add_az<T, NC, kNH, false, false>(s, sdo + t * kL + 2 * g, kL, n0, kNT,
+                                     dv);
+    add_az<T, NC, kNH, false, false>(dp, sq_ + t * kL + 2 * g, kL, n0, kNT,
+                                     dk);
+  };
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();              // tile landed; the other stage is free
+    if (step + 1 < n_steps) issue(step + 1);
+    const unsigned char* st = smem + (step % kStages) * kStage;
+    const T* sq_ = reinterpret_cast<const T*>(st);
+    const T* sdo = sq_ + kBN * kL;
+    const float* rows =
+        reinterpret_cast<const float*>(st + stage_bytes<T, kDP>(false));
+    const int q0 = q_first + (step % n_qt) * kBN;
+#pragma unroll
+    for (int n0 = 0; n0 < kNT; n0 += kNH) {
+      const int first = q0 + 8 * n0, last = first + 8 * kNH - 1;
+      if (P.causal && last < kw) continue;    // every row before the keys
+      if ((P.causal && first < kw + 15) || last >= P.sq)
+        attend(sq_, sdo, rows, q0, n0, std::true_type{});
+      else
+        attend(sq_, sdo, rows, q0, n0, std::false_type{});
     }
   }
 
-  // pass 2: dS = P (dP - D) and dq = dS K
-  float dq[kU];
-#pragma unroll
-  for (int u = 0; u < kU; ++u) dq[u] = 0.0f;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    stage(k0);
-    p_ds_tile<kBQ2, kBK>(Qs, dOs, Ks, Vs, kLD, P.d, rm, rl, dl, q0, k0,
-                         P.sq, P.sk, P.causal, scale2, nullptr, dSs, kLDP);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int e = tid + kThreads * u, i = e / kDP, c = e % kDP;
-      if (c >= P.d) continue;
-      float t = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < kBK; ++j)
-        t = fmaf(dSs[i * kLDP + j], Ks[j * kLD + c], t);
-      dq[u] += t;
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int e = tid + kThreads * u, i = e / kDP, c = e % kDP;
-    const int row = q0 + i;
-    if (c >= P.d || row >= P.sq) continue;
+  if (split) {
+    // (b, h, sk, 2, d): this head's dk (unscaled) and dv rows, fp32
+    float* base = P.part + (static_cast<long long>(blockIdx.x) * P.sk) * 2 *
+                               P.d;
+    store_acc<float, NC>(dk, 1.0f, base, 2LL * P.d, kw, P.sk, P.d, g, t);
+    store_acc<float, NC>(dv, 1.0f, base + P.d, 2LL * P.d, kw, P.sk, P.d, g,
+                         t);
+  } else {
     const long long at =
-        ((static_cast<long long>(b) * P.sq + row) * P.heads + h) * P.d + c;
-    store(P.dq + at, dq[u] * P.sm_scale);
+        (static_cast<long long>(b) * P.sk * P.kv_heads + kvh) * P.d;
+    const long long ld = static_cast<long long>(P.kv_heads) * P.d;
+    store_acc<T, NC>(dk, P.sm_scale, P.dk + at, ld, kw, P.sk, P.d, g, t);
+    store_acc<T, NC>(dv, 1.0f, P.dv + at, ld, kw, P.sk, P.d, g, t);
   }
+}
+
+// dk and dv from the g query heads' fp32 partials, summed in head order;
+// one thread per output element of (b, sk, m, d)
+template <typename T>
+__global__ void __launch_bounds__(256) gqa_sum_kernel(const Params<T> P,
+                                                      long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  const int c = static_cast<int>(i % P.d);
+  long long r = i / P.d;
+  const int kvh = static_cast<int>(r % P.kv_heads);
+  r /= P.kv_heads;
+  const int key = static_cast<int>(r % P.sk);
+  const long long b = r / P.sk;
+  const float* src =
+      P.part + (((b * P.heads + kvh * P.group) * P.sk + key) * 2) * P.d + c;
+  const long long head = static_cast<long long>(P.sk) * 2 * P.d;
+  float dk = 0.0f, dv = 0.0f;
+  for (int gi = 0; gi < P.group; ++gi) {
+    dk += src[gi * head];
+    dv += src[gi * head + P.d];
+  }
+  store(P.dk + i, dk * P.sm_scale);
+  store(P.dv + i, dv);
 }
 
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess)         // as many blocks per SM as fit
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
+  return err;
 }
 
 template <typename T, int NC>
-cudaError_t launch(const Params<T>& P, cudaStream_t stream) {
-  const size_t dq_bytes = sizeof(float) * dq_smem_floats<NC>();
+cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
+  constexpr int kDP = 16 * NC;
+  const size_t dq_bytes = kStages * stage_bytes<T, kDP>(false);
   cudaError_t err = allow_smem(dq_kernel<T, NC>, dq_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid(unsigned(P.batch) * unsigned(P.heads),
-                     unsigned((P.sq + kBQ2 - 1) / kBQ2));
+  const dim3 dq_grid(unsigned(batch) * unsigned(P.heads),
+                     unsigned((P.sq + kBM - 1) / kBM));
   dq_kernel<T, NC><<<dq_grid, kThreads, dq_bytes, stream>>>(P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dkdv_bytes = sizeof(float) * dkdv_smem_floats<NC>();
+  const size_t dkdv_bytes = kStages * stage_bytes<T, kDP>(true);
   err = allow_smem(dkdv_kernel<T, NC>, dkdv_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 dkdv_grid(unsigned(P.batch) * unsigned(P.kv_heads),
-                       unsigned((P.sk + kBK - 1) / kBK));
+  const unsigned units = P.part != nullptr ? P.heads : P.kv_heads;
+  const dim3 dkdv_grid(unsigned(batch) * units,
+                       unsigned((P.sk + kBM - 1) / kBM));
   dkdv_kernel<T, NC><<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || P.part == nullptr) return err;
+
+  const long long n =
+      static_cast<long long>(batch) * P.sk * P.kv_heads * P.d;
+  gqa_sum_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(P, n);
   return cudaGetLastError();
 }
 
+bool aligned16(long long x) { return x % 16 == 0; }
+
+// 16-byte copies of two operands' rows: d, both pointers and their batch,
+// position and head strides all multiples of 16 bytes
 template <typename T>
-cudaError_t dispatch(const Params<T>& P, cudaStream_t stream) {
-  switch ((P.d + 15) / 16) {
+bool vec_rows(int d, const void* a, const Strides& sa, const void* b,
+              const Strides& sb) {
+  const long long es = sizeof(T);
+  return aligned16(d * es) && aligned16(reinterpret_cast<uintptr_t>(a)) &&
+         aligned16(reinterpret_cast<uintptr_t>(b)) && aligned16(sa.b * es) &&
+         aligned16(sa.s * es) && aligned16(sa.h * es) &&
+         aligned16(sb.b * es) && aligned16(sb.s * es) && aligned16(sb.h * es);
+}
+
+template <typename T>
+cudaError_t run(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, float* rows, float* part,
+                void* dq, void* dk, void* dv, int batch, int heads,
+                int kv_heads, int sq, int sk, int d, const Strides* st,
+                float sm_scale, int causal, cudaStream_t stream) {
+  const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<const T*>(dout),
+                    lse, rows, part, static_cast<T*>(dq),
+                    static_cast<T*>(dk), static_cast<T*>(dv), heads,
+                    kv_heads, heads / kv_heads, sq, sk, d, st[0], st[1],
+                    st[2], st[3], sm_scale, causal,
+                    int(vec_rows<T>(d, k, st[1], v, st[2])),
+                    int(vec_rows<T>(d, q, st[0], dout, st[3]))};
+  switch ((d + 15) / 16) {
 #define REPRO_FAB_CASE(NC) \
   case NC:                 \
-    return launch<T, NC>(P, stream);
+    return launch<T, NC>(P, batch, stream);
     REPRO_FAB_CASE(1)
     REPRO_FAB_CASE(2)
     REPRO_FAB_CASE(3)
@@ -390,32 +711,19 @@ cudaError_t dispatch(const Params<T>& P, cudaStream_t stream) {
   }
 }
 
-template <typename T>
-cudaError_t run(const void* q, const void* k, const void* v,
-                const void* dout, const float* lse, float* rows, void* dq,
-                void* dk, void* dv, int batch, int heads, int kv_heads,
-                int sq, int sk, int d, const Strides* st, float sm_scale,
-                int causal, cudaStream_t stream) {
-  const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
-                    static_cast<const T*>(v), static_cast<const T*>(dout),
-                    lse, rows, static_cast<T*>(dq), static_cast<T*>(dk),
-                    static_cast<T*>(dv), batch, heads, kv_heads,
-                    heads / kv_heads, sq, sk, d, st[0], st[1], st[2], st[3],
-                    sm_scale, causal};
-  return dispatch<T>(P, stream);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 host integers, the
 // (batch, position, head) strides in elements of q, k, v and dout.  lse:
-// fp32 (b, h, sq) from the forward; rows: fp32 (b, h, sq, 2) scratch; dq
-// (b, sq, h, d), dk and dv (b, sk, m, d) contiguous.
+// fp32 (b, h, sq) from the forward; rows: fp32 (b, h, sq, 2) scratch;
+// part: fp32 (b, h, sk, 2, d) scratch, or null -- with it the dk/dv launch
+// runs one block per query head and a third launch sums the group's
+// partials; dq (b, sq, h, d), dk and dv (b, sk, m, d) contiguous.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, float* rows, void* dq, void* dk, void* dv,
-    int dtype, int batch, int heads, int kv_heads, int sq, int sk, int d,
-    const long long* strides, float sm_scale, int causal,
+    const float* lse, float* rows, float* part, void* dq, void* dk,
+    void* dv, int dtype, int batch, int heads, int kv_heads, int sq, int sk,
+    int d, const long long* strides, float sm_scale, int causal,
     cudaStream_t stream) {
   if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -426,10 +734,11 @@ extern "C" int flash_attention_bwd_launch(
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
       dtype == 0
-          ? run<float>(q, k, v, dout, lse, rows, dq, dk, dv, batch, heads,
-                       kv_heads, sq, sk, d, st, sm_scale, causal, stream)
+          ? run<float>(q, k, v, dout, lse, rows, part, dq, dk, dv, batch,
+                       heads, kv_heads, sq, sk, d, st, sm_scale, causal,
+                       stream)
       : dtype == 1
-          ? run<__nv_bfloat16>(q, k, v, dout, lse, rows, dq, dk, dv,
+          ? run<__nv_bfloat16>(q, k, v, dout, lse, rows, part, dq, dk, dv,
                                batch, heads, kv_heads, sq, sk, d, st,
                                sm_scale, causal, stream)
           : cudaErrorInvalidValue;

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
 #: one build-and-load at a time: the threads of a sweep share the card, and
 #: two threads building one source would write the same temporary file
 _LOAD_LOCK = threading.Lock()
@@ -106,3 +107,13 @@ def check_launch(rc: int, what: str) -> None:
     never runs, and a later synchronize would not report it)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def sm_count(device) -> int:
+    """The card's number of SMs (cached per card): the kernels' launch
+    plans aim at it."""
+    if device.index not in _SMS:
+        import torch
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]

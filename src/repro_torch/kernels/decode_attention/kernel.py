@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_launch, load
+from repro_torch.kernels.build import check_launch, load, sm_count
 from repro_torch.kernels.flash_attention.kernel import (
     DTYPE_CODES, check_attention_inputs,
 )
@@ -35,9 +35,8 @@ _SIGNATURES = {"decode_attention_launch": [
     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P]}
 
-#: per card: its SM count, and the kernel's ticket counters (int32, zero
-#: between calls: the last block of each unit sets its counter back to 0)
-_SMS: dict[int, int] = {}
+#: per card: the kernel's ticket counters (int32, zero between calls: the
+#: last block of each unit sets its counter back to 0)
 _TICKETS: dict[int, torch.Tensor] = {}
 
 
@@ -75,13 +74,6 @@ def copy_bytes(d: int, esize: int, *offsets: int) -> int:
                      f"and offsets {offsets}")
 
 
-def _sms(device: torch.device) -> int:
-    if device.index not in _SMS:
-        _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device.index]
-
-
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     t = _TICKETS.get(device.index)
     if t is None or t.numel() < n:
@@ -108,7 +100,7 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
     if o.numel() == 0:
         return o
     n_units = units(b, h, m)
-    n_splits, per = plan_splits(n_units, length, _sms(q.device))
+    n_splits, per = plan_splits(n_units, length, sm_count(q.device))
     esize = q.element_size()
     piece = copy_bytes(d, esize, *(st * esize for st in (
         *cache_k.stride()[:3], *cache_v.stride()[:3])),

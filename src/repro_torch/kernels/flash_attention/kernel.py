@@ -8,8 +8,9 @@ when asked, the rows' log-sum-exp (b, h, sq) -- with ``torch.empty``,
 launches on the current stream, raises if the launch was refused, and adds
 one to :data:`launches`.  It replaces the Pallas TPU kernel of the JAX
 package's ``kernels/flash_attention/kernel.py``.  The backward wrapper
-takes the forward's inputs, its log-sum-exp and the upstream gradient, and returns (dq, dk, dv); the JAX package has no backward kernel
-(its models differentiate the jnp attention).
+takes the forward's inputs, its log-sum-exp and the upstream gradient, and
+returns (dq, dk, dv); the JAX package has no backward kernel (its models
+differentiate the jnp attention).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_launch, load
+from repro_torch.kernels.build import check_launch, load, sm_count
 
 #: launches since the last reset (chip_smoke reads it)
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -30,8 +31,15 @@ _SIGNATURES = {"flash_attention_launch": [
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
+
+#: rows of the backward's blocks (query rows of a dq block, keys of a dk/dv
+#: block); its dk/dv launch splits the GQA group over its query heads when
+#: one block per (b, kv head, key tile) would give fewer than
+#: SPLIT_BELOW_BLOCKS_PER_SM blocks per SM
+BWD_TILE = 64
+SPLIT_BELOW_BLOCKS_PER_SM = 2
 
 
 def reset_launches() -> None:
@@ -63,6 +71,15 @@ def _strides(*tensors):
     """The (batch, position, head) strides of each tensor, as C integers."""
     return (ctypes.c_longlong * (3 * len(tensors)))(
         *(s for t in tensors for s in t.stride()[:3]))
+
+
+def split_gqa(b: int, h: int, m: int, sk: int, sms: int) -> bool:
+    """Whether the backward's dk/dv launch runs one block per (b, query
+    head, key tile), each writing its head's fp32 share, summed over the
+    group in head order by a third launch -- rather than one block per (b,
+    kv head, key tile) walking the group's heads."""
+    tiles = -(-sk // BWD_TILE)
+    return h > m and b * m * tiles < SPLIT_BELOW_BLOCKS_PER_SM * sms
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,14 +140,18 @@ def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     rows = torch.empty((b, h, sq, 2), dtype=torch.float32, device=q.device)
+    part = (torch.empty((b, h, sk, 2, d), dtype=torch.float32,
+                        device=q.device)
+            if split_gqa(b, h, m, sk, sm_count(q.device)) else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = load("flash_attention_bwd",
                   _BWD_SIGNATURES).flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), rows.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), DTYPE_CODES[q.dtype], b, h, m, sq, sk, d,
-            _strides(q, k, v, do), d ** -0.5, int(causal), stream)
+            lse.data_ptr(), rows.data_ptr(),
+            None if part is None else part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPE_CODES[q.dtype], b, h, m, sq,
+            sk, d, _strides(q, k, v, do), d ** -0.5, int(causal), stream)
     check_launch(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
