@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. device -- the card's name and power limit (nvidia-smi), and a build of
    the CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per source,
-   started together);
+   started together), with the planted copies that the bf16 controls run
+   (PLANTED);
 2. kernels -- each codec kernel against its plain PyTorch version on the
    card, bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's
    update vector) and 22,253,615 (the ResNet50 stand-in's); each attention
@@ -30,9 +31,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    zoo's heads (mamba2-370m: h 32, p 64, n 128; zamba2-2.7b: h 80, p 64,
    n 64) at every (b, s) phase 3e gives it (b 4 s 47, b 8 s 512, b 2 s
    575) and at b 2 s 2048, with and without an initial state, its
-   continuation property and bf16 inputs (where the chunked version's own
-   fp32 rounding misses SSD_TOL, the kernel must be within it of the
-   float64 recurrence and nearer to it: a reference caveat), then against
+   continuation property and bf16 inputs (held against the chunked plain
+   version in bf16 at the kernel's own chunks, where both round at the JAX
+   model's points, within SSD_BF16_TOL of the largest |y| and
+   SSD_BF16_NORM_TOL norm-wise, which a planted copy of the kernel that
+   rounds nothing must miss; where the
+   chunked version's own fp32 rounding misses SSD_TOL, the kernel must be
+   within it of the float64 recurrence and nearer to it: a reference
+   caveat), then against
    the float64 recurrence at s = 512 and 575 (within twice the error of
    the kernel it replaced, SSD_FP64_PARENT), and timed at every (b, s) of
    3e with a 3xTF32 (the kernels line's), an fp32 and a bytes bound (no
@@ -51,7 +57,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and the bytes bounds; then each fp32 gradient against float64 at b 4,
    s 2048 on seeded inputs within twice the error of the kernel it
    replaced (FLASH_BWD_FP64_PARENT; ``redesign_baseline`` reads it in any
-   checkout);
+   checkout); the SSD scan's backward kernel (through ``ssd_scan_fused``
+   under autograd) against autograd of the chunked plain version, each
+   gradient within SSD_BWD_TOL of its largest plain |g| (fp32 and bf16)
+   and in fp32 within twice the plain version's error against the
+   float64 recurrence's gradient, in bf16 within SSD_BF16_NORM_TOL
+   norm-wise, which a planted backward that keeps its cotangents fp32
+   must miss (PLANTED), two calls equal bit for bit, at the training
+   path's shapes (SSD_BWD_PATH: mamba2-370m and zamba2-2.7b at b 8, s
+   64) and over SSD_BWD_SWEEP (p 128 with an initial state, several
+   chunks, a ragged chunk), timed at the path's shapes (the backward
+   alone, forward + backward, the plain backward; 3xTF32, fp32 and bytes
+   bounds, no library call), and the forward in bf16 against the chunked
+   version in bf16 at those shapes within SSD_BF16_FWD_TOL and
+   SSD_BF16_NORM_TOL, which the planted unrounded forward must miss;
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -116,8 +135,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    FULL_FP32_GRAD_TOL of its largest |g|, wq/wk/wv non-zero) and bf16,
    a second card gradient compared leaf by leaf (recorded); (c) one
    full-width bf16 trial (FULL_TRIAL, cut by FULL_TRIAL_OVER so the CPU
-   side stays near a minute) on both, metered fields equal, losses
-   within FULL_TRIAL_RTOL, a second card run compared (recorded), and
+   side stays near a minute; 3h's helper process makes the CPU run) on
+   both, metered fields equal, losses within FULL_TRIAL_RTOL, a second card run compared (recorded), and
    exactly the launches of
    ``flash_attention``, ``flash_attention_bwd`` and ``quantize8_ef`` the
    spec implies; (d) ``python -m repro_torch serve --grid --no-cache`` on
@@ -125,8 +144,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    Launch counters are zeroed before each card run and read after; the
    training launches join the kernels line's counts.  The seconds of
    (a)-(d) are printed;
-4. summary -- one JSON line listing every ported kernel and the
-   backward kernel.
+3h. train mamba2-370m and zamba2-2.7b -- 3g's checks, at 3g's constants
+   except where these models' own rounding noise exceeds them,
+   with the CPU sides in a helper process (``--cpu-side``, 4 threads)
+   started after phase 1: (a) 3g (a)'s 9 trials with each model (reduced,
+   bf16) card vs CPU within ARCH_CARD_VS_CPU_RTOL, a control at lr x
+   ARCH_CONTROL_LR per model that must miss it; (b) one full-width
+   gradient of each (b 8, s 64): fp32 within FULL_LOSS_RTOL and
+   FULL_SSM_FP32_GRAD_TOL (3g's 2e-5 lies inside these models' own
+   rounding noise: ``grad_witnesses``; mamba2's CPU gradient with its SSD
+   in float64 is read beside it; a planted ddt x1.01 fault must miss it
+   by SSD_CONTROL_MARGIN), bf16 within FULL_BF16_LOSS_RTOL (its leaves
+   read: in bf16 they part by 4-19% norm-wise between any two correct
+   implementations), every SSD backward of each gradient held in situ
+   against the plain backward on its own inputs and cotangents (fp32
+   within SSD_BWD_TOL, bf16 within SSD_BF16_NORM_TOL norm-wise; the
+   planted ddt x1.01 must miss both by SSD_CONTROL_MARGIN), every other
+   op of the bf16 gradient held against the same op on the CPU on the
+   same inputs (``op_witness``, with two planted ops that must miss), a
+   second card gradient equal bit for bit (the helper makes the card
+   gradients once the main process reaches 3h, beside (a)'s card runs);
+   (c) FULL_TRIAL with mamba2-370m at full width in fp32 within
+   FULL_TRIAL_RTOL, a control at lr x FULL_TRIAL_CONTROL_LR that must
+   miss it.  Launches exact where 3g's are; they join the kernels line;
+4. summary -- one JSON line listing every ported kernel and the two
+   backward kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository around it, the script exits non-zero and prints no
@@ -228,6 +270,32 @@ SERVE_TOL = 1e-4
 #: divide s), the recurrence position by position
 SSD_TOL = 1e-3
 SSD_MODEL_CHUNK = 256                   # cfg.ssm_chunk of both models
+#: bf16 inputs: the kernel against the chunked plain version in bf16 at
+#: the kernel's chunks (the same rounding points), relative to the largest
+#: |y|: the two round fp32 values that differ in their last bits, so now
+#: and then one masked score or x dt rounds to the neighbouring bf16
+#: value, a term off by 2^-8 of itself (an H100 read 1.1e-3); the
+#: attention kernels' bf16 rule
+SSD_BF16_TOL = ATTN_TOL["flash_attention"]["bfloat16"]
+#: the repaired bf16 forward against the chunked version in bf16 at the
+#: training path's shapes (one chunk in both: the JAX model's rounding
+#: points), max |kernel - plain| relative to the largest |y|: an H100 read
+#: 2.45e-4 (mamba2) and 1.22e-4 (zamba2); its planted copy that rounds
+#: nothing (PLANTED "ssd_scan", b87ae5a's kernel) read 4.204e-3 and
+#: 2.804e-3, b87ae5a's own readings, and must miss it
+SSD_BF16_FWD_TOL = 1e-3
+#: bf16, kernel against plain, norm-wise: ||kernel - plain|| / ||plain||
+#: of each output or gradient.  Where both round at the same points they
+#: part only where an fp32 value lies within its last bits of a bf16
+#: rounding boundary, a few elements in a thousand; a kernel that skips a
+#: rounding point is off by up to half a bf16 ulp in every element.  An
+#: H100 read: the forward at most 5.7e-5 over phase 2's sweep, its planted
+#: unrounded copy at least 2.25e-3; the backward at most 9.5e-5 over phase
+#: 2's rows, the planted backward that keeps its cotangents fp32 at least
+#: 2.7e-3 in each row's worst gradient; in situ in 3h (b) at most 2.6e-4
+#: (dC, real activations), a planted ddt x1.01 1.0e-2.  The planted
+#: copies must miss it at every shape
+SSD_BF16_NORM_TOL = 5e-4
 #: (heads, head_dim, state) of full mamba2-370m and zamba2-2.7b
 MAMBA2_SSD, ZAMBA2_SSD = (32, 64, 128), (80, 64, 64)
 SSD_PATH = dict(b=8, s=512)             # perplexity's forward in 3e (b)
@@ -244,6 +312,23 @@ SSD_TIMED = (SSD_PATH_SHAPES[1], SSD_PATH_SHAPES[2], SSD_PATH_SHAPES[0])
 #: 700 W); the chunk-parallel kernel may err by at most twice as much
 SSD_FP64_SEED = 2
 SSD_FP64_PARENT = {512: 1.1245186668702445e-3, 575: 9.388894636970235e-4}
+#: the SSD backward kernel against autograd of the chunked plain version
+#: on the card, each gradient relative to its largest plain |g|: fp32 sums
+#: in other orders, the decays in float64 where the plain version takes
+#: fp32 cumsums; bf16: both round the cotangents at the same five points,
+#: from fp32 values that differ in their last bits (FLASH_BWD_TOL's rule)
+SSD_BWD_TOL = FLASH_BWD_TOL
+SSD_GRAD_NAMES = ("dx", "ddt", "da_log", "dB", "dC", "dinit")
+#: the training path's SSD shapes (b, s, h, p, n): mamba2-370m and
+#: zamba2-2.7b at b 8, s 64 (phase 3h (b), (c)), model-like inputs, no
+#: initial state, the final state unused
+SSD_BWD_PATH = ((8, 64, *MAMBA2_SSD), (8, 64, *ZAMBA2_SSD))
+#: the backward's other shapes (b, s, h, p, n, initial state), with
+#: tests/test_kernels.py's ranges and a cotangent of the final state: a
+#: stress shape (p 128, n 64), several chunks with a ragged tail, and a
+#: ragged single chunk at n 128
+SSD_BWD_SWEEP = ((1, 64, 2, 128, 64, True), (2, 200, 4, 64, 32, True),
+                 (2, 47, 3, 32, 128, False))
 #: card vs CPU loss tolerance: the card's fp32 matrix products sum in
 #: another order than the CPU's, and one ulp of gradient difference can
 #: move an int8 code by a step or swap a top-k survivor.  It lies between
@@ -283,6 +368,22 @@ FULL_BATCH = dict(b=8, s=64)
 #: -- 4 gradients, two int8 merges of 2 workers.  A time limit, not a
 #: choice that hides a fault.
 FULL_TRIAL = ("pod_local_sgd", "podsgd_local8_c8")
+#: the bf16 controls' planted faults: a copy of a kernel's source with
+#: its rounding points taken out, built beside the kernels in phase 1
+#: (each text must occur once in the source)
+PLANTED_DIR = ROOT / "build" / "planted"
+PLANTED = {
+    # b87ae5a's forward: bf16 widened, x dt, the masked scores and the
+    # decays kept in fp32
+    "ssd_scan": (("return sizeof(T) == 2 ? __bfloat162float("
+                  "__float2bfloat16_rn(v)) : v;", "return v;"),),
+    # a backward that keeps the cotangents of W, of the masked scores and
+    # of x dt in fp32 (the forward's values still rounded)
+    "ssd_scan_bwd": (("round_as<T>(float(dw))", "float(dw)"),
+                     ("g = round_as<T>(*dm);", "g = *dm;"),
+                     ("g = round_as<T>(sDX[t * ldp + j]);",
+                      "g = sDX[t * ldp + j];")),
+}
 FULL_TRIAL_OVER = {"model_args": {"reduced": False}, "sync": "local:1:c8",
                    "rows": 20, "max_epochs": 1, "fleet.workers": 2}
 
@@ -316,12 +417,68 @@ def phase_device():
           f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build
     t0 = time.time()
+    procs = start_planted()
     libs = build.build(["quant8", "topk_ef", "flash_attention",
                         "flash_attention_bwd", "decode_attention",
-                        "ssd_scan"])
+                        "ssd_scan", "ssd_scan_bwd"])
+    finish_planted(procs)
     print(f"build: {time.time() - t0:.2f} s, "
-          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values())
+          + " and the planted copies of " + ", ".join(PLANTED))
     return card
+
+
+def start_planted() -> dict:
+    """One nvcc per PLANTED source, started beside phase 1's build: the
+    source with each of its texts replaced, built into PLANTED_DIR."""
+    from repro_torch.kernels import build
+    PLANTED_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in PLANTED.items():
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for old, new in subs:
+            check(text.count(old) == 1, f"planted {name}: {old!r} found "
+                                        f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        src = PLANTED_DIR / f"{name}.cu"
+        src.write_text(text)
+        lib = PLANTED_DIR / f"lib{name}.so"
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-o", str(lib), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish_planted(procs: dict) -> None:
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"planted {name}: nvcc failed:\n{log}")
+
+
+class planted:
+    """Inside the block the wrapper of kernel ``name`` launches its planted
+    copy (PLANTED): a control's run, never the main path's."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import ctypes
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ssd_scan import kernel as sk
+        sigs = {"ssd_scan": sk._SIGNATURES,
+                "ssd_scan_bwd": sk._BWD_SIGNATURES}[self.name]
+        self.kept = build.load(self.name, sigs)
+        lib = ctypes.CDLL(str(PLANTED_DIR / f"lib{self.name}.so"))
+        for fn, argtypes in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        build._LOADED[self.name] = lib
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import build
+        build._LOADED[self.name] = self.kept
 
 
 # ----------------------------------------------------------- 2. kernels ----
@@ -502,7 +659,10 @@ def ssd_vs_float64() -> dict:
     """Rounding at the serving path's lengths: the kernel (its own chunks)
     and the chunked plain version (256-position chunks at 512, one chunk
     of 575 at 575) against the recurrence in float64, mamba2 heads, b 2,
-    on inputs from their own seed (the same in every checkout)."""
+    on inputs from their own seed (the same in every checkout), and a
+    hash of the kernel's fp32 output bits (y, then the final state).  It
+    runs in a checkout of any commit: ``python3 -c 'import sys;
+    sys.path.insert(0, "src"); import chip_smoke as c; c.ssd_vs_float64()'``."""
     import torch
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
     from repro_torch.kernels.ssd_scan.ops import (
@@ -515,12 +675,17 @@ def ssd_vs_float64() -> dict:
                                          torch.float32, True)
         exact = ssd_scan_recurrence(x.double(), dt.double(), a_log.double(),
                                     B.double(), C.double())[0]
-        got = {"kernel": ssd_scan_kernel(x, dt, decay_rates(a_log), B, C)[0],
+        y, state = ssd_scan_kernel(x, dt, decay_rates(a_log), B, C)
+        got = {"kernel": y,
                "chunked": ssd_scan_chunked(x, dt, a_log, B, C,
                                            SSD_MODEL_CHUNK)[0]}
         vs_fp64[s] = {k: float((v.double() - exact).abs().max())
                       for k, v in got.items()}
         vs_fp64[s]["max_abs_y"] = float(exact.abs().max())
+        # the serving path's output bits, comparable across checkouts
+        vs_fp64[s]["kernel_sha256"] = hashlib.sha256(
+            y.cpu().numpy().tobytes() + state.cpu().numpy().tobytes()
+        ).hexdigest()
     print("  ssd_scan vs the float64 recurrence (mamba2 heads, b 2): "
           + json.dumps(vs_fp64))
     return vs_fp64
@@ -1199,6 +1364,22 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, model_like: bool):
     return x.to(dtype), dt, a_log, B.to(dtype), C.to(dtype)
 
 
+def kernel_chunks_bf16(x, dt, a_log, B, C):
+    """The chunked plain version at the kernel's own chunks (positions
+    past s padded with dt = 0 and x = 0, as the kernel pads its last
+    chunk): in bf16 it rounds where the kernel rounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.kernel import CHUNK, n_chunks
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    s = x.shape[1]
+    pad = n_chunks(s) * CHUNK - s
+    y, state = ssd_scan_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                                F.pad(dt, (0, 0, 0, pad)), a_log,
+                                F.pad(B, (0, 0, 0, pad)),
+                                F.pad(C, (0, 0, 0, pad)), CHUNK)
+    return y[:, :s], state
+
+
 def phase_ssd_kernel() -> dict:
     """The SSD scan kernel against the exact recurrence (``ref.py`` behind
     the JAX wrapper's plumbing) and the chunked plain version on the card,
@@ -1222,7 +1403,8 @@ def phase_ssd_kernel() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {"recurrence": 0.0, "chunked": 0.0, "init_state": 0.0,
-            "continuation": 0.0, "bfloat16": 0.0, "float64": 0.0}
+            "continuation": 0.0, "bfloat16_rel": 0.0, "bfloat16_norm": 0.0,
+            "bfloat16_planted_norm_min": float("inf"), "float64": 0.0}
     #: max |kernel - plain| over the shapes phase 3e gives the kernel
     path_errs = {"recurrence": 0.0, "chunked": 0.0, "float64": 0.0}
     caveats = {}
@@ -1279,6 +1461,33 @@ def phase_ssd_kernel() -> dict:
         group, err = chunked
         path_errs[group] = max(path_errs[group], err)
 
+    def hold_bf16(what, out, ref, control):
+        """bf16 inputs: the kernel rounds at the JAX model's points, so its
+        reference is the chunked plain version in bf16 at the kernel's own
+        chunks: within SSD_BF16_TOL of the largest |ref| and within
+        SSD_BF16_NORM_TOL norm-wise, which ``control`` (the planted
+        unrounded kernel's outputs) must miss."""
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        scale = max(float(r.abs().max()) for r in ref)
+        err, norm, ctrl = gap(out, ref), _norm_rel(out, ref), \
+            _norm_rel(control, ref)
+        check(all(bool(o.isfinite().all()) for o in out)
+              and err <= SSD_BF16_TOL * scale and norm <= SSD_BF16_NORM_TOL,
+              f"ssd_scan {what} vs the chunked version in bf16: max "
+              f"|kernel - plain| {err:.3e} (limit {SSD_BF16_TOL} x "
+              f"{scale:.3e}), norm-wise {norm:.3e} (limit "
+              f"{SSD_BF16_NORM_TOL:g})")
+        check(ctrl > SSD_BF16_NORM_TOL,
+              f"ssd_scan {what}: the planted unrounded kernel reads "
+              f"{ctrl:.3e} norm-wise, within {SSD_BF16_NORM_TOL:g}: the "
+              f"limit would not catch it")
+        errs["bfloat16_rel"] = max(errs["bfloat16_rel"], err / scale)
+        errs["bfloat16_norm"] = max(errs["bfloat16_norm"], norm)
+        errs["bfloat16_planted_norm_min"] = min(
+            errs["bfloat16_planted_norm_min"], ctrl)
+        n_checks += 1
+
     def sweep(b, s, h, p, n, model_like, path=False):
         what = f"b{b} s{s} h{h} p{p} n{n}"
         x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, torch.float32,
@@ -1302,9 +1511,10 @@ def phase_ssd_kernel() -> dict:
         hold(what + " continuation", (torch.cat([y1, y2], 1), st2), out,
              "continuation")
         xb, Bb, Cb = x.bfloat16(), B.bfloat16(), C.bfloat16()
-        hold(what + " bf16", ssd_scan_kernel(xb, dt, A, Bb, Cb),
-             ssd_scan_recurrence(xb.float(), dt, a_log, Bb.float(),
-                                 Cb.float()), "bfloat16")
+        with planted("ssd_scan"):
+            control = ssd_scan_kernel(xb, dt, A, Bb, Cb)
+        hold_bf16(what + " bf16", ssd_scan_kernel(xb, dt, A, Bb, Cb),
+                  kernel_chunks_bf16(xb, dt, a_log, Bb, Cb), control)
 
     # tests/test_kernels.py's four (bh, s, p, n) shapes, bh split as b x h
     for b, s, h, p, n in ((2, 256, 2, 64, 32), (2, 128, 1, 32, 16),
@@ -1316,7 +1526,8 @@ def phase_ssd_kernel() -> dict:
             sweep(b, s, h, p, n, True, path=True)
         sweep(2, 2048, h, p, n, True)
     print(f"  ssd_scan: {n_checks} checks within {SSD_TOL} (x (1 + |ref|)) "
-          f"of the plain versions; max |err| " + ", ".join(
+          f"of the plain versions (bf16: {SSD_BF16_TOL} of the largest |y|"
+          f" and {SSD_BF16_NORM_TOL} norm-wise); max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in errs.items())
           + "; at the path's shapes " + ", ".join(
               f"{k} {v:.3e}" for k, v in path_errs.items()))
@@ -1353,6 +1564,300 @@ def phase_ssd_kernel() -> dict:
             "sweep_max_abs_err": dict(errs), "checks": n_checks,
             "vs_float64": vs_fp64, "reference_caveats": caveats,
             "shapes": shapes}
+
+
+def _short(d: dict) -> str:
+    """``d``'s numbers to 4 figures, as JSON."""
+    return json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+
+
+def _norm_rel(outs, refs) -> float:
+    """The largest ||out - ref|| / ||ref|| over pairs of tensors (float64
+    sums)."""
+    return max(float((o.double() - r.double()).norm() / r.double().norm())
+               for o, r in zip(outs, refs))
+
+
+def _ssd_grads(fn, leaves, init, dy, dstate):
+    """Autograd of ``fn(x, dt, a_log, B, C, init)`` -> (y, final state)
+    at the leaves (and the initial state, if any) for the cotangents dy
+    and dstate (None: the final state unused) -> the gradients by name."""
+    import torch
+    wrt = list(leaves) + ([] if init is None else [init])
+    y, state = fn(*leaves, init)
+    outs, cots = ([y], [dy]) if dstate is None else ([y, state], [dy, dstate])
+    grads = torch.autograd.grad(outs, wrt, cots)
+    return dict(zip(SSD_GRAD_NAMES, grads))
+
+
+def _ssd_bwd_inputs(gen, b, s, h, p, n, dtype, model_like, with_init,
+                    with_dstate):
+    import torch
+    x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, dtype, model_like)
+    leaves = [t.requires_grad_(True) for t in (x, dt, a_log, B, C)]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    init = rnd(b, h, p, n).requires_grad_(True) if with_init else None
+    return leaves, init, rnd(b, s, h, p), rnd(b, h, p, n) if with_dstate \
+        else None
+
+
+def ssd_bwd_flop(b: int, s: int, h: int, p: int, n: int, init: bool,
+                 dstate: bool) -> int:
+    """The operations the SSD's gradient needs on these inputs, by the
+    closed form (``ref.ssd_scan_chunked_bwd``), two per multiply-add: per
+    chunk of l positions and head, dy xc^T and M^T dy over the causal
+    pairs (l^2 p), and the products with G and S_prev that are nonzero
+    (l p n each: B G^T and xc G when G is, dy S_prev when S_prev is,
+    e dy C^T when there are several chunks or an initial state); per
+    (b, chunk), C B^T, (dM o L)^T C and (dM o L) B over the causal pairs
+    (3 l^2 n / 2; dM o L summed over the heads first)."""
+    nc = -(-s // 64)
+    flop = 0
+    for c in range(nc):
+        l = min(64, s - 64 * c)
+        g = dstate or c < nc - 1
+        prev = init or c > 0
+        states = nc > 1 or init
+        per_head = l * l * p + l * p * n * (2 * g + prev + states)
+        flop += 2 * b * (h * per_head + 3 * l * l * n // 2)
+    return flop
+
+
+def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
+                model_like: bool, with_init: bool, with_dstate: bool,
+                timed: bool = False) -> dict:
+    """The SSD backward kernel (through ``ssd_scan_fused`` under autograd:
+    ``SSDScan``) against autograd of the chunked plain version, each
+    gradient within SSD_BWD_TOL of its largest plain |g|, two calls equal
+    bit for bit; in fp32 also against autograd of the float64 recurrence:
+    each gradient within twice the plain version's error.  The closed
+    form (``ref.ssd_scan_chunked_bwd``) is read beside them.  With
+    ``timed``: CUDA-event times of the backward alone (the kernel's
+    wrapper; the plain version's autograd backward from a forward made
+    outside the timed call) and of forward + backward, with a 3xTF32, an
+    fp32 and a bytes bound (no PyTorch call computes this gradient)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import (
+        decay_rates, ssd_scan_fused, ssd_scan_recurrence)
+    from repro_torch.kernels.ssd_scan.ref import (
+        ssd_scan_chunked, ssd_scan_chunked_bwd)
+    key = str(dtype).replace("torch.", "")
+    leaves, init, dy, dstate = _ssd_bwd_inputs(
+        gen, b, s, h, p, n, dtype, model_like, with_init, with_dstate)
+
+    def kernel_fn(*a):
+        return ssd_scan_fused(*a[:5], init_state=a[5])
+
+    def plain_fn(*a):
+        return ssd_scan_chunked(*a[:5], SSD_MODEL_CHUNK, a[5])
+
+    before = sk.launches["ssd_scan_bwd"]
+    got = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
+    check(sk.launches["ssd_scan_bwd"] == before + 1,
+          "ssd_scan_fused under autograd did not launch the backward kernel")
+    again = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
+    plain = _ssd_grads(plain_fn, leaves, init, dy, dstate)
+    closed = dict(zip(SSD_GRAD_NAMES, ssd_scan_chunked_bwd(
+        *(t.detach() for t in leaves), SSD_MODEL_CHUNK,
+        None if init is None else init.detach(), dy, dstate)))
+    torch.cuda.synchronize()
+    what = (f"b{b} s{s} h{h} p{p} n{n} {key}" + (" init" if with_init else "")
+            + (" dstate" if with_dstate else ""))
+    row = {"shape": what, "rel_err": {}, "closed_form_rel_err": {},
+           "repeat_bitwise": all(_bits_equal(got[k], again[k]) for k in got)}
+    check(row["repeat_bitwise"], f"ssd_scan_bwd {what}: two calls differ")
+    if dtype == torch.bfloat16:
+        with planted("ssd_scan_bwd"):
+            ctrl = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
+        row["norm_rel"] = {k: _norm_rel([got[k]], [plain[k]]) for k in got}
+        row["planted_norm_rel"] = {k: _norm_rel([ctrl[k]], [plain[k]])
+                                   for k in got}
+        del ctrl
+        over = {k: v for k, v in row["norm_rel"].items()
+                if v > SSD_BF16_NORM_TOL}
+        check(not over, f"ssd_scan_bwd {what}: norm-wise {over} from the "
+                        f"plain gradient, over {SSD_BF16_NORM_TOL:g}")
+        check(max(row["planted_norm_rel"].values()) > SSD_BF16_NORM_TOL,
+              f"ssd_scan_bwd {what}: the planted backward that keeps its "
+              f"cotangents fp32 reads {row['planted_norm_rel']} norm-wise, "
+              f"within {SSD_BF16_NORM_TOL:g}: the limit would not catch it")
+    for name, g in got.items():
+        scale = float(plain[name].float().abs().max())
+        check(bool(g.float().isfinite().all()) and g.dtype == plain[name].dtype,
+              f"ssd_scan_bwd {what} {name}: not finite or {g.dtype}")
+        err = float((g.float() - plain[name].float()).abs().max())
+        row["rel_err"][name] = err / scale if scale else err
+        row["closed_form_rel_err"][name] = float(
+            (g.float() - closed[name].float()).abs().max()) / (scale or 1.0)
+        check(err <= SSD_BWD_TOL[key] * scale,
+              f"ssd_scan_bwd {what} {name}: max |kernel - plain| {err:.3e} "
+              f"> {SSD_BWD_TOL[key]:g} x {scale:.3e}")
+    if dtype == torch.float32:
+        exact = _ssd_grads(
+            lambda *a: ssd_scan_recurrence(*a[:5], a[5]),
+            [t.detach().double().requires_grad_(True) for t in leaves],
+            None if init is None else init.detach().double().requires_grad_(
+                True), dy.double(),
+            None if dstate is None else dstate.double())
+        row["vs_float64"] = {
+            name: {"kernel": float((got[name].double() - x).abs().max()),
+                   "plain": float((plain[name].double() - x).abs().max()),
+                   "max_abs_grad": float(x.abs().max())}
+            for name, x in exact.items()}
+        del exact
+        for name, e in row["vs_float64"].items():
+            check(e["kernel"] <= 2 * e["plain"],
+                  f"ssd_scan_bwd {what} {name}: {e['kernel']:.3e} from "
+                  f"float64, over twice the plain version's {e['plain']:.3e}")
+    if timed:
+        x, dt, a_log, B, C = (t.detach() for t in leaves)
+        A = decay_rates(a_log)
+        prev = None if init is None else init.detach()
+
+        def bwd_fn():
+            return sk.ssd_scan_bwd_kernel(x, dt, A, B, C, prev, dy, dstate,
+                                          with_dinit=init is not None)
+
+        wrt = list(leaves) + ([] if init is None else [init])
+        with torch.enable_grad():
+            y_plain = plain_fn(*leaves, init)
+        outs = [y_plain[0]] if dstate is None else list(y_plain)
+        cots = [dy] if dstate is None else [dy, dstate]
+        es = x.element_size()
+        nbytes = (es * 2 * b * s * h * p + 4 * b * s * h * p + 8 * b * s * h
+                  + es * 4 * b * s * n
+                  + (8 * b * h * p * n if with_init else 0)
+                  + (4 * b * h * p * n if with_dstate else 0))
+        flop = ssd_bwd_flop(b, s, h, p, n, with_init, with_dstate)
+        b_ms, by = tf32x3_bound_ms(nbytes, flop)
+        row.update(
+            ms=time_ms(bwd_fn),
+            launch_us=_launch_profile(bwd_fn),
+            fwd_bwd_ms=time_ms(lambda: _ssd_grads(kernel_fn, leaves, init,
+                                                  dy, dstate)),
+            plain_ms=time_ms(lambda: torch.autograd.grad(
+                outs, wrt, cots, retain_graph=True), reps=10),
+            plain_fwd_bwd_ms=time_ms(lambda: _ssd_grads(
+                plain_fn, leaves, init, dy, dstate), reps=10),
+            bound_ms=b_ms, bound_by=by,
+            bound_fp32_ms=bound_ms(nbytes, flop)[0],
+            bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_bytes=nbytes, bound_flop=flop, library_ms=None,
+            library="none (no PyTorch call computes the SSD scan's "
+                    "gradient)")
+        del y_plain, outs
+    print(f"  ssd_scan_bwd {what}: |kernel - plain| / largest plain |g| "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in row["rel_err"].items()})
+          + "; closed form " + json.dumps(
+              {k: float(f"{v:.3e}")
+               for k, v in row["closed_form_rel_err"].items()})
+          + (f"; norm-wise {_short(row['norm_rel'])}, planted "
+             f"{_short(row['planted_norm_rel'])}" if "norm_rel" in row
+             else "")
+          + (f"; vs_float64={json.dumps(row['vs_float64'])}"
+             if "vs_float64" in row else "")
+          + (f"; backward ms={row['ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+             f"(3xTF32 {row['bound_by']}; fp32 {row['bound_fp32_ms']:.5f}, "
+             f"bytes {row['bytes_bound_ms']:.5f}) plain_ms="
+             f"{row['plain_ms']:.5f}; forward + backward ms="
+             f"{row['fwd_bwd_ms']:.5f} plain_ms={row['plain_fwd_bwd_ms']:.5f}"
+             f" launch_us=" + json.dumps(row["launch_us"]) if timed else ""))
+    del leaves, init, dy, dstate, got, again, plain, closed
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_forward_bf16(gen) -> dict:
+    """The forward in bf16 against the chunked plain version in bf16 at the
+    training path's shapes (one chunk in both, so the JAX model's rounding
+    points): the largest |kernel - plain| over y and the state, relative
+    to the largest plain |y|, within SSD_BF16_FWD_TOL, and norm-wise
+    within SSD_BF16_NORM_TOL; the planted copy that rounds nothing (the
+    kernel of b87ae5a, PLANTED) must miss both.  It runs in a checkout of
+    any commit that has the forward (``python3 -c 'import sys;
+    sys.path.insert(0, "src"); import chip_smoke as c, torch;
+    c.ssd_forward_bf16(torch.Generator(device="cuda").manual_seed(7))'``,
+    with the planted copy built by ``c.finish_planted(c.start_planted())``)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import decay_rates
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    out = {}
+    for b, s, h, p, n in SSD_BWD_PATH:
+        x, dt, a_log, B, C = _ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
+                                         True)
+        A = decay_rates(a_log)
+        got = ssd_scan_kernel(x, dt, A, B, C)
+        with planted("ssd_scan"):
+            ctrl = ssd_scan_kernel(x, dt, A, B, C)
+        ref = ssd_scan_chunked(x, dt, a_log, B, C, SSD_MODEL_CHUNK)
+        torch.cuda.synchronize()
+        scale = float(ref[0].abs().max())
+        out[f"b{b} s{s} h{h} p{p} n{n}"] = {
+            "max_rel": max(float((g - r).abs().max())
+                           for g, r in zip(got, ref)) / scale,
+            "norm_rel": _norm_rel(got, ref),
+            "planted_max_rel": max(float((g - r).abs().max())
+                                   for g, r in zip(ctrl, ref)) / scale,
+            "planted_norm_rel": _norm_rel(ctrl, ref)}
+    print("  ssd_scan bf16 forward vs the chunked plain version in bf16 "
+          "(max |kernel - plain| / largest |y|, and norm-wise; the planted "
+          "unrounded kernel beside it): " + json.dumps(out))
+    for what, r in out.items():
+        check(r["max_rel"] <= SSD_BF16_FWD_TOL
+              and r["norm_rel"] <= SSD_BF16_NORM_TOL,
+              f"ssd_scan bf16 {what}: {r['max_rel']:.3e} of the largest |y| "
+              f"(limit {SSD_BF16_FWD_TOL:g}), {r['norm_rel']:.3e} norm-wise "
+              f"(limit {SSD_BF16_NORM_TOL:g}) from the chunked version")
+        check(r["planted_max_rel"] > SSD_BF16_FWD_TOL
+              and r["planted_norm_rel"] > SSD_BF16_NORM_TOL,
+              f"ssd_scan bf16 {what}: the planted unrounded kernel reads "
+              f"{r['planted_max_rel']:.3e} / {r['planted_norm_rel']:.3e}, "
+              f"within a limit: it would not catch it")
+    return out
+
+
+def phase_ssd_bwd() -> dict:
+    """The SSD scan's backward kernel against autograd of the chunked plain
+    version and the float64 recurrence (:func:`ssd_bwd_row`) at the
+    training path's shapes (SSD_BWD_PATH) in fp32 and bf16, timed there in
+    fp32, and over SSD_BWD_SWEEP in fp32 (bf16 only where one chunk makes
+    the rounding points the plain version's); then the repaired bf16
+    forward (:func:`ssd_forward_bf16`)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape in SSD_BWD_PATH:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(ssd_bwd_row(gen, *shape, dtype, True, False, False,
+                                    timed=dtype == torch.float32))
+    for *shape, with_init in SSD_BWD_SWEEP:
+        dtypes = (torch.float32, torch.bfloat16) if shape[1] <= 64 \
+            else (torch.float32,)
+        for dtype in dtypes:
+            rows.append(ssd_bwd_row(gen, *shape, dtype, False, with_init,
+                                    True))
+    fwd = ssd_forward_bf16(torch.Generator(device="cuda").manual_seed(7))
+    timed = [r for r in rows if "ms" in r]
+    main = timed[0]
+    return {**{k: main[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_fp32_ms", "bytes_bound_ms", "library_ms", "library",
+                "fwd_bwd_ms", "plain_fwd_bwd_ms", "vs_float64",
+                "launch_us")},
+            "max_abs_err": max(max(r["rel_err"].values()) for r in rows
+                               if "float32" in r["shape"]),
+            "max_rel_err_bf16": max(max(r["rel_err"].values()) for r in rows
+                                    if "bfloat16" in r["shape"]),
+            "max_norm_rel_bf16": max(max(r["norm_rel"].values())
+                                     for r in rows if "norm_rel" in r),
+            "min_planted_norm_rel_bf16": min(
+                max(r["planted_norm_rel"].values())
+                for r in rows if "norm_rel" in r),
+            "forward_bf16_rel_err": fwd, "timed": timed, "rows": rows}
 
 
 # -------------------------------------------------------------- 3. path ----
@@ -1572,15 +2077,21 @@ def phase_presets() -> int:
     return n
 
 
-def _records_agree(spec, rtol: float = CARD_VS_CPU_RTOL) -> float:
-    """One spec through ``run_experiment`` on the card and on the CPU: the
+def _records_agree(spec, rtol: float = CARD_VS_CPU_RTOL,
+                   card: dict | None = None, cpu: dict | None = None) -> float:
+    """One spec through ``run_experiment`` on the card and on the CPU (or
+    ``card`` and ``cpu``, those records' results made elsewhere): the
     records must agree on every metered field (``scaling_timeline``
     included) and on the losses to ``rtol``.  Returns the largest
     relative loss gap."""
     from repro_torch.experiments import run_experiment
     worst = 0.0
-    card = run_experiment(spec, device="cuda").result
-    cpu = run_experiment(spec, device="cpu").result
+    if card is None:
+        card = run_experiment(spec, device="cuda").result
+    if cpu is None:
+        cpu = run_experiment(spec, device="cpu").result
+    else:                                # as JSON gives it back
+        card = json.loads(json.dumps(card))
     for key, val in cpu.items():
         if key not in ("history", "final_loss"):
             check(card[key] == val, f"{spec.name}: {key} differs "
@@ -1774,7 +2285,7 @@ def _path_launches() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.ssd_scan import kernel as sk
     return {"flash_attention": fk.launches["flash_attention"], **dk.launches,
-            **sk.launches}
+            "ssd_scan": sk.launches["ssd_scan"]}
 
 
 def _reset_path_launches() -> None:
@@ -2148,14 +2659,33 @@ def phase_serve_ssm() -> dict:
 def _train_launches() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quant8 import kernel as qk
-    return {**fk.launches, "quantize8_ef": qk.launches["quantize8_ef"]}
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    return {**fk.launches, **sk.launches,
+            "quantize8_ef": qk.launches["quantize8_ef"]}
 
 
 def _reset_train_launches() -> None:
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.quant8 import kernel as qk
+    from repro_torch.kernels.ssd_scan import kernel as sk
     fk.reset_launches()
     qk.reset_launches()
+    sk.reset_launches()
+
+
+def _want_train_launches(cfg, grads: int, evals: int, syncs: int = 0) -> dict:
+    """Exact training launches of ``grads`` gradients and ``evals``
+    evaluations: the forward kernels per attention (shared-block use) or
+    Mamba2 layer per forward, their backward kernels per gradient, and
+    quantize8_ef per int8 merge of a worker's update."""
+    layers = cfg.num_layers
+    attn = {"dense": layers, "ssm": 0,
+            "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
+    mamba = 0 if cfg.family == "dense" else layers
+    return {"flash_attention": attn * (grads + evals),
+            "flash_attention_bwd": attn * grads,
+            "ssd_scan": mamba * (grads + evals), "ssd_scan_bwd": mamba * grads,
+            "quantize8_ef": syncs}
 
 
 def _add(totals: dict, more: dict) -> None:
@@ -2163,96 +2693,347 @@ def _add(totals: dict, more: dict) -> None:
         totals[k] = totals.get(k, 0) + v
 
 
-def _smollm_full(dtype: str, device: str):
-    """Full-width smollm-360m as an ``ArchWorkload`` whose config's dtype
-    is ``dtype`` (the parameter layout does not depend on the dtype)."""
-    from repro_torch.core.workloads import ArchWorkload
+def _with_dtype(wl, dtype: str):
+    """``wl`` with its config's dtype replaced (the parameter layout does
+    not depend on the dtype)."""
     from repro_torch.models.common import DTYPES
-    wl = ArchWorkload("smollm_360m", reduced=False, device=device)
     wl.cfg = wl.cfg.replace(dtype=dtype)
     wl.arch = wl.arch.replace(model=wl.cfg)
     wl.dtype = DTYPES[dtype]
     return wl
 
 
-def _full_grads(dtype: str, params32, totals: dict) -> dict:
-    """3g (b): one TokenStream batch through the full-width model's loss
-    and gradient on the card and on the CPU, from ``params32`` (the seeded
-    fp32 init, cast to ``dtype`` as the init casts each leaf)."""
-    import numpy as np
+def _arch_full(name: str, dtype: str):
+    """Full-width ``name`` as an ``ArchWorkload`` in ``dtype``."""
+    from repro_torch.core.workloads import ArchWorkload
+    return _with_dtype(ArchWorkload(name, reduced=False), dtype)
+
+
+def _full_batch(wl) -> dict:
+    """FULL_BATCH's TokenStream batch on the CPU."""
     import torch
     from repro_torch.data.tokens import TokenStream
-    wl = _smollm_full(dtype, "cuda")
     b = TokenStream(wl.cfg.vocab_size, seed=0).batch(FULL_BATCH["b"],
                                                      FULL_BATCH["s"])
-    batch = {"x": torch.from_numpy(b["tokens"]),
-             "y": torch.from_numpy(b["labels"])}
-    params = params32.to(wl.dtype)
-    card_batch = {k: v.cuda() for k, v in batch.items()}
+    return {"x": torch.from_numpy(b["tokens"]),
+            "y": torch.from_numpy(b["labels"])}
+
+
+def _card_grad(name: str, dtype: str, params32) -> dict:
+    """One FULL_BATCH batch through the full-width model's loss and
+    gradient on the card from ``params32`` (the seeded fp32 init, cast to
+    ``dtype`` as the init casts each leaf), launches exact, and a second
+    call compared leaf by leaf (its launches are not the path's), with
+    every SSD backward of it read in situ (:class:`_ssd_in_situ`).  The
+    gradient comes back on the CPU."""
+    import torch
+    wl = _arch_full(name, dtype)
+    card_batch = {k: v.cuda() for k, v in _full_batch(wl).items()}
+    params = params32.to(wl.dtype).cuda()
     _reset_train_launches()
     t0 = time.time()
-    loss_c, g_c = wl.grad(params.cuda(), card_batch)
+    loss_c, g_c = wl.grad(params, card_batch)
     torch.cuda.synchronize()
     card_s = time.time() - t0
     launches = _train_launches()
-    _add(totals, launches)
-    # is the card's gradient repeatable?  A second call, compared leaf by
-    # leaf (its launches are not the path's)
-    loss_r, g_r = wl.grad(params.cuda(), card_batch)
+    want = _want_train_launches(wl.cfg, grads=1, evals=0)
+    check(launches == want, f"full {name} {dtype}: launches {launches}, "
+                            f"want {want}")
+    with _ssd_in_situ() as situ:          # the second call, held in situ
+        loss_r, g_r = wl.grad(params, card_batch)
     repeat = {"loss_bitwise": _bits_equal(loss_c, loss_r),
               "grad_bitwise": _bits_equal(g_c, g_r),
               "max_abs_diff": float((g_c.float() - g_r.float()).abs().max())}
     repeat["leaves_differ"] = [
-        "/".join(path) for path, a, b2 in zip(
+        "/".join(path) for (path, _), a, b2 in zip(
             wl.layout, *(wl._views(g)[1] for g in (g_c, g_r)))
         if not _bits_equal(a, b2)]
-    del g_r
-    L = wl.cfg.num_layers
-    check(launches["flash_attention"] == L
-          and launches["flash_attention_bwd"] == L,
-          f"full {dtype}: {launches}, want {L} forward and {L} backward "
-          f"flash launches")
-    t0 = time.time()
-    loss_h, g_h = wl.grad(params, batch)
-    cpu_s = time.time() - t0
-    g_c = g_c.float().cpu().numpy()
-    g_h = g_h.float().numpy()
-    loss_c, loss_h = float(loss_c), float(loss_h)
-    loss_tol = FULL_LOSS_RTOL if dtype == "float32" else FULL_BF16_LOSS_RTOL
-    grad_tol = FULL_FP32_GRAD_TOL if dtype == "float32" else \
-        FULL_BF16_GRAD_TOL
-    rel_loss = abs(loss_c - loss_h) / abs(loss_h)
-    check(np.isfinite(loss_c) and rel_loss <= loss_tol,
-          f"full {dtype}: card loss {loss_c!r} vs cpu {loss_h!r}")
-    leaves = {}
-    off = 0
-    for path, shape in wl.layout:
-        n = int(np.prod(shape))
-        c, h = g_c[off:off + n], g_h[off:off + n]
-        off += n
-        name = "/".join(path)
-        big = float(np.abs(h).max())
-        leaves[name] = float(np.abs(c - h).max()) / big if big else 0.0
-        check(np.isfinite(c).all() and leaves[name] <= grad_tol,
-              f"full {dtype} {name}: max |card - cpu| is {leaves[name]:.3e} "
-              f"of its largest |g| ({big:.3e})")
-        if path[-1] in ("wq", "wk", "wv"):
-            check(float(np.abs(c).max()) > 0.0,
-                  f"full {dtype} {name}: zero gradient on the card")
-    out = {"dtype": dtype, "n_params": wl.n_params, "loss_card": loss_c,
-           "loss_cpu": loss_h, "rel_loss": rel_loss,
-           "worst_leaf": max(leaves, key=leaves.get),
-           "worst_leaf_rel": max(leaves.values()), "leaf_rel": leaves,
-           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
-           "card_repeat": repeat}
-    print(f"  full width {dtype}: {wl.n_params} parameters, loss card "
-          f"{loss_c!r} cpu {loss_h!r} (rel {rel_loss:.3e}); worst leaf "
-          f"{out['worst_leaf']} {out['worst_leaf_rel']:.3e} of its largest "
-          f"|g|; card {card_s:.2f} s, cpu {cpu_s:.2f} s; launches "
-          f"{launches}; a second card gradient: " + json.dumps(repeat))
-    del params, g_c, g_h
+    out = {"name": name, "dtype": dtype, "loss": float(loss_c),
+           "grad": g_c.float().cpu(), "card_s": card_s,
+           "launches": launches, "card_repeat": repeat,
+           "in_situ": situ.worst(), "in_situ_calls": len(situ.rows)}
+    del params, g_c, g_r, card_batch
     torch.cuda.empty_cache()
     return out
+
+
+def _plain_ssd(x, dt, a_log, B, C, chunk, init_state=None):
+    """The chunked plain SSD on any device, under autograd: the CPU's
+    algorithm, run on the card (3h's witnesses)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    return ssd_scan_chunked(x, dt, a_log, B, C, chunk, init_state)
+
+
+class _ssd_as:
+    """The model's SSD scan replaced by ``fn`` inside the block."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self.kept, ssm.ssd_scan = ssm.ssd_scan, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm.ssd_scan = self.kept
+
+
+SSD_IN_SITU_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+class _ssd_in_situ:
+    """Inside the block every backward of ``SSDScan`` (the kernel's, or a
+    planted one installed before the block) is held on its own inputs and
+    cotangents against autograd of the chunked plain version: ``rows``
+    gets, per call, each gradient's norm-wise gap and its largest gap
+    relative to the largest plain |g|.  One chunk only (the training
+    path's s 64): the saved tensors hold the initial state there."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd_scan import ops as so
+        self.kept = kept = so.SSDScan.backward
+        rows = self.rows
+
+        def backward(ctx, dy, dstate):
+            got = kept(ctx, dy, dstate)
+            rows.append(_in_situ_row(*ctx.saved_tensors, dy, dstate, got))
+            return got
+        so.SSDScan.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssd_scan import ops as so
+        so.SSDScan.backward = staticmethod(self.kept)
+
+    def worst(self) -> dict:
+        """Per gradient, the largest norm-wise and max gap over the calls."""
+        return {k: {"norm_rel": max(r["norm_rel"][k] for r in self.rows),
+                    "max_rel": max(r["max_rel"][k] for r in self.rows)}
+                for k in SSD_IN_SITU_NAMES} if self.rows else {}
+
+
+def _in_situ_row(x, dt, A, B, C, init, dy, dstate, got) -> dict:
+    """:class:`_ssd_in_situ`'s reading of one call."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import n_chunks
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    check(n_chunks(x.shape[1]) == 1, "in-situ SSD check: several chunks")
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, dt, torch.log(-A), B, C)]
+        y, state = ssd_scan_chunked(*leaves, SSD_MODEL_CHUNK, init)
+        outs = [y] + ([] if dstate is None else [state])
+        cots = [torch.zeros_like(y) if dy is None else dy] + (
+            [] if dstate is None else [dstate])
+        dx, ddt, da_log, dB, dC = torch.autograd.grad(outs, leaves, cots)
+    plain = (dx, ddt, da_log / A, dB, dC)
+    row = {"norm_rel": {}, "max_rel": {}}
+    for name, g, r in zip(SSD_IN_SITU_NAMES, got[:5], plain):
+        g, r = g.double(), r.double()
+        big = float(r.abs().max())
+        row["norm_rel"][name] = float((g - r).norm() / r.norm()) if big \
+            else 0.0
+        row["max_rel"][name] = float((g - r).abs().max()) / big if big \
+            else 0.0
+    return row
+
+
+def _card_grad_plain(name: str, dtype: str, params32) -> dict:
+    """:func:`_card_grad`'s gradient with the chunked plain SSD in place
+    of the kernels (the witness of how far two correct implementations
+    part on the card)."""
+    import torch
+    wl = _arch_full(name, dtype)
+    with _ssd_as(_plain_ssd):
+        loss, g = wl.grad(params32.to(wl.dtype).cuda(),
+                          {k: v.cuda() for k, v in _full_batch(wl).items()})
+    out = {"loss": float(loss), "grad": g.float().cpu()}
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssd_float64(x, dt, a_log, B, C, chunk, init_state=None):
+    """The SSD scan in float64 end to end, as one chunk of s (exact
+    arithmetic needs no chunks), handing fp32 (y, state) back to the
+    model: 3h (b)'s witness of the exact fp32-model gradient."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ref import segsum
+    x, dt, B, C = (t.double() for t in (x, dt, B, C))
+    da = dt * -torch.exp(a_log.double())                   # (b, s, h)
+    xdt = x * dt[..., None]
+    cum = torch.cumsum(da, 1)
+    L = torch.exp(segsum(da.transpose(1, 2)))              # (b, h, l, m)
+    y = torch.einsum("bln,bmn,bhlm,bmhp->blhp", C, B, L, xdt)
+    state = torch.einsum("bsh,bsn,bshp->bhpn", torch.exp(cum[:, -1:] - cum),
+                         B, xdt)
+    if init_state is not None:
+        init = init_state.double()
+        y = y + torch.einsum("bln,bhpn,blh->blhp", C, init, torch.exp(cum))
+        state = state + init * torch.exp(cum[:, -1])[..., None, None]
+    return y.float(), state.float()
+
+
+def _cpu_grad(name: str, dtype: str, params32, ssd_float64=False) -> dict:
+    """The same batch and parameters as :func:`_card_grad` through the
+    CPU; with ``ssd_float64`` the model's SSD scan in float64
+    (:func:`_ssd_float64`)."""
+    from repro_torch.models import ssm
+    wl = _arch_full(name, dtype)
+    with _ssd_as(_ssd_float64 if ssd_float64 else ssm.ssd_scan):
+        t0 = time.time()
+        loss_h, g_h = wl.grad(params32.to(wl.dtype), _full_batch(wl))
+    return {"loss": float(loss_h), "grad": g_h, "cpu_s": time.time() - t0}
+
+
+def _leaf_gaps(wl, a, ref, norm: bool = False) -> tuple:
+    """max |a - ref| over each leaf of two flat gradients (CPU tensors,
+    compared on the card), relative to the leaf's largest |ref| (by layer
+    too), or with ``norm`` ||a - ref|| / ||ref|| over the leaf (by layer:
+    over the layer's slice) -> (by leaf, by layer of each stacked leaf)."""
+    import torch
+    a, ref = a.cuda().float(), ref.cuda().float()
+    leaves, layers = {}, {}
+    for (path, _), c, h in zip(wl.layout, wl._views(a)[1],
+                               wl._views(ref)[1]):
+        leaf = "/".join(path)
+        if norm:
+            c, h = c.double(), h.double()
+            gap, big = (c - h).norm(), h.norm()
+        else:
+            gap, big = (c - h).abs().max(), h.abs().max()
+        big = float(big)
+        leaves[leaf] = float(gap) / big if big else 0.0
+        if path[0] == "blocks" and c.dim() > 1:
+            d, r = (c - h).reshape(c.shape[0], -1), h.reshape(c.shape[0], -1)
+            per, bigs = ((d.norm(dim=1), r.norm(dim=1)) if norm
+                         else (d.abs().amax(1), [big] * len(d)))
+            layers[leaf] = [float(v) / float(w) if float(w) else 0.0
+                            for v, w in zip(per, bigs)]
+    del a, ref
+    torch.cuda.empty_cache()
+    return leaves, layers
+
+
+def _norm_spread(wl, a, ref) -> dict:
+    """||a - ref|| / ||ref|| over each leaf of two flat gradients: the
+    smallest and largest over the leaves, and over the stacked leaves'
+    last layer."""
+    leaves, layers = _leaf_gaps(wl, a, ref, norm=True)
+    last = [v[-1] for v in layers.values()]
+    return {"leaf_min": min(leaves.values()), "leaf_max": max(leaves.values()),
+            "last_layer_min": min(last), "last_layer_max": max(last)}
+
+
+def _spread_text(d: dict) -> str:
+    return (f"norm-wise {d['leaf_min']:.2e}-{d['leaf_max']:.2e} over the "
+            f"leaves ({d['last_layer_min']:.2e}-{d['last_layer_max']:.2e} in "
+            f"the last layer)")
+
+
+def _vs_cpu_grad(card: dict, cpu: dict, nonzero=(),
+                 grad_tol: float | None = None,
+                 hold_leaves: bool = True) -> dict:
+    """The card's gradient held against the CPU's: the loss within
+    FULL_LOSS_RTOL (fp32) or FULL_BF16_LOSS_RTOL, each leaf within
+    ``grad_tol`` (default FULL_FP32_GRAD_TOL or FULL_BF16_GRAD_TOL) of
+    that leaf's largest |g| on the CPU (read, not held, without
+    ``hold_leaves``: the bf16 gradients of the ssm and hybrid families,
+    see FULL_SSM_FP32_GRAD_TOL), the card's leaves named in ``nonzero``
+    (the last key of their path) not all zero, and every SSD backward of
+    the card's gradient held in situ (:class:`_ssd_in_situ`): fp32 within
+    SSD_BWD_TOL of the plain gradient's largest |g|, bf16 within
+    SSD_BF16_NORM_TOL norm-wise and SSD_BWD_TOL.  Witnesses, read beside
+    it where ``cpu`` holds them: ``"ssd64"``, the CPU's gradient with the
+    SSD scan in float64 (which side is nearer the exact one), and
+    ``"plain"``, the card's gradient through the chunked plain SSD (how
+    far two correct implementations part).  Every reading is printed
+    before any check."""
+    import torch
+    name, dtype = card["name"], card["dtype"]
+    wl = _arch_full(name, dtype)
+    loss_c, loss_h = card["loss"], cpu["loss"]
+    loss_tol = FULL_LOSS_RTOL if dtype == "float32" else FULL_BF16_LOSS_RTOL
+    if grad_tol is None:
+        grad_tol = FULL_FP32_GRAD_TOL if dtype == "float32" else \
+            FULL_BF16_GRAD_TOL
+    rel_loss = abs(loss_c - loss_h) / abs(loss_h)
+    leaves, layers = _leaf_gaps(wl, card["grad"], cpu["grad"])
+    spread = _norm_spread(wl, card["grad"], cpu["grad"])
+    worst = max(leaves, key=leaves.get)
+    over = sorted(k for k, v in leaves.items() if v > grad_tol)
+    out = {"name": name, "dtype": dtype, "n_params": wl.n_params,
+           "loss_card": loss_c, "loss_cpu": loss_h, "rel_loss": rel_loss,
+           "worst_leaf": worst, "worst_leaf_rel": leaves[worst],
+           "by_layer": layers.get(worst), "leaf_rel": leaves,
+           "norm_spread": spread,
+           "grad_tol": grad_tol if hold_leaves else None,
+           "leaves_over_grad_tol": over, "card_s": card["card_s"],
+           "cpu_s": cpu["cpu_s"], "launches": card["launches"],
+           "card_repeat": card["card_repeat"], "in_situ": card["in_situ"],
+           "in_situ_calls": card["in_situ_calls"]}
+    shown = ""
+    for key, other, ref in (("ssd64", card, cpu.get("ssd64")),
+                            ("ssd64_cpu", cpu, cpu.get("ssd64")),
+                            ("plain", cpu.get("plain"), cpu),
+                            ("card_plain", card, cpu.get("plain"))):
+        if ref is None or other is None:
+            continue
+        gaps, by_layer = _leaf_gaps(wl, other["grad"], ref["grad"])
+        w = max(gaps, key=gaps.get)
+        out[f"witness_{key}"] = {"worst_leaf": w, "worst_leaf_rel": gaps[w],
+                                 "by_layer": by_layer.get(w),
+                                 "norm_spread": _norm_spread(
+                                     wl, other["grad"], ref["grad"]),
+                                 "rel_loss": abs(other["loss"] - ref["loss"])
+                                 / abs(ref["loss"])}
+        what = {"ssd64": "card vs the CPU with its SSD in float64",
+                "ssd64_cpu": "the CPU vs the CPU with its SSD in float64",
+                "plain": "the card with the plain SSD vs the CPU",
+                "card_plain": "the card vs the card with the plain SSD"}[key]
+        shown += (f"; {what}: worst leaf {w} {gaps[w]:.3e}, "
+                  + _spread_text(out[f"witness_{key}"]["norm_spread"]))
+    print(f"  full width {name} {dtype}: {wl.n_params} parameters, loss card "
+          f"{loss_c!r} cpu {loss_h!r} (rel {rel_loss:.3e}); worst leaf "
+          f"{worst} {leaves[worst]:.3e} of its largest |g| (by layer "
+          + (" ".join(f"{v:.1e}" for v in layers[worst])
+             if worst in layers else "-") + f"), {_spread_text(spread)}"
+          f"{shown}; SSD backward in situ "
+          f"({card['in_situ_calls']} calls) " + json.dumps(card["in_situ"])
+          + f"; card {card['card_s']:.2f} s, cpu {cpu['cpu_s']:.2f} s; "
+          f"launches {card['launches']}; a second card gradient: "
+          + json.dumps(card["card_repeat"]), flush=True)
+    check(torch.isfinite(card["grad"]).all() and rel_loss <= loss_tol,
+          f"full {name} {dtype}: card loss {loss_c!r} vs cpu {loss_h!r}")
+    if hold_leaves:
+        check(not over, f"full {name} {dtype}: leaves {over} lie beyond "
+                        f"{grad_tol:g} of their largest |g| from the CPU's")
+    for grad, r in card["in_situ"].items():
+        ok = (r["max_rel"] <= SSD_BWD_TOL["float32"] if dtype == "float32"
+              else r["norm_rel"] <= SSD_BF16_NORM_TOL
+              and r["max_rel"] <= SSD_BWD_TOL["bfloat16"])
+        check(ok, f"full {name} {dtype}: the SSD backward's {grad} in situ "
+                  f"{r} from the plain gradient on the same inputs")
+    for (path, _), g in zip(wl.layout, wl._views(card["grad"])[1]):
+        if path[-1] in nonzero:
+            check(float(g.abs().max()) > 0.0, f"full {name} {dtype} "
+                                              f"{'/'.join(path)}: zero "
+                                              f"gradient on the card")
+    return out
+
+
+def _full_grads(dtype: str, params32, totals: dict) -> dict:
+    """3g (b): one TokenStream batch through full-width smollm-360m's loss
+    and gradient on the card and on the CPU, from ``params32`` (the seeded
+    fp32 init, cast to ``dtype`` as the init casts each leaf)."""
+    card = _card_grad("smollm_360m", dtype, params32)
+    _add(totals, card["launches"])
+    return _vs_cpu_grad(card, _cpu_grad("smollm_360m", dtype, params32),
+                        nonzero=("wq", "wk", "wv"))
 
 
 def _counted(wl) -> dict:
@@ -2272,62 +3053,102 @@ def _counted(wl) -> dict:
     return n
 
 
-def _full_trial(totals: dict) -> dict:
-    """3g (c): FULL_TRIAL at full width in bf16 on the card and the CPU:
-    metered fields equal, losses within FULL_TRIAL_RTOL, and the
-    launches the spec implies: flash forward per layer per gradient and
-    per evaluation, backward per layer per gradient (one gradient per
-    worker per round), quantize8_ef per worker per sync (local:1 syncs
-    every round)."""
-    import torch
+def _trial_spec(model: str | None = None):
+    """FULL_TRIAL cut by FULL_TRIAL_OVER, training ``model`` if given."""
     from repro_torch.experiments import get_preset
     preset, name = FULL_TRIAL
     spec = next(s for s in get_preset(preset).build(True) if s.name == name)
     spec = spec.with_(**FULL_TRIAL_OVER)
-    runs = {}
-    for device in ("cuda", "cpu"):
-        wl, algo, tr, va = spec.build_workload(device)
-        n = _counted(wl)
-        _reset_train_launches()
-        t0 = time.time()
-        res = spec.build_runtime().train(wl, algo, tr, va,
-                                         max_epochs=spec.max_epochs,
-                                         device=device)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        runs[device] = (res, n, _train_launches(), time.time() - t0)
-        check(not res.error, f"full trial on {device}: {res.error}")
-    (card, n, launches, card_s), (cpu, _n, _l, cpu_s) = \
-        runs["cuda"], runs["cpu"]
-    _add(totals, launches)
-    w, L = spec.fleet.workers, wl.cfg.num_layers
-    want = {"flash_attention": L * (n["grad"] + n["eval"]),
-            "flash_attention_bwd": L * n["grad"],
-            "quantize8_ef": w * card.rounds}
-    check(n["grad"] == w * card.rounds and n["eval"] == len(card.history),
-          f"full trial: {n} for {card.rounds} rounds of {w} workers")
-    check(launches == want, f"full trial launches {launches}, want {want}")
-    check(_metered(card) == _metered(cpu),
+    return spec.with_(model=model) if model else spec
+
+
+def _trial_run(spec, device: str, dtype: str | None = None) -> dict:
+    """One run of ``spec`` on ``device`` (its model in ``dtype`` if given):
+    its metered fields (as JSON gives them back), losses, gradient and
+    evaluation counts, launches and seconds."""
+    import torch
+    wl, algo, tr, va = spec.build_workload()
+    if dtype:
+        _with_dtype(wl, dtype)
+    n = _counted(wl)
+    _reset_train_launches()
+    t0 = time.time()
+    res = spec.build_runtime().train(wl, algo, tr, va,
+                                     max_epochs=spec.max_epochs,
+                                     device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    check(not res.error, f"{spec.name} ({spec.model}) on {device}: "
+                         f"{res.error}")
+    return {"metered": json.loads(json.dumps(_metered(res))),
+            "losses": _history_losses(res), "rounds": res.rounds,
+            "counts": n, "launches": _train_launches(),
+            "seconds": time.time() - t0, "cfg": wl.cfg}
+
+
+def _full_trial(totals: dict, model: str | None = None, cpu: dict | None = None,
+                control_lr: float | None = None,
+                dtype: str | None = None) -> dict:
+    """3g (c), 3h (c): FULL_TRIAL at full width in bf16 (training ``model``
+    if given) on the card and the CPU (``cpu``: the CPU run, made
+    elsewhere): metered fields equal, losses within FULL_TRIAL_RTOL, and
+    the launches the spec implies: the forward kernels per layer per
+    gradient and per evaluation, the backward kernels per layer per
+    gradient (one gradient per worker per round), quantize8_ef per worker
+    per sync (local:1 syncs every round).  Then a second card run, compared
+    (recorded), or with ``control_lr`` a card run at that multiple of the
+    learning rate, which must miss FULL_TRIAL_RTOL.  ``dtype`` replaces
+    the model's."""
+    import torch
+    spec = _trial_spec(model)
+    card = _trial_run(spec, "cuda", dtype)
+    if cpu is None:
+        cpu = _trial_run(spec, "cpu", dtype)
+    _add(totals, card["launches"])
+    n, w = card["counts"], spec.fleet.workers
+    want = _want_train_launches(card["cfg"], grads=n["grad"], evals=n["eval"],
+                                syncs=w * card["rounds"])
+    check(n["grad"] == w * card["rounds"]
+          and n["eval"] == len(card["losses"]),
+          f"full trial: {n} for {card['rounds']} rounds of {w} workers")
+    check(card["launches"] == want,
+          f"full trial launches {card['launches']}, want {want}")
+    check(card["metered"] == cpu["metered"],
           "full trial: metered fields differ between the card and the CPU")
-    card_l, cpu_l = _history_losses(card), _history_losses(cpu)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    card_l, cpu_l = card["losses"], cpu["losses"]
+
+    def gap(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_l))
+    rel = gap(card_l)
     check(rel <= FULL_TRIAL_RTOL,
           f"full trial: card losses {card_l} vs cpu {cpu_l}")
-    # is the card's training repeatable?  A second card run (its launches
-    # are not the path's)
-    wl, algo, tr, va = spec.build_workload("cuda")
-    again = _history_losses(spec.build_runtime().train(
-        wl, algo, tr, va, max_epochs=spec.max_epochs, device="cuda"))
-    out = {"spec": spec.name, "over": FULL_TRIAL_OVER, "rounds": card.rounds,
-           "grads": n["grad"], "evals": n["eval"], "launches": launches,
-           "losses_card": card_l, "losses_cpu": cpu_l, "rel_loss": rel,
-           "card_repeat_equal": again == card_l, "losses_card_again": again,
-           "card_s": card_s, "cpu_s": cpu_s}
-    print(f"  full-width trial {spec.name} {FULL_TRIAL_OVER}: {card.rounds} "
-          f"rounds, {n['grad']} gradients, launches {launches}; losses card "
-          f"{card_l} cpu {cpu_l} (rel {rel:.3e}); a second card run "
-          f"{'repeats them' if again == card_l else 'reads ' + str(again)}; "
-          f"card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    out = {"spec": spec.name, "model": spec.model, "dtype": card["cfg"].dtype,
+           "over": FULL_TRIAL_OVER,
+           "rounds": card["rounds"], "grads": n["grad"], "evals": n["eval"],
+           "launches": card["launches"], "losses_card": card_l,
+           "losses_cpu": cpu_l, "rel_loss": rel, "card_s": card["seconds"],
+           "cpu_s": cpu["seconds"]}
+    if control_lr is None:
+        # is the card's training repeatable?  A second card run (its
+        # launches are not the path's)
+        again = _trial_run(spec, "cuda")["losses"]
+        out.update(card_repeat_equal=again == card_l, losses_card_again=again)
+        seen = ("repeats them" if again == card_l else f"reads {again}")
+    else:
+        ctrl = spec.with_(algo_args={**spec.algo_args,
+                                     "lr": spec.algo_args["lr"] * control_lr})
+        out["control_rel_loss"] = ctrl_gap = gap(
+            _trial_run(ctrl, "cuda", dtype)["losses"])
+        check(ctrl_gap > FULL_TRIAL_RTOL,
+              f"full trial control (lr x{control_lr}) within "
+              f"{FULL_TRIAL_RTOL:g} of the CPU: the limit would not catch it")
+        seen = f"a control at lr x{control_lr} reads {ctrl_gap:.3e}"
+    print(f"  full-width trial {spec.name} ({spec.model}, {out['dtype']}) "
+          f"{FULL_TRIAL_OVER}: "
+          f"{card['rounds']} rounds, {n['grad']} gradients, launches "
+          f"{card['launches']}; losses card {card_l} cpu {cpu_l} (rel "
+          f"{rel:.3e}); {seen}; card {card['seconds']:.2f} s, cpu "
+          f"{cpu['seconds']:.2f} s", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -2381,13 +3202,14 @@ def _check_serve_grid(text: str) -> dict:
     return rows
 
 
-def phase_train() -> dict:
+def phase_train(helper: "CpuSide") -> dict:
     """3g: (a) every trial of the two presets that train smollm-360m
     (quick: reduced, bf16) on the card and the CPU, records compared within
     ARCH_CARD_VS_CPU_RTOL, and a control with the learning rate x
     ARCH_CONTROL_LR that must miss it; (b) full-width gradients card vs
     CPU in fp32 and bf16; (c) one full-width bf16 trial with exact launch
-    counts; (d) the serving simulator's frontier on the card, equal to the
+    counts (its CPU run made by 3h's helper process, ``helper``); (d) the
+    serving simulator's frontier on the card, equal to the
     CPU's text and holding its invariants.  Returns the training launches
     (they join the kernels line) and each part's numbers and seconds."""
     import torch
@@ -2424,14 +3246,14 @@ def phase_train() -> dict:
                       "control_rel_loss": ctrl_gap}
     out["seconds"]["a"] = time.time() - t0
     t0 = time.time()
-    params32 = _smollm_full("float32", "cuda").init(
+    params32 = _arch_full("smollm_360m", "float32").init(
         torch.Generator().manual_seed(0))
     out["full"] = [_full_grads(dtype, params32, totals)
                    for dtype in ("float32", "bfloat16")]
     del params32
     out["seconds"]["b"] = time.time() - t0
     t0 = time.time()
-    out["trial"] = _full_trial(totals)
+    out["trial"] = _full_trial(totals, cpu=helper.smollm_trial())
     out["seconds"]["c"] = time.time() - t0
     t0 = time.time()
     card_text = _serve_grid("cuda")
@@ -2447,6 +3269,558 @@ def phase_train() -> dict:
               f"{name} never launched on the training path")
     print("  3g seconds: " + json.dumps(
         {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+# ------------------------------- 3h. train mamba2-370m and zamba2-2.7b ---
+
+#: 3h: the ssm and hybrid families, trained through 3g's checks at 3g's
+#: constants
+SSM_TRAIN_MODELS = ("mamba2_370m", "zamba2_2_7b")
+#: 3h (c)'s control: the full-width mamba2 trial at this multiple of the
+#: learning rate must miss FULL_TRIAL_RTOL
+FULL_TRIAL_CONTROL_LR = 1.5
+#: the helper process's CPU threads, of the host's (phases 2-3g run
+#: beside it)
+CPU_SIDE_THREADS = 4
+CPU_SIDE_DIR = ROOT / "build" / "cpu_side"
+#: 3h (b)'s control: a fault planted in the SSD backward's ddt, which the
+#: fp32 check and the in-situ checks (fp32 and bf16) must miss by at
+#: least SSD_CONTROL_MARGIN x their limits
+SSD_PLANTED_FAULT = 1.01
+SSD_CONTROL_MARGIN = 5
+#: 3h (b): full-width mamba2-370m and zamba2-2.7b, one batch, fp32, card
+#: vs CPU, each leaf relative to its largest |g|.  FULL_FP32_GRAD_TOL
+#: (2e-5) lies inside these models' own rounding noise: an H100 read
+#: 2.83e-5 (mamba2, blocks/mixer/conv_x, layer 0; 3e-7 at layer 47) and
+#: 2.25e-5 (zamba2); the CPU against itself with one intra-op thread read
+#: 1.66e-5, the card through the chunked plain SSD against the CPU 2.08e-5,
+#: and against the CPU with its SSD in float64 the card read 2.66e-5 and
+#: the CPU 1.17e-5 (``grad_witnesses``: the card's extra error is its
+#: forward kernel's fp32 cumsum and 3xTF32 sums).  A ddt x1.01
+#: fault planted in the SSD backward reads 1.05e-2, 105x this limit.  In
+#: bf16 no leaf limit can do both: every leaf, in every layer, of the
+#: card's gradient parts from the CPU's by 4.8-11% norm-wise (4-19% in
+#: the last layer), and so does the card's through the plain SSD (4.8-12%)
+#: and the card's through the kernels from it (3.5-8.5%), while the
+#: planted fault moves the card's own gradient by at most 2.8% (1.1% in
+#: the last layer; an H100, mamba2 and zamba2): one-ulp flips of bf16
+#: GEMMs and sums (``op_witness``: no op computes another function) grow
+#: through the layers.  So in bf16 the loss is held at
+#: FULL_BF16_LOSS_RTOL, every SSD backward in situ at SSD_BF16_NORM_TOL,
+#: every other op by ``op_witness``, and the leaves are read
+FULL_SSM_FP32_GRAD_TOL = 1e-4
+
+
+def _ssm_trials():
+    """3g (a)'s trials (the two presets that train a zoo model), each
+    training each of SSM_TRAIN_MODELS."""
+    from repro_torch.core.workloads import is_arch_workload
+    from repro_torch.experiments import PRESETS
+    base = [spec for preset in PRESETS.values()
+            for spec in preset.build(True) if is_arch_workload(spec.model)]
+    return [spec.with_(model=m) for m in SSM_TRAIN_MODELS for spec in base]
+
+
+def cpu_side(out: Path) -> None:
+    """3h's CPU sides, in a helper process (``python3 chip_smoke.py
+    --cpu-side PATH``) that runs beside phases 2-3g: first 3g (c)'s CPU
+    run (``PATH.3g``), then (b)'s full-width CPU gradients (both models,
+    fp32 and bf16; mamba2's fp32 also with the SSD in float64), the CPU
+    runs of (c)'s full-width fp32 trial and of (a)'s trials; then, once
+    the main process has reached 3h (``PATH.go``: phases 2-3g time
+    kernels and must have the card alone), (b)'s card gradients, each
+    with a second call read in situ, held against the CPU's
+    (:func:`_vs_cpu_grad`), mamba2's planted controls
+    (:func:`_planted_ddt_control`) and the op witness of both models
+    (:func:`op_witness`).  Writes PATH as JSON; a failed check exits
+    non-zero, as in the main process."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    from repro_torch.experiments import run_experiment
+    seconds = {}
+    t0 = time.time()
+    smollm = _trial_run(_trial_spec(), "cpu")
+    del smollm["cfg"]
+    tmp = out.with_suffix(".3g.tmp")
+    tmp.write_text(json.dumps(smollm))
+    os.replace(tmp, out.with_suffix(".3g"))      # readers never see half
+    seconds["3g_c"] = time.time() - t0
+    t0 = time.time()
+    inits = {name: _arch_full(name, "float32").init(
+        torch.Generator().manual_seed(0)) for name in SSM_TRAIN_MODELS}
+    full = [(name, dtype) for name in SSM_TRAIN_MODELS
+            for dtype in ("float32", "bfloat16")]
+    cpus = [_cpu_grad(name, dtype, inits[name]) for name, dtype in full]
+    # the witness of FULL_SSM_FP32_GRAD_TOL's first reading (mamba2)
+    cpus[0]["ssd64"] = _cpu_grad(*full[0], inits[full[0][0]],
+                                 ssd_float64=True)
+    seconds["b_cpu"] = time.time() - t0
+    t0 = time.time()
+    trial = _trial_run(_trial_spec(SSM_TRAIN_MODELS[0]), "cpu", "float32")
+    del trial["cfg"]
+    seconds["c"] = time.time() - t0
+    t0 = time.time()
+    records = {f"{spec.model}/{spec.name}": run_experiment(
+        spec, device="cpu").result for spec in _ssm_trials()}
+    seconds["a"] = time.time() - t0
+    t0 = time.time()
+    while not out.with_suffix(".go").exists():
+        time.sleep(0.5)
+    seconds["waited"] = time.time() - t0
+    t0 = time.time()
+    rows, controls = [], {}
+    for (name, dtype), cpu in zip(full, cpus):
+        card = _card_grad(name, dtype, inits[name])
+        fp32 = dtype == "float32"
+        if not fp32:
+            cpu["plain"] = _card_grad_plain(name, dtype, inits[name])
+        rows.append(_vs_cpu_grad(
+            card, cpu, nonzero=("a_log", "in_x", "in_B", "in_C", "in_dt"),
+            grad_tol=FULL_SSM_FP32_GRAD_TOL if fp32 else None,
+            hold_leaves=fp32))
+        if name == SSM_TRAIN_MODELS[0]:
+            controls[dtype] = _planted_ddt_control(name, dtype, inits[name],
+                                                   cpu, card["grad"])
+        cpu.clear()
+        card.clear()
+    seconds["b_card"] = time.time() - t0
+    t0 = time.time()
+    witness = {name: op_witness(name) for name in SSM_TRAIN_MODELS}
+    seconds["b_witness"] = time.time() - t0
+    out.write_text(json.dumps({"full": rows, "controls": controls,
+                               "witness": witness, "trial": trial,
+                               "records": records, "seconds": seconds}))
+
+
+def grad_witnesses(name: str = "mamba2_370m",
+                   dtypes=("float32", "bfloat16")) -> dict:
+    """Where 3h (b)'s card and CPU gradients part, and which side is
+    nearer the exact one.  Full-width ``name`` at FULL_BATCH from the
+    seeded init, its gradient on the card through the SSD kernels
+    ("card"), on the card through the chunked plain SSD under autograd
+    ("card_plain"), on the CPU ("cpu"), on the CPU with one intra-op
+    thread ("cpu_1thread": other sums), and in fp32 on the CPU with the
+    SSD in float64 ("cpu_ssd64").  Prints each pair's worst leaf (max gap
+    over the leaf relative to its largest |g| on the second side) and,
+    for the pair's worst leaf, the gap layer by layer (layer 0 first).
+    ``python3 -c 'import chip_smoke as c; c.phase_device();
+    c.grad_witnesses()'``."""
+    import torch
+    from repro_torch.models import ssm
+
+    def grad(dtype, device, ssd=None, threads=None):
+        wl = _arch_full(name, dtype)
+        batch = {k: v.to(device) for k, v in _full_batch(wl).items()}
+        n = torch.get_num_threads()
+        if threads:
+            torch.set_num_threads(threads)
+        try:
+            with _ssd_as(ssd or ssm.ssd_scan):
+                loss, g = wl.grad(params32.to(wl.dtype).to(device), batch)
+        finally:
+            torch.set_num_threads(n)
+        return float(loss), g.float().cpu()
+
+    params32 = _arch_full(name, "float32").init(
+        torch.Generator().manual_seed(0))
+    out = {}
+    for dtype in dtypes:
+        wl = _arch_full(name, dtype)
+        g = {"card": grad(dtype, "cuda"),
+             "card_plain": grad(dtype, "cuda", _plain_ssd),
+             "cpu": grad(dtype, "cpu"),
+             "cpu_1thread": grad(dtype, "cpu", threads=1)}
+        if dtype == "float32":
+            g["cpu_ssd64"] = grad(dtype, "cpu", _ssd_float64)
+        pairs = [("card", "cpu"), ("card_plain", "cpu"),
+                 ("card", "card_plain"), ("cpu_1thread", "cpu")]
+        if dtype == "float32":
+            pairs += [("card", "cpu_ssd64"), ("card_plain", "cpu_ssd64"),
+                      ("cpu", "cpu_ssd64")]
+        rows = {}
+        for a, b in pairs:
+            leaves, layers = _leaf_gaps(wl, g[a][1], g[b][1])
+            worst = max(leaves, key=leaves.get)
+            rows[f"{a} vs {b}"] = {
+                "rel_loss": abs(g[a][0] - g[b][0]) / abs(g[b][0]),
+                "worst_leaf": worst, "worst_leaf_rel": leaves[worst],
+                "by_layer": layers.get(worst)}
+            print(f"  {name} {dtype} {a} vs {b}: loss rel "
+                  f"{rows[f'{a} vs {b}']['rel_loss']:.3e}, worst leaf "
+                  f"{worst} {leaves[worst]:.3e}" + (
+                      "; by layer " + " ".join(
+                          f"{v:.1e}" for v in layers[worst])
+                      if worst in layers else ""), flush=True)
+        out[dtype] = rows
+    return out
+
+
+#: the op witness skips ops that make or view tensors, and ops on the flat
+#: parameter or gradient vector (over this many elements)
+WITNESS_SKIP = ("empty", "empty_like", "new_empty", "zeros", "zeros_like",
+                "new_zeros", "ones", "ones_like", "full", "scalar_tensor",
+                "view", "_unsafe_view", "reshape", "expand", "permute",
+                "transpose", "t", "squeeze", "unsqueeze", "slice", "select",
+                "split", "split_with_sizes", "as_strided", "detach", "alias",
+                "lift_fresh", "_to_copy", "copy", "clone", "unbind",
+                "_local_scalar_dense", "is_same_size")
+WITNESS_MAX_NUMEL = 50_000_000
+#: sums and products, whose rounding scales with the sum of the terms'
+#: magnitudes: their gaps are read relative to the same op on |inputs|
+WITNESS_SUMS = ("sum", "mean", "cumsum", "mm", "bmm", "addmm")
+#: 3h (b): given the same inputs, every op of the card's bf16 gradient
+#: must give the CPU's output within one rounding: a bf16 output differs
+#: in at most WITNESS_BF16_SHARE of its elements, by at most one bf16 ulp
+#: of its largest |element| (2^-7 of it); an fp32 output within
+#: WITNESS_FP32_REL of its largest |element| -- for fp32 sums and
+#: products (WITNESS_SUMS), each element within that share of its terms'
+#: magnitudes (the same op on |inputs|: a sum that cancels to near zero
+#: parts by 0.36 of the largest output in zamba2's attention backward).
+#: An H100 read at most 0.78% of a bf16 sum's elements (GEMMs 0.62%,
+#: within 5.1e-3 of the largest; every elementwise bf16 op equal bit for
+#: bit) and 6.0e-7 of an fp32 output or its terms (libm functions 1-4
+#: fp32 ulps).  Controls that must miss: silu as x *
+#: sigmoid(x) in bf16 (a second rounding: 28% of its elements), and the
+#: fp32 softplus of dt computed in bf16 (about 2^-9 of it)
+WITNESS_BF16_SHARE = 0.02
+WITNESS_BF16_REL = 2.0 ** -7
+WITNESS_FP32_REL = 1e-5
+#: the op witness runs each model cut to this depth (the ops of a layer
+#: are the same in every layer; zamba2's is one group of 6 Mamba2 layers
+#: and its shared attention block)
+WITNESS_LAYERS = {"mamba2_370m": 4, "zamba2_2_7b": 6}
+
+
+def _arch_cut(name: str, dtype: str, layers: int):
+    """Full-width ``name`` cut to ``layers`` layers, in ``dtype``."""
+    from repro_torch.core import workloads as w
+    kept = w._arch_config
+
+    def cut(n, reduced):
+        arch = kept(n, reduced)
+        return arch.replace(model=arch.model.replace(num_layers=layers))
+    w._arch_config = cut
+    try:
+        wl = w.ArchWorkload(name, reduced=False)
+    finally:
+        w._arch_config = kept
+    return _with_dtype(wl, dtype)
+
+
+def _witness_reading(out, host, terms=None) -> dict:
+    """One op's reading: the share of elements that differ and the
+    largest gap relative to the largest |CPU output|, or with ``terms``
+    (the op on |inputs|) relative to each element's terms."""
+    out, host = out.detach().cpu().double(), host.double()
+    diff = out != host
+    gap = (out - host).abs()
+    if terms is None:
+        big = float(host.abs().max()) or 1.0
+        max_rel = float(gap.max()) / big
+    else:
+        terms = terms.double().abs()
+        max_rel = float((gap / terms.where(terms > 0, 1.0)).max())
+    return {"share": float(diff.double().mean()), "max_rel": max_rel}
+
+
+def _witness_misses(dtype, r) -> bool:
+    import torch
+    if dtype == torch.bfloat16:
+        return r["share"] > WITNESS_BF16_SHARE or r["max_rel"] > \
+            WITNESS_BF16_REL
+    return r["max_rel"] > WITNESS_FP32_REL
+
+
+def op_witness(name: str = "mamba2_370m", dtype: str = "bfloat16",
+               device: str = "cuda") -> dict:
+    """Where the card's gradient parts from the CPU's, op by op.
+    ``name`` at full width cut to WITNESS_LAYERS, FULL_BATCH from the
+    seeded init, its loss and gradient on ``device`` with the SSD scan and
+    attention as their plain versions (every op an ATen op; the kernels
+    are held on their own: phase 2 and :class:`_ssd_in_situ`), each op
+    also run on the CPU on copies of its inputs: the share of elements
+    that differ and the largest gap relative to the largest |CPU output|,
+    per op and output dtype, held within WITNESS_BF16_SHARE /
+    WITNESS_BF16_REL (bf16) and WITNESS_FP32_REL (fp32); the first op (in
+    call order) whose output differs.  Two planted ops on the same inputs
+    must miss those limits: bf16 silu with a second rounding, and the
+    fp32 softplus of dt computed in bf16.  ``python3 -c 'import chip_smoke as c;
+    c.phase_device(); c.op_witness()'``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.models import attention
+
+    def cpu(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu()
+        if isinstance(t, torch.device) and t.type != "cpu":
+            return torch.device("cpu")
+        return t
+
+    def bf16_softplus(x, *rest):
+        return torch.ops.aten.softplus(x.bfloat16(), *rest).float()
+    #: op -> a planted variant, run once on the first call's inputs
+    planted = {("silu", torch.bfloat16): lambda x: x * torch.sigmoid(x),
+               ("softplus", torch.float32): bf16_softplus}
+    ops, order, controls = {}, [], {}
+
+    class Witness(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            op = func.overloadpacket.__name__
+            tensors = [t for t in tree_leaves((args, kwargs))
+                       if isinstance(t, torch.Tensor)]
+            skip = (op.rstrip("_") in WITNESS_SKIP or not tensors
+                    or any(t.numel() > WITNESS_MAX_NUMEL for t in tensors))
+            if not skip:
+                host_args, host_kwargs = tree_map(cpu, (args, kwargs))
+            out = func(*args, **kwargs)
+            if skip:
+                return out
+            host = func(*host_args, **host_kwargs)
+            terms = None
+            if op in WITNESS_SUMS:
+                abs_args, abs_kwargs = tree_map(
+                    lambda t: t.abs() if isinstance(t, torch.Tensor)
+                    and t.is_floating_point() else t,
+                    (host_args, host_kwargs))
+                terms = func(*abs_args, **abs_kwargs)
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            hosts = host if isinstance(host, (tuple, list)) else [host]
+            for o, h in zip(outs, hosts):
+                if not (isinstance(o, torch.Tensor) and o.numel()
+                        and o.dtype in (torch.bfloat16, torch.float32)):
+                    continue
+                key = f"{op} {o.dtype}".replace("torch.", "")
+                r = _witness_reading(o, h, terms if o.dtype == torch.float32
+                                     else None)
+                row = ops.setdefault(key, {"calls": 0, "share": 0.0,
+                                           "max_rel": 0.0})
+                row["calls"] += 1
+                row["share"] = max(row["share"], r["share"])
+                row["max_rel"] = max(row["max_rel"], r["max_rel"])
+                row["misses"] = row.get("misses", False) or \
+                    _witness_misses(o.dtype, r)
+                if r["share"] and len(order) < 8:
+                    order.append(f"{op} {tuple(o.shape)}")
+                fault = planted.pop((op, o.dtype), None)
+                if fault is not None:
+                    controls[key] = c = _witness_reading(
+                        fault(*args, **kwargs), h)
+                    c["misses"] = _witness_misses(o.dtype, c)
+            return out
+
+    wl = _arch_cut(name, dtype, WITNESS_LAYERS[name])
+    params = wl.init(torch.Generator().manual_seed(0)).to(device)
+    batch = {k: v.to(device) for k, v in _full_batch(wl).items()}
+    t0 = time.time()
+    kept_attn = attention.flash_attention
+    attention.flash_attention = flash_attention_plain
+    try:
+        with _ssd_as(_plain_ssd), Witness():
+            wl.grad(params, batch)
+    finally:
+        attention.flash_attention = kept_attn
+    out = {"name": name, "dtype": dtype, "layers": wl.cfg.num_layers,
+           "seconds": time.time() - t0, "first_differing": order,
+           "ops": ops, "controls": controls}
+    print(f"  op witness {name} ({wl.cfg.num_layers} layers) {dtype} "
+          f"({out['seconds']:.1f} s), ops given the same inputs on the card "
+          f"and the CPU (share of elements that differ, largest gap / "
+          f"largest |output|): " + json.dumps(
+              {k: [v["calls"], float(f"{v['share']:.3e}"),
+                   float(f"{v['max_rel']:.3e}")] for k, v in ops.items()
+               if v["share"]}) + f"; the rest equal bit for bit; first "
+          f"that differ {order[:4]}; planted controls "
+          + json.dumps(controls), flush=True)
+    over = sorted(k for k, v in ops.items() if v["misses"])
+    check(not over, f"op witness {name} {dtype}: {over} on the card part from "
+                    f"the CPU's on the same inputs by more than a rounding")
+    check(len(controls) == 2 and all(c["misses"] for c in controls.values()),
+          f"op witness {name}: a planted op stays within the limits: "
+          f"{controls}")
+    return out
+
+
+def _planted_ddt_control(name: str, dtype: str, params32, cpu: dict,
+                         sound_grad) -> dict:
+    """3h (b)'s control: the card's gradient with a planted fault, the SSD
+    backward's ddt x SSD_PLANTED_FAULT, against the CPU's by leaf, against
+    the card's sound gradient ``sound_grad`` norm-wise (how far the fault
+    moves it), and read in situ (:class:`_ssd_in_situ`)."""
+    from repro_torch.kernels.ssd_scan import ops as so
+    sound = so.SSDScan.backward
+
+    def planted_bwd(ctx, dy, dstate):
+        g = list(sound(ctx, dy, dstate))
+        g[1] = g[1] * SSD_PLANTED_FAULT
+        return tuple(g)
+    so.SSDScan.backward = staticmethod(planted_bwd)
+    try:
+        card = _card_grad(name, dtype, params32)
+    finally:
+        so.SSDScan.backward = staticmethod(sound)
+    wl = _arch_full(name, dtype)
+    leaves, _ = _leaf_gaps(wl, card["grad"], cpu["grad"])
+    worst = max(leaves, key=leaves.get)
+    out = {"fault": f"ddt x{SSD_PLANTED_FAULT}", "dtype": dtype,
+           "worst_leaf": worst, "worst_leaf_rel": leaves[worst],
+           "vs_sound": _norm_spread(wl, card["grad"], sound_grad),
+           "in_situ": card["in_situ"]}
+    print(f"  control {name} {dtype}, {out['fault']} planted in the SSD "
+          f"backward: worst leaf {worst} {leaves[worst]:.3e} from the CPU's;"
+          f" from the card's sound gradient {_spread_text(out['vs_sound'])};"
+          f" in situ {json.dumps(card['in_situ'])}", flush=True)
+    situ = card["in_situ"]["ddt"]
+    if dtype == "float32":
+        check(leaves[worst] > SSD_CONTROL_MARGIN * FULL_SSM_FP32_GRAD_TOL,
+              f"3h (b) control: {leaves[worst]:.3e} is not "
+              f"{SSD_CONTROL_MARGIN}x FULL_SSM_FP32_GRAD_TOL: the limit would "
+              f"not catch the fault")
+        check(situ["max_rel"] > SSD_CONTROL_MARGIN * SSD_BWD_TOL["float32"],
+              f"3h (b) control: ddt in situ {situ} is not "
+              f"{SSD_CONTROL_MARGIN}x SSD_BWD_TOL: the check would not "
+              f"catch the fault")
+    else:
+        check(situ["norm_rel"] > SSD_CONTROL_MARGIN * SSD_BF16_NORM_TOL,
+              f"3h (b) control: ddt in situ {situ} is not "
+              f"{SSD_CONTROL_MARGIN}x SSD_BF16_NORM_TOL: the check would not "
+              f"catch the fault")
+    return out
+
+
+class CpuSide:
+    """The helper process of :func:`cpu_side`: started after phase 1, let
+    onto the card at 3h (:meth:`go`), waited for there (:meth:`result`),
+    stopped by :meth:`stop` whatever happens."""
+
+    def __init__(self):
+        CPU_SIDE_DIR.mkdir(parents=True, exist_ok=True)
+        self.out = CPU_SIDE_DIR / f"cpu_side.{os.getpid()}.json"
+        for f in (self.out, self.out.with_suffix(".go"),
+                  self.out.with_suffix(".3g")):
+            f.unlink(missing_ok=True)
+        self.log = open(self.out.with_suffix(".log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-side",
+             str(self.out)], cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def _failed(self) -> str:
+        self.log.flush()
+        return self.out.with_suffix(".log").read_text()[-4000:]
+
+    def smollm_trial(self) -> dict:
+        """3g (c)'s CPU run, once the helper has written it."""
+        path = self.out.with_suffix(".3g")
+        while not path.exists():
+            check(self.proc.poll() is None,
+                  "3h's helper failed:\n" + self._failed())
+            time.sleep(0.5)
+        return json.loads(path.read_text())
+
+    def go(self) -> None:
+        """The card is the helper's to share from here on."""
+        self.out.with_suffix(".go").write_text("")
+
+    def result(self) -> dict:
+        t0 = time.time()
+        rc = self.proc.wait()
+        check(rc == 0, f"3h's helper exited {rc}:\n" + self._failed())
+        out = json.loads(self.out.read_text())
+        out["waited_s"] = time.time() - t0
+        self.log.flush()
+        print(self.out.with_suffix(".log").read_text().rstrip())
+        return out
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def phase_train_ssm(helper: CpuSide) -> dict:
+    """3h: (a) 3g (a)'s 9 trials with mamba2-370m and with zamba2-2.7b
+    (reduced, bf16) on the card against the helper's CPU records within
+    ARCH_CARD_VS_CPU_RTOL, and per model a control at learning rate x
+    ARCH_CONTROL_LR that must miss it; (b) the helper's full-width
+    gradients of both (fp32 and bf16, b 8, s 64; see
+    FULL_SSM_FP32_GRAD_TOL and :func:`_vs_cpu_grad`), a second card
+    gradient equal bit for bit, launches exact, its SSD backwards held in
+    situ, mamba2's planted ddt controls and both models' op witness (the
+    helper holds them); (c) FULL_TRIAL with mamba2-370m at full width in
+    fp32 against the helper's CPU run, within FULL_TRIAL_RTOL, a control
+    at learning rate x FULL_TRIAL_CONTROL_LR that must miss it, launches
+    exact.  Returns the training launches (they join the kernels line)
+    and each part's numbers and seconds."""
+    from repro_torch.experiments import run_experiment
+    totals: dict = {}
+    out = {"seconds": {}}
+    t0 = time.time()
+    helper.go()
+    trials = _ssm_trials()
+    check(len(trials) == 9 * len(SSM_TRAIN_MODELS),
+          f"3h (a): {len(trials)} trials")
+    cards = []
+    for spec in trials:                  # the card beside the helper's
+        _reset_train_launches()
+        cards.append(run_experiment(spec, device="cuda").result)
+        _add(totals, _train_launches())
+    firsts = {m: next(s for s in trials if s.model == m)
+              for m in SSM_TRAIN_MODELS}
+    ctrls = {m: [l for _, l in run_experiment(first.with_(algo_args={
+        **first.algo_args, "lr": first.algo_args["lr"] * ARCH_CONTROL_LR}),
+        device="cuda").result["history"]] for m, first in firsts.items()}
+    cpu = helper.result()
+    out["seconds"]["helper"] = cpu["seconds"]
+    out["seconds"]["waited"] = cpu["waited_s"]
+    worst, controls = {}, {}
+    for spec, card in zip(trials, cards):
+        gap = _records_agree(spec, ARCH_CARD_VS_CPU_RTOL, card,
+                             cpu["records"][f"{spec.model}/{spec.name}"])
+        worst[spec.model] = max(worst.get(spec.model, 0.0), gap)
+    for model, first in firsts.items():
+        cpu_l = [l for _, l in
+                 cpu["records"][f"{model}/{first.name}"]["history"]]
+        controls[model] = max(abs(a - b) / abs(b)
+                              for a, b in zip(ctrls[model], cpu_l))
+        check(controls[model] > ARCH_CARD_VS_CPU_RTOL,
+              f"3h control {model} (lr x{ARCH_CONTROL_LR}) within "
+              f"{ARCH_CARD_VS_CPU_RTOL:g} of the CPU: the tolerance would "
+              f"not catch it")
+    print(f"  (a) {len(trials)} trials: card records equal the CPU's "
+          f"(losses within {ARCH_CARD_VS_CPU_RTOL:g}; largest gap "
+          + json.dumps(worst) + f"); controls lr x{ARCH_CONTROL_LR}: "
+          + json.dumps(controls))
+    out["presets"] = {"trials": len(trials), "worst_rel_loss": worst,
+                      "control_rel_loss": controls}
+    out["seconds"]["a"] = time.time() - t0
+    out["controls"] = cpu["controls"]
+    out["witness"] = cpu["witness"]
+    for row in cpu["full"]:
+        check(row["card_repeat"]["grad_bitwise"]
+              and row["card_repeat"]["loss_bitwise"],
+              f"full {row['name']} {row['dtype']}: a second card gradient "
+              f"differs: {row['card_repeat']}")
+        _add(totals, row["launches"])
+    out["full"] = cpu["full"]
+    t0 = time.time()
+    out["trial"] = _full_trial(totals, SSM_TRAIN_MODELS[0], cpu["trial"],
+                               FULL_TRIAL_CONTROL_LR, "float32")
+    out["seconds"]["c"] = time.time() - t0
+    out["launches"] = totals
+    for name in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
+                 "flash_attention_bwd", "quantize8_ef"):
+        check(totals.get(name, 0) > 0,
+              f"{name} never launched on 3h's training path")
+    print("  3h seconds: " + json.dumps(
+        {k: v if isinstance(v, dict) else round(v, 1)
+         for k, v in out["seconds"].items()}))
     return out
 
 
@@ -2475,6 +3849,10 @@ SSD_KERNEL = ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
 BWD_KERNEL = ("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention_bwd.cu",
               "src/repro/models/attention.py:56")
+#: the gradient of the SSD scan: the JAX package has no backward Pallas
+#: kernel (its models differentiate the jnp scan)
+SSD_BWD_KERNEL = ("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+                  "src/repro/models/ssm.py:59")
 PATH_KERNELS = ("quantize8_ef", "topk_ef")
 
 
@@ -2487,11 +3865,21 @@ def main() -> int:
     phase("1: device")
     card = phase_device()
     import torch
+    helper = CpuSide()
+    try:
+        return _phases(t0, phase, card, helper)
+    finally:
+        helper.stop()
+
+
+def _phases(t0, phase, card, helper) -> int:
+    import torch
     phase("2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
     bwd = phase_flash_bwd()
     ssd = phase_ssd_kernel()
+    ssd_bwd = phase_ssd_bwd()
     phase("3: path")
     launches, preset, cpu_losses = phase_path()
     for name in PATH_KERNELS:
@@ -2512,17 +3900,24 @@ def main() -> int:
     elastic = phase_elastic(preset)
     print(json.dumps({"elastic": elastic}))
     phase("3g: train smollm-360m")
-    train = phase_train()
+    train = phase_train(helper)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "full"}}))
+    phase("3h: train mamba2-370m and zamba2-2.7b")
+    train_ssm = phase_train_ssm(helper)
+    print(json.dumps({"train_ssm": {k: v for k, v in train_ssm.items()
+                                    if k != "full"}}))
+    trained = {k: train["launches"].get(k, 0) + train_ssm["launches"].get(k, 0)
+               for k in train_ssm["launches"]}
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
-        + elastic["launches"] + train["launches"]["quantize8_ef"]
+        + elastic["launches"] + trained["quantize8_ef"]
     serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
                       for k in serve["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         check(serve_launches[name] > 0,
               f"{name} never launched on the serving path")
-    serve_launches["flash_attention"] += train["launches"]["flash_attention"]
+    serve_launches["flash_attention"] += trained["flash_attention"]
+    serve_launches["ssd_scan"] += trained["ssd_scan"]
     phase("4: summary")
     summary = []
     for name, source, replaces in KERNELS:
@@ -2566,7 +3961,7 @@ def main() -> int:
              "replaces": replaces,
              "replaces_note": "no TPU kernel: the gradient of _sdpa's jnp "
                               "attention",
-             "launches": train["launches"]["flash_attention_bwd"],
+             "launches": trained["flash_attention_bwd"],
              **{k: bwd[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "shape", "library", "bound_fp32_ms",
@@ -2597,6 +3992,26 @@ def main() -> int:
           f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
           f"plain_ms={entry['plain_ms']:.5f} library_ms=none "
           f"launches_on_path={entry['launches']}")
+    name, source, replaces = SSD_BWD_KERNEL
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "replaces_note": "no TPU kernel: the gradient of the jnp scan",
+             "launches": trained["ssd_scan_bwd"],
+             **{k: ssd_bwd[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "shape", "library", "bound_fp32_ms",
+                 "bytes_bound_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+                 "vs_float64", "launch_us", "max_rel_err_bf16",
+                 "max_norm_rel_bf16", "min_planted_norm_rel_bf16",
+                 "forward_bf16_rel_err", "timed")},
+             "max_abs_err_note": "relative to each gradient's largest plain "
+                                 "|g|, fp32",
+             "held_against_plain": True}
+    summary.append(entry)
+    print(f"  {name:16s} held within {SSD_BWD_TOL} of its plain version; "
+          f"ms={entry['ms']:.5f} bound_ms={entry['bound_ms']:.5f} "
+          f"plain_ms={entry['plain_ms']:.5f} library_ms=none "
+          f"launches_on_path={entry['launches']}")
     print(json.dumps({"kernels": summary}))
     print(f"total: {time.time() - t0:.1f} s")
     print(card)
@@ -2607,4 +4022,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-side"]:
+        raise SystemExit(cpu_side(Path(sys.argv[2])))
     raise SystemExit(main())

@@ -221,7 +221,7 @@ def cmd_trace(args) -> int:
     rc = 0
     for k, spec in enumerate(specs):
         spec = spec.with_(trace=True)
-        model, algo, tr, va = spec.build_workload(device)
+        model, algo, tr, va = spec.build_workload()
         res = spec.build_runtime().train(
             model, algo, tr, va, target_loss=spec.target_loss,
             max_epochs=spec.max_epochs, eval_every=spec.eval_every,

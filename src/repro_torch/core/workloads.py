@@ -21,9 +21,9 @@ algorithms, the comm stack and the codecs take it as they take a study
 model's, and the int8 codec's 256-element blocks cover the same elements
 as the reference's.  The MoE family is not built yet (ROADMAP.md queue A6,
 MoE and MLA); encoder and VLM archs need non-token inputs and raise as in
-the JAX package.  On the card, attention's gradient comes from the CUDA
-backward kernel; the SSD scan has none yet, so the ssm and hybrid families
-train on the CPU only (ROADMAP.md queue A6, SSD backward).
+the JAX package.  On the card, the gradients of attention and of the SSD
+scan come from their CUDA backward kernels, so the dense, ssm and hybrid
+families all train there.
 
 This module also gives the two analytic sizes the §5.3 cost model and
 spec-time validation need.
@@ -41,7 +41,6 @@ from repro_torch.configs import (
 from repro_torch.core.mlmodels import STUDY_MODELS, _mlp_sizes, make_study_model
 from repro_torch.data.synthetic import Dataset, make_dataset, train_val_split
 from repro_torch.data.tokens import TokenStream
-from repro_torch.kernels.ssd_scan.ops import SSD_BACKWARD_ITEM
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
     DTYPES, init_params, is_spec, param_count, tree_map,
@@ -196,7 +195,7 @@ class ArchWorkload:
     convex = False
 
     def __init__(self, name: str, *, reduced: bool = True,
-                 seq_len: int = DEFAULT_SEQ_LEN, device=None):
+                 seq_len: int = DEFAULT_SEQ_LEN):
         if not is_arch_workload(name):
             raise KeyError(f"unknown architecture workload {name!r}")
         self.name = name
@@ -212,15 +211,6 @@ class ArchWorkload:
         self.n_params = param_count(self.spec)
         self.flops_per_row = 6.0 * self.n_params * self.seq_len
         self.dtype = DTYPES[cfg.dtype]
-        # the SSD scan kernel has no backward yet: the ssm and hybrid
-        # families train on the CPU only (``device`` is where the caller
-        # will train; None leaves that to the engine, whose SSD calls raise)
-        if (device is not None and torch.device(device).type != "cpu"
-                and cfg.family in ("ssm", "hybrid")):
-            raise NotImplementedError(
-                f"arch workload {self.name!r} ({self.cfg.family}) trains "
-                f"through the SSD scan, whose kernel has no backward yet "
-                f"({SSD_BACKWARD_ITEM}); run it with device='cpu'")
 
     # ---- the flat parameter tensor ----
     def _views(self, flat: torch.Tensor, split: bool = False):
@@ -316,17 +306,15 @@ def flat_from_numpy(tree: dict, workload: ArchWorkload) -> torch.Tensor:
 # ---------------------------------------------------------------- factory ---
 
 def make_workload(name: str, *, dataset: str = "higgs", rows: int = 30_000,
-                  data_seed: int = 0, val_frac: float = 0.1, device=None,
-                  **model_args):
+                  data_seed: int = 0, val_frac: float = 0.1, **model_args):
     """Build ``(workload, ds_train, ds_val)`` for any point of the model
     axis, in the JAX package's construction order (study: dataset -> split
     -> model-on-train; architecture: model -> corpus -> split), so the
     datasets are byte-identical to the reference's.  Architecture names
-    require ``dataset="tokens"`` and accept ``reduced``/``seq_len``;
-    ``device`` is where the caller will train (see :class:`ArchWorkload`)."""
+    require ``dataset="tokens"`` and accept ``reduced``/``seq_len``."""
     check_pairing(name, dataset)
     if is_arch_workload(name):
-        wl = ArchWorkload(name, device=device, **model_args)
+        wl = ArchWorkload(name, **model_args)
         ds = wl.make_data(rows, seed=data_seed)
         tr, va = train_val_split(ds, val_frac=val_frac)
         return wl, tr, va

@@ -16,8 +16,8 @@
 // Any length s: positions past s in the last chunk take dt = 0 and x = 0,
 // so their decay is 1 and their update 0, and no y is written there (the
 // Pallas wrapper asserts s % chunk == 0 instead).  The chunk is the
-// kernel's own (kL = 64), independent of the model's ssm_chunk: it
-// changes the rounding, not the function.
+// kernel's own (kL = 64), independent of the model's ssm_chunk: in fp32
+// it changes the rounding, not the function.
 //
 // Layout: x (b, s, h, p), dt (b, s, h) and B/C (b, s, n) are read in the
 // model's layout through their strides (p and n contiguous); B and C are
@@ -26,6 +26,18 @@
 // an optional initial state (b, h, p, n) fp32 (null means zeros).  x, B
 // and C are float32 or bfloat16 (widened to fp32 exactly); dt, A and
 // every sum fp32.
+//
+// bfloat16: the JAX model's precision policy (src/repro/models/ssm.py
+// ssd_scan) keeps the decay math, the states and y_off in fp32 but rounds
+// four things to the input dtype, and so does this kernel (round to
+// nearest even, then widened again): x dt, B and C (already bf16), the
+// masked scores (C_l . B_m) L[l,m] before they multiply x dt, and
+// exp(cum_end - cum_l) before the state product.  The rounding points
+// are the model's only where both take one chunk: s <= 64 here (the
+// model's chunk is 256, or s where 256 does not divide s), which holds
+// every training shape of the port (sequence length 64).  For bf16 at s >
+// 64 the kernel rounds per 64-position chunk and the model per its own: a
+// latent gap that no ported path reaches.  fp32 inputs round nowhere.
 //
 // Bound: 4 p n flops per (batch, head, position) -- operations at the
 // model's widths.  Design: three launches on the caller's stream, every
@@ -85,6 +97,10 @@ struct Params {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+// v rounded to T and widened again: the identity for float
+template <typename T> __device__ __forceinline__ float round_as(float v) {
+  return sizeof(T) == 2 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
@@ -154,7 +170,8 @@ __device__ __forceinline__ float chunk_cumsum(float (&da)[2],
 
 
 // x dt over one chunk into sX (fp32, row stride ldx, columns pp): from
-// sX itself (float32 x, loaded there) or from sXr (bfloat16 x, pp stride)
+// sX itself (float32 x, loaded there) or from sXr (bfloat16 x, pp stride,
+// and x dt rounded to bfloat16 as the model rounds it)
 template <typename T>
 __device__ __forceinline__ void scale_x(float* sX, int ldx, const T* sXr,
                                         const float* sDt, int pp) {
@@ -162,7 +179,7 @@ __device__ __forceinline__ void scale_x(float* sX, int ldx, const T* sXr,
     const int l = i / pp, cc = i % pp;
     const float v =
         sizeof(T) == 2 ? to_f32(sXr[l * pp + cc]) : sX[l * ldx + cc];
-    sX[l * ldx + cc] = v * sDt[l];
+    sX[l * ldx + cc] = round_as<T>(v * sDt[l]);
   }
 }
 
@@ -207,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(const Params P) 
   T* sCg = reinterpret_cast<T*>(smem);            // kL x lda: C, head 0
   T* sB = reinterpret_cast<T*>(smem + ub);        // kL x ldb
   float* sDt = reinterpret_cast<float*>(sB + kL * ldb);  // kL
-  float* sW = sDt + kL;                           // kL: exp(cum_end - cum)
+  float* sW = sDt + kL;           // kL: exp(cum_end - cum), rounded as T
 
   const int h = blockIdx.x % P.heads, bc = blockIdx.x / P.heads;
   const int b = bc / P.nc, c = bc % P.nc;
@@ -239,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(const Params P) 
     for (int half = 0; half < 2; ++half) {
       const int l = lane + 32 * half;
       sDt[l] = dtv[half];
-      sW[l] = expf(cum_end - cum[half]);
+      sW[l] = round_as<T>(expf(cum_end - cum[half]));
     }
     if (lane == 0)
       P.decay[(size_t(b) * P.heads + h) * P.nc + c] = expf(cum_end);
@@ -518,16 +535,17 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_output_kernel(const Params P)
   __syncthreads();
   scale_x(sX, ldx, sXr, sDt, P.pp);
   // G o L by 16 x 16 blocks: the diagonal ones by exp of the difference,
-  // those below by the two factors, those above 0
+  // those below by the two factors, those above 0 (rounded to bfloat16
+  // for bfloat16 inputs, as the model rounds the masked scores)
   for (int i = tid; i < kL * kL; i += kThreads) {
     const int blk = i >> 8, rr = (i >> 4) & 15, jj = i & 15;
     const int R = blk >> 2, Cb = blk & 3;       // row and column tiles
     const int r = 16 * R + rr, j = 16 * Cb + jj;
     float* m = sM + r * kLdG + j;
     if (Cb == R)
-      *m = jj <= rr ? *m * expf(sCum[r] - sCum[j]) : 0.0f;
+      *m = jj <= rr ? round_as<T>(*m * expf(sCum[r] - sCum[j])) : 0.0f;
     else if (Cb < R)
-      *m = *m * sER[r] * sEC[R * kL + j];
+      *m = round_as<T>(*m * sER[r] * sEC[R * kL + j]);
     else
       *m = 0.0f;
   }

@@ -104,7 +104,7 @@ def run_experiment(spec: ExperimentSpec, cache_dir: str | Path | None = None,
                 rec.spec = spec      # keep the caller's label
                 return rec
 
-    model, algo, tr, va = spec.build_workload(dev)
+    model, algo, tr, va = spec.build_workload()
     res = spec.build_runtime().train(
         model, algo, tr, va, target_loss=spec.target_loss,
         max_epochs=spec.max_epochs, eval_every=spec.eval_every,

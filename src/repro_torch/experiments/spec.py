@@ -257,17 +257,16 @@ class ExperimentSpec:
                            comm=self.comm, sync=self.sync, seed=self.seed,
                            scaling=scaling, ckpt=self.ckpt)
 
-    def build_workload(self, device=None):
+    def build_workload(self):
         """(workload, algo, ds_train, ds_val) via
         :func:`repro_torch.core.workloads.make_workload` (the JAX package's
         construction order, byte-identical datasets).  Deterministic in
-        (dataset, rows, data_seed, val_frac, model, algorithm).  ``device``
-        is where the caller will train (an architecture checks it)."""
+        (dataset, rows, data_seed, val_frac, model, algorithm)."""
         from repro_torch.core.algorithms import make_algorithm
         from repro_torch.core.workloads import make_workload
         wl, tr, va = make_workload(
             self.model, dataset=self.dataset, rows=self.rows,
-            data_seed=self.data_seed, val_frac=self.val_frac, device=device,
+            data_seed=self.data_seed, val_frac=self.val_frac,
             **self.model_args)
         algo = make_algorithm(self.algorithm, **self.algo_args)
         return wl, algo, tr, va

@@ -22,7 +22,9 @@ Kernels on the model zoo's serving path (``models/attention.py``):
 Kernel on the ssm and hybrid families' path (``models/ssm.py``):
   ssd_scan         -- the Mamba-2 SSD scan, chunks in parallel on the
                       tensor cores (3xTF32) with the fp32 state passed
-                      from chunk to chunk (every forward)
+                      from chunk to chunk (every forward), and its
+                      gradient (every training step of the ssm and hybrid
+                      families)
 
 The CUDA sources are compiled with nvcc at first use (:mod:`.build`);
 importing this package needs neither a card nor a compiler.

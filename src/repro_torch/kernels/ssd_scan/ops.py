@@ -8,15 +8,20 @@ tensor's device decides; nothing falls back.  ``ssd_scan_recurrence`` is
 the exact recurrence behind the JAX wrapper's plumbing (heads folded into
 the batch, B/C broadcast over the heads), for holding either one.
 
-The kernel has no backward yet: on a non-CPU tensor, a call that autograd
-would have to differentiate raises (ROADMAP.md queue A6, SSD backward)
-instead of handing back an output no gradient flows through.
+Gradients: on the card, when grad mode is on and an input requires grad,
+the call goes through :class:`SSDScan`, whose forward is the CUDA kernel
+(keeping each chunk's entering state when there are several) and whose
+backward is the CUDA backward kernel.  On the CPU autograd differentiates
+the chunked plain version (``ref.ssd_scan_chunked_bwd`` states that
+gradient in closed form).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+from repro_torch.kernels.ssd_scan.kernel import (
+    ssd_scan_bwd_kernel, ssd_scan_kernel,
+)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked, ssd_scan_ref
 
 
@@ -53,18 +58,24 @@ def ssd_scan_recurrence(x, dt, a_log, B, C, init_state=None):
     return y.reshape(b, h, s, p).transpose(1, 2), st.reshape(b, h, p, n)
 
 
-SSD_BACKWARD_ITEM = "ROADMAP.md queue A6, SSD backward"
+class SSDScan(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable call:
+    (x, dt, A, B, C, init_state) -> (y, final state)."""
 
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state):
+        y, state, entering = ssd_scan_kernel(x, dt, A, B, C, init_state,
+                                             keep_states=True)
+        ctx.save_for_backward(x, dt, A, B, C,
+                              init_state if entering is None else entering)
+        ctx.set_materialize_grads(False)
+        return y, state
 
-def check_no_grad(*tensors) -> None:
-    """Raise when grad mode is on and any input requires grad: the CUDA
-    scan sits outside autograd."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"ssd_scan_fused: the SSD scan kernel has no backward yet "
-            f"({SSD_BACKWARD_ITEM}); training the ssm and hybrid families "
-            f"runs on the CPU only")
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, prev = ctx.saved_tensors
+        return ssd_scan_bwd_kernel(x, dt, A, B, C, prev, dy, dstate,
+                                   with_dinit=ctx.needs_input_grad[5])
 
 
 def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -74,6 +85,10 @@ def ssd_scan_fused(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (plus ``init_state``).  ``chunk`` is the plain version's; the kernel
     takes its own (the rounding moves, not the function)."""
     if x.device.type != "cpu":
-        check_no_grad(x, dt, a_log, B, C, init_state)
-        return ssd_scan_kernel(x, dt, decay_rates(a_log), B, C, init_state)
+        A = decay_rates(a_log)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dt, a_log, B, C, init_state)):
+            return SSDScan.apply(x, dt, A, B, C, init_state)
+        return ssd_scan_kernel(x, dt, A, B, C, init_state)
     return ssd_scan_chunked(x, dt, a_log, B, C, chunk, init_state)

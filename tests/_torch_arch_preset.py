@@ -4,9 +4,12 @@ parameters carried across (``flat_from_numpy``): a real smollm-360m
 (reduced) trained through the engine from bfloat16 parameters, the
 config's own dtype (fp32 from the first merge on, in both packages).
 
-Each ``test_torch_preset_<name>.py`` sets ``PRESET`` and imports this
-module's tests and fixtures, so that the test workers (``--dist
-loadfile``) give each preset's JAX runs a worker of their own.
+Each ``test_torch_preset_<name>.py`` sets ``PRESET`` (and, to train
+another zoo model through the same trials, ``MODEL``: the presets' model
+override, in both packages; ``DTYPE`` replaces the reduced config's
+dtype in both) and imports this module's tests and fixtures, so that the
+test workers (``--dist loadfile``) give each preset's JAX runs a worker
+of their own.
 
 Metered fields (rounds, simulated time, cost, comm bytes/time/cost,
 breakdown, history timestamps) are EXACT.  Losses agree within
@@ -15,21 +18,42 @@ places in the two frameworks, and later sums run in other orders
 (measured at most 4.3e-6 over the 9 trials of both presets).  A control
 run with the learning rate x ``CONTROL_LR``, on the preset's first trial
 (BSP) and on its last (LocalSGD or DiLoCo), must miss it (measured 4e-4
-to 5.6e-4).  (fp32 parity of the same gradient is held at 1e-5 in
-``test_torch_workloads.py``.)  The port runs on one intra-op thread: its
-reduced-model ops are tiny, and threads spinning against the other test
-workers' made them a hundred times slower.
+to 5.6e-4).  With ``MODEL`` mamba2-370m the losses are held at
+``MODEL_LOSS_RTOL``.  zamba2-2.7b (reduced) runs in fp32 (``DTYPE``),
+held at ``ARCH_LOSS_RTOL`` (measured at most 6.4e-7; its controls 1.09e-3
+to 1.89e-3).  In bf16 its losses part by up to 5.6e-4 between the two
+frameworks while an lr x1.01 control reads 7.4e-4, and no layer computes
+another function (``_torch_bf16_witness.py``): given the same inputs,
+the two frameworks' norms, GEMMs and convolutions agree to the last bit
+or one ulp, and their blocks part by rounding.  XLA on the CPU expands a
+bf16 ``silu`` into five steps and rounds after each one, which moves
+41% of its outputs by an ulp from PyTorch's fp32-computed ``silu``.  The
+JAX ``_sdpa`` rounds the scores and probabilities to bf16, and the port's
+attention does not (ROADMAP queue C).  With both mimicked in the port on
+the CPU, one zamba2 gradient's loss gap fell from 3.1e-4 to 7.4e-5 and
+its norm-wise gap from 3.2e-2 to 1.9e-2.  (fp32 parity of the same
+gradient is held at 1e-5 in ``test_torch_workloads.py``.)  The port runs
+on one intra-op thread: its reduced-model ops are tiny, and threads
+spinning against the other test workers' made them a hundred times
+slower.
 """
 import jax
 import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
 from repro.experiments import get_preset as jget
+from repro_torch.core import workloads as tworkloads
 from repro_torch.core.workloads import flat_from_numpy
 from repro_torch.experiments import get_preset
 
 ARCH_LOSS_RTOL = 5e-5
+#: the same with mamba2-370m (reduced, bf16) through the trials: its SSD
+#: layers round to bf16 at other places in the two frameworks too
+#: (measured at most 5.23e-5 over the 9 trials; the controls 1.25e-3 to
+#: 1.36e-3)
+MODEL_LOSS_RTOL = {("mamba2_370m", None): 1e-4}
 CONTROL_LR = 1.01
 
 
@@ -43,9 +67,35 @@ def _metered(res) -> dict:
             "times": [t for t, _ in res.history], "error": res.error}
 
 
+def _specs(get, preset, model=None):
+    """The preset's quick trials, each training ``model`` if given."""
+    specs = get(preset).build(True)
+    return [s.with_(model=model) for s in specs] if model else specs
+
+
+def _rtol(module) -> float:
+    return MODEL_LOSS_RTOL.get(
+        (getattr(module, "MODEL", None), getattr(module, "DTYPE", None)),
+        ARCH_LOSS_RTOL)
+
+
+def _with_dtype(mp, dtype) -> None:
+    """The reduced configs' dtype replaced by ``dtype`` in both packages
+    (None: the configs' own)."""
+    if dtype is None:
+        return
+    for module in (jconfigs, tworkloads):
+        get = module.get_reduced
+
+        def get_reduced(name, get=get):
+            arch = get(name)
+            return arch.replace(model=arch.model.replace(dtype=dtype))
+        mp.setattr(module, "get_reduced", get_reduced)
+
+
 def _port(spec, tree, **over):
     spec = spec.with_(**over) if over else spec
-    wl, algo, tr, va = spec.build_workload("cpu")
+    wl, algo, tr, va = spec.build_workload()
     flat = flat_from_numpy(tree, wl)
     wl.init = lambda gen: flat
     return spec.build_runtime().train(wl, algo, tr, va,
@@ -59,7 +109,8 @@ def _losses(res) -> np.ndarray:
 
 def pytest_generate_tests(metafunc):
     if "spec" in metafunc.fixturenames:
-        specs = get_preset(metafunc.module.PRESET).build(True)
+        specs = _specs(get_preset, metafunc.module.PRESET,
+                       getattr(metafunc.module, "MODEL", None))
         metafunc.parametrize("spec", specs, ids=[s.name for s in specs])
 
 
@@ -71,10 +122,19 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def model_dtype(request):
+    """The module's ``DTYPE``, if it sets one, in both packages."""
+    with pytest.MonkeyPatch.context() as mp:
+        _with_dtype(mp, getattr(request.module, "DTYPE", None))
+        yield
+
+
 @pytest.fixture(scope="module")
 def jax_runs(request):
     out = {}
-    for spec in jget(request.module.PRESET).build(True):
+    for spec in _specs(jget, request.module.PRESET,
+                       getattr(request.module, "MODEL", None)):
         wl, algo, tr, va = spec.build_workload()
         rt = spec.build_runtime()
         tree = jax.tree.map(np.asarray, wl.init(jax.random.key(rt.seed)))
@@ -83,34 +143,42 @@ def jax_runs(request):
     return out
 
 
-def test_quick_records_match_jax(spec, jax_runs):
+def test_quick_records_match_jax(request, spec, jax_runs):
     tree, jres = jax_runs[spec.name]
     res = _port(spec, tree)
     assert res.rounds > 0 and not res.error
     assert _metered(res) == _metered(jres)
     np.testing.assert_allclose(_losses(res), _losses(jres),
-                               rtol=ARCH_LOSS_RTOL)
+                               rtol=_rtol(request.module))
 
 
 def test_a_changed_learning_rate_misses_the_tolerance(request, jax_runs):
-    specs = get_preset(request.module.PRESET).build(True)
+    specs = _specs(get_preset, request.module.PRESET,
+                   getattr(request.module, "MODEL", None))
     assert specs[0].sync == "bsp" and specs[-1].sync != "bsp"
     for spec in (specs[0], specs[-1]):
         tree, jres = jax_runs[spec.name]
         lr = spec.algo_args["lr"] * CONTROL_LR
         res = _port(spec, tree, algo_args={**spec.algo_args, "lr": lr})
         rel = np.abs(_losses(res) - _losses(jres)) / np.abs(_losses(jres))
-        assert rel.max() > ARCH_LOSS_RTOL, spec.name
+        assert rel.max() > _rtol(request.module), spec.name
 
 
-def main() -> None:
+def main(model=None, dtype=None) -> None:
     """Print each arch trial's largest relative loss gap, port vs JAX, at
     the preset's learning rate and at x CONTROL_LR: the readings behind
-    ARCH_LOSS_RTOL (``PYTHONPATH=src python tests/_torch_arch_preset.py``)."""
+    ARCH_LOSS_RTOL (``PYTHONPATH=src python tests/_torch_arch_preset.py
+    [model [dtype]]``)."""
     torch.set_num_threads(4)
+    with pytest.MonkeyPatch.context() as mp:
+        _with_dtype(mp, dtype)
+        _main(model)
+
+
+def _main(model) -> None:
     for preset in ("faas_vs_pod", "pod_local_sgd"):
-        for jspec, spec in zip(jget(preset).build(True),
-                               get_preset(preset).build(True)):
+        for jspec, spec in zip(_specs(jget, preset, model),
+                               _specs(get_preset, preset, model)):
             wl, algo, tr, va = jspec.build_workload()
             rt = jspec.build_runtime()
             tree = jax.tree.map(np.asarray, wl.init(jax.random.key(rt.seed)))
@@ -127,4 +195,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    main(*sys.argv[1:])

@@ -18,8 +18,9 @@ across (``flat_from_numpy``).
   to 6.9e-2 of their own largest.
 - The ssm and hybrid families train on the CPU through the chunked plain
   SSD scan (``ssm_chunk=4`` in both packages, so chunk borders are
-  crossed); on any other device the SSD scan under autograd raises naming
-  ROADMAP.md's queue A6 item (``device="meta"`` reaches that branch).
+  crossed); on any other device the SSD scan under autograd goes through
+  ``SSDScan`` to the CUDA kernels (``device="meta"`` reaches the kernel's
+  device check), and ``ArchWorkload`` builds them for any device.
 - bfloat16 parameters become fp32 at their first merge, call for call as
   in the JAX package, through every algorithm and sync protocol (the wire
   is fp32; the JAX ``unravel`` of a single-dtype tree casts nothing).
@@ -42,7 +43,9 @@ from repro.experiments import ExperimentSpec as JExperimentSpec
 from repro_torch.core import workloads as tworkloads
 from repro_torch.core.workloads import ArchWorkload, flat_from_numpy
 from repro_torch.experiments import ExperimentSpec
-from repro_torch.kernels.ssd_scan.ops import ssd_scan_fused
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import SSDScan, ssd_scan_fused
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
 
 BF16_LOSS_RTOL = 1e-3
 BF16_GRAD_TOL = 5e-2
@@ -83,7 +86,7 @@ def configs(monkeypatch):
 
 def _pair(name, seed=0):
     jw = jworkloads.ArchWorkload(name)
-    tw = ArchWorkload(name, device="cpu")
+    tw = ArchWorkload(name)
     tree = jax.tree.map(np.asarray, jw.init(jax.random.key(seed)))
     return jw, tw, tree
 
@@ -145,7 +148,7 @@ def test_grad_matches_jax_in_bf16(name, configs):
 
 
 def test_grad_is_views_and_never_copies_the_params():
-    tw = ArchWorkload("smollm_360m", device="cpu")
+    tw = ArchWorkload("smollm_360m")
     flat = tw.init(torch.Generator().manual_seed(0))
     p = tw.params(flat)
     leaves = [p["embed"], p["unembed"], p["blocks"]["attn"]["wq"]]
@@ -191,7 +194,7 @@ def test_arch_specs_need_the_token_corpus():
     with pytest.raises(ValueError, match="study stand-in"):
         ExperimentSpec(model="lr", dataset="tokens")
     spec = ExperimentSpec(model="smollm_360m", dataset="tokens", rows=64)
-    wl, _algo, tr, va = spec.build_workload("cpu")
+    wl, _algo, tr, va = spec.build_workload()
     assert isinstance(wl, ArchWorkload) and tr.n + va.n == 64
 
 
@@ -213,22 +216,69 @@ def _ssd_inputs(device, grad):
             torch.zeros(b, s, n, device=device))
 
 
-def test_ssd_scan_under_autograd_raises_off_the_cpu():
-    with pytest.raises(NotImplementedError, match="queue A6, SSD backward"):
+def _ssd_values():
+    """Seeded x, dt >= 0, a_log, B, C on the CPU (b 1, s 8, h 2, p 3, n 5)."""
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 1, 8, 2, 3, 5
+    x, dt, a_log, B, C = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((b, s, h, p), (b, s, h), (h,), (b, s, n),
+                                   (b, s, n)))
+    return x, dt.abs(), a_log, B, C
+
+
+def _spy_on_ssd_scan(monkeypatch) -> list:
+    """Record every call of ``SSDScan.forward`` (then run it)."""
+    calls, forward = [], SSDScan.forward
+
+    def spy(ctx, *args):
+        calls.append(args[0].device.type)
+        return forward(ctx, *args)
+    monkeypatch.setattr(SSDScan, "forward", staticmethod(spy))
+    return calls
+
+
+def test_ssd_scan_under_autograd_takes_the_kernels_off_the_cpu(monkeypatch):
+    """Off the CPU a call that autograd differentiates goes through
+    ``SSDScan`` to the forward kernel's own device check (``meta`` reaches
+    it and raises naming CUDA); a call without gradients goes to the
+    kernel directly, not through ``SSDScan``; no launch is counted."""
+    calls = _spy_on_ssd_scan(monkeypatch)
+    before = dict(ssd_kernel.launches)
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_fused(*_ssd_inputs("meta", grad=True))
-    with torch.no_grad():                # no gradient: the kernel's checks
-        with pytest.raises(ValueError, match="CUDA"):
-            ssd_scan_fused(*_ssd_inputs("meta", grad=True))
-    y, _ = ssd_scan_fused(*_ssd_inputs("cpu", grad=True), chunk=4)
-    y.sum().backward()                   # the CPU differentiates the plain
+    assert calls == ["meta"]
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_fused(*_ssd_inputs("meta", grad=True))
+    assert calls == ["meta"]
+    assert ssd_kernel.launches == before
+
+
+def test_ssd_scan_on_the_cpu_differentiates_the_plain_version():
+    """The CPU route is the chunked plain version: its gradient is autograd
+    of ``ssd_scan_chunked``, bit for bit."""
+    def grads(fn):
+        args = [t.requires_grad_(True) for t in _ssd_values()]
+        y, st = fn(*args)
+        return torch.autograd.grad((y.sum() + st.square().sum()), args)
+    got = grads(lambda *a: ssd_scan_fused(*a, chunk=4))
+    want = grads(lambda *a: ssd_scan_chunked(*a, 4))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("name", ["mamba2_370m", "zamba2_2_7b"])
-def test_ssd_families_refuse_to_train_off_the_cpu(name):
-    with pytest.raises(NotImplementedError, match="queue A6, SSD backward"):
-        ArchWorkload(name, device="meta")
-    ArchWorkload(name, device="cpu")
-    ArchWorkload("smollm_360m", device="meta")   # attention has a backward
+def test_ssd_families_build_for_any_device(name, monkeypatch):
+    """No family guard: ``ArchWorkload.grad`` of the ssm and hybrid families
+    on ``meta`` tensors runs the model up to its first SSD scan, which goes
+    through ``SSDScan`` to the kernel's device check (ValueError naming
+    CUDA), as a CUDA tensor goes to the kernels."""
+    calls = _spy_on_ssd_scan(monkeypatch)
+    wl = ArchWorkload(name)
+    assert wl.cfg.family in ("ssm", "hybrid")
+    flat = torch.zeros(wl.n_params, dtype=wl.dtype, device="meta")
+    tokens = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wl.grad(flat, {"x": tokens, "y": tokens})
+    assert calls == ["meta"]
 
 
 # ------------------------------------------------ dtype through merges ------
@@ -267,7 +317,7 @@ def test_leaf_dtype_follows_jax_through_every_merge(sync, algorithm):
               algo_args={"lr": 0.05, "batch_size": 8}, sync=sync,
               max_epochs=1, fleet={"workers": 2})
     spec = ExperimentSpec(**kw)
-    wl, algo, tr, va = spec.build_workload("cpu")
+    wl, algo, tr, va = spec.build_workload()
     assert wl.dtype == torch.bfloat16
     port = _Dtypes(wl, lambda p: str(p.dtype).removeprefix("torch."))
     res = spec.build_runtime().train(port, algo, tr, va, max_epochs=1,
