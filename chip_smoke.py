@@ -70,7 +70,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    alone, forward + backward, the plain backward; 3xTF32, fp32 and bytes
    bounds, no library call), and the forward in bf16 against the chunked
    version in bf16 at those shapes within SSD_BF16_FWD_TOL and
-   SSD_BF16_NORM_TOL, which the planted unrounded forward must miss;
+   SSD_BF16_NORM_TOL, which the planted unrounded forward must miss; the
+   SSD backward's fp32 gradients against float64 at the training path's
+   shapes within twice the replaced kernel's error (SSD_BWD_FP64_PARENT);
+   bf16 attention, which rounds where the JAX model does, against its
+   plain version at every bf16 shape above and at the training path's
+   (FLASH_BWD_PATH, with zamba2's shared block) by ``hold_bf16``: the
+   whole tensor norm-wise, the shares of elements and rows that differ,
+   and every element of a forward output within the tie witness's reach
+   (the values that rounding its row's near-tie scores and probabilities
+   either way can give), timed at ATTN_BF16_TIMED and DECODE_BF16_TIMED
+   beside SDPA in bf16 (a yardstick, not the same function), planted
+   copies of the three attention kernels without the rounding (PLANTED)
+   missing the norm-wise limits, and a quarter of a forward's rows taken
+   from them missing a limit; and the attention
+   kernels' fp32 output bits equal to those of the kernels before the
+   bf16 repair (ATTN_FP32_SHA256_PARENT);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -189,6 +204,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 MOBILENET_N = 3_000_007        # (3072, 777, 777, 10) MLP parameters
 RESNET50_N = 22_253_615        # (3072, 3421, 3421, 10) MLP parameters
 SHAPES = (1000, 33 * 70, MOBILENET_N, RESNET50_N)
@@ -242,8 +258,11 @@ FLASH_BWD_FP64_PARENT = {"dq": 1.1793459622211344e-06,
 #: copy of dk/dv to bf16 before summing them (up to 7.8e-3)
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the training path's attention shapes (b, s, h, m, d): smollm-360m's
-#: reduced config (phase 3g (a)) and full width (3g (b), (c)), at b 8, s 64
-FLASH_BWD_PATH = ((8, 64, 3, 1, 20), (8, 64, *_SMOLLM_ATTN))
+#: reduced config (phase 3g (a)) and full width (3g (b), (c)), and
+#: zamba2-2.7b's shared block at full width (3h (b)), at b 8, s 64
+_ZAMBA2_ATTN = (ZAMBA2_HEADS, ZAMBA2_KV_HEADS, ZAMBA2_HEAD_DIM)
+FLASH_BWD_PATH = ((8, 64, 3, 1, 20), (8, 64, *_SMOLLM_ATTN),
+                  (8, 64, *_ZAMBA2_ATTN))
 #: the backward kernel against autograd of the plain version over head
 #: dims, GQA groups, causal and full attention, ragged lengths and sq != sk
 #: (b, sq, sk, h, m, d, causal): every code path of its launches
@@ -258,6 +277,54 @@ FLASH_BWD_SWEEP = ((2, 47, 47, 3, 3, 20, True), (2, 47, 47, 3, 1, 20, False),
 #: (the kernels line's row: long enough to be more than launch latency)
 FLASH_BWD_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
                    FLASH_BWD_PATH[1], FLASH_BWD_PATH[0])
+#: bf16 attention kernels against their plain versions, which round where
+#: the JAX model's _sdpa and gqa_decode round.  Where both round at the
+#: same points they part only where an fp32 value lies within its last
+#: bits of a bf16 rounding boundary (products summed in other orders,
+#: another exp): a score or probability that rounds the other way moves
+#: its row, the more the larger its probability against the row's output
+#: (an H100 read 1.33e-3 norm-wise and 6% of the elements over a b 3, h 3
+#: decode: one row of nine moved by 3.8e-3, reached by the witness through
+#: its six near-tie scores, the largest of probability 0.0093, not its top
+#: score).  The kernels without the rounding points (PLANTED:
+#: the kernels before the repair) move every row, 3.2e-3 to 4.7e-3 and
+#: 51-63% at the training path's shapes.  So ``hold_bf16`` holds the
+#: whole tensor norm-wise, the share of its elements and the share of its
+#: rows (a row: one output or gradient vector, the last dim) that differ
+#: at all, and a forward output's every element within the tie witness
+#: (``_bf16_reach``): the values that rounding the row's near-tie scores
+#: and probabilities either way can give.  Outputs: ATTN_BF16_NORM_TOL
+#: (between the sound kernels' 1.33e-3 and the planted 3.23e-3),
+#: ATTN_BF16_SHARE_TOL (sound 6.0%, planted 51%); gradients, where a
+#: flip spreads over the key axis in small parts, ATTN_BF16_GRAD_NORM_TOL
+#: and ATTN_BF16_GRAD_SHARE_TOL (sound 1.37e-4 and 0.24%, planted 3.76e-3
+#: and 57%); both ATTN_BF16_ROW_SHARE_TOL (sound 22%: two of a b 3, h 3
+#: decode's nine rows, 16% of a 141-row flash; planted 98%).  Readings:
+#: an H100 80GB HBM3 at 700 W over phase 2
+ATTN_BF16_NORM_TOL = 2e-3
+ATTN_BF16_SHARE_TOL = 0.1
+ATTN_BF16_ROW_SHARE_TOL = 1 / 3
+ATTN_BF16_GRAD_NORM_TOL = 5e-4
+ATTN_BF16_GRAD_SHARE_TOL = 1e-2
+#: the tie witness's fp32 error bands, in units of 2^-24 for a sum of n
+#: terms: TIE_SUM_ULPS[0] + TIE_SUM_ULPS[1] sqrt(n) ulps of the sum of the
+#: terms' magnitudes (the scores' d products, P V's keys); a probability:
+#: TIE_P_ULPS[0] + TIE_P_ULPS[1] sqrt(n) + n / TIE_P_ULPS[2] ulps of
+#: itself (exp, the division, the row's sum of n terms and its rescalings
+#: by tile).  These are statistical bands (a sum's rounding errors add up
+#: as a random walk), not worst-case ones, which would cover every bf16
+#: boundary at long rows and catch nothing
+TIE_SUM_ULPS = (4.0, 2.0)
+TIE_P_ULPS = (16.0, 4.0, 16.0)
+#: the witness also runs at these multiples of its bands, read only (the
+#: sound kernels' unexplained elements at narrower bands, the planted ones'
+#: at wider): how far the bands are from the readings
+TIE_SCALES_READ = (0.125, 8.0)
+#: bf16 attention timed at the training path's shapes (b, s, h, m, d):
+#: full-width smollm-360m (3g) and zamba2-2.7b's shared block (3h), and
+#: decode attention in bf16 at smollm's heads (b, S, length)
+ATTN_BF16_TIMED = (FLASH_BWD_PATH[1], FLASH_BWD_PATH[2])
+DECODE_BF16_TIMED = DECODE_TIMED[0]
 #: card vs CPU fp32 logits of full-width smollm-360m, relative to the
 #: largest |logit| (and perplexity, relative): the card's fp32 GEMMs and
 #: the attention kernels sum in other orders than the CPU over 32 layers
@@ -329,6 +396,26 @@ SSD_BWD_PATH = ((8, 64, *MAMBA2_SSD), (8, 64, *ZAMBA2_SSD))
 #: ragged single chunk at n 128
 SSD_BWD_SWEEP = ((1, 64, 2, 128, 64, True), (2, 200, 4, 64, 32, True),
                  (2, 47, 3, 32, 128, False))
+#: the SSD backward kernel against the float64 recurrence's gradients at
+#: the training path's shapes (SSD_BWD_PATH, model-like inputs from
+#: SSD_BWD_FP64_SEED, ``ssd_bwd_vs_float64``): the CUDA-core kernel that
+#: the tensor-core one replaced (30f83f0) read these max |g - exact| per
+#: gradient on an H100 80GB HBM3 at 700 W; the tensor-core kernel may err
+#: by at most twice as much
+SSD_BWD_FP64_SEED = 9
+SSD_BWD_FP64_PARENT = {
+    "b8 s64 h32 p64 n128": {
+        "dx": {"kernel": 4.258244698007729e-05},
+        "ddt": {"kernel": 0.00025093413046306523},
+        "da_log": {"kernel": 0.00024903559227595906},
+        "dB": {"kernel": 7.248248908808819e-05},
+        "dC": {"kernel": 4.299599274304455e-05}},
+    "b8 s64 h80 p64 n64": {
+        "dx": {"kernel": 2.9794200273158822e-05},
+        "ddt": {"kernel": 0.00023818629915695055},
+        "da_log": {"kernel": 0.00021078774619809337},
+        "dB": {"kernel": 6.263409605367087e-05},
+        "dC": {"kernel": 5.819761590686312e-05}}}
 #: card vs CPU loss tolerance: the card's fp32 matrix products sum in
 #: another order than the CPU's, and one ulp of gradient difference can
 #: move an int8 code by a step or swap a top-k survivor.  It lies between
@@ -372,17 +459,41 @@ FULL_TRIAL = ("pod_local_sgd", "podsgd_local8_c8")
 #: its rounding points taken out, built beside the kernels in phase 1
 #: (each text must occur once in the source)
 PLANTED_DIR = ROOT / "build" / "planted"
+_NO_BF16_ROUNDING = ("kRounds = sizeof(T) == 2;", "kRounds = false;")
 PLANTED = {
+    # the attention kernels before the bf16 repair (the float32 code path
+    # for bf16 too), instantiated only for bf16 at head dims 20, 64 and 80
+    # (what the controls run)
+    "flash_attention": (_NO_BF16_ROUNDING,
+                        ("dispatch<float>(q, k, v, o, lse, batch, heads, "
+                         "group, sq, sk, d,\n                            st, "
+                         "sm_scale, div, causal, stream)",
+                         "cudaErrorInvalidValue"),
+                        *((f"    REPRO_FA_CASE({nc})\n", "")
+                          for nc in (1, 3, 6, 7, 8))),
+    "flash_attention_bwd": (_NO_BF16_ROUNDING,
+                            ("run<float>(q, k, v, dout, lse, rows, part, dq, "
+                             "dk, dv, batch,\n                       heads, "
+                             "kv_heads, sq, sk, d, st, sm_scale, div, causal,"
+                             "\n                       stream)",
+                             "cudaErrorInvalidValue"),
+                            *((f"    REPRO_FAB_CASE({nc})\n", "")
+                              for nc in (1, 3, 6, 7, 8))),
+    "decode_attention": (_NO_BF16_ROUNDING,
+                         ("err = dispatch<float>(P, units, piece, stream);",
+                          "err = cudaErrorInvalidValue;")),
     # b87ae5a's forward: bf16 widened, x dt, the masked scores and the
     # decays kept in fp32
     "ssd_scan": (("return sizeof(T) == 2 ? __bfloat162float("
                   "__float2bfloat16_rn(v)) : v;", "return v;"),),
     # a backward that keeps the cotangents of W, of the masked scores and
     # of x dt in fp32 (the forward's values still rounded)
-    "ssd_scan_bwd": (("round_as<T>(float(dw))", "float(dw)"),
-                     ("g = round_as<T>(*dm);", "g = *dm;"),
-                     ("g = round_as<T>(sDX[t * ldp + j]);",
-                      "g = sDX[t * ldp + j];")),
+    "ssd_scan_bwd": (("round_as<T>(float(quad_sum(dws[hr])))",
+                      "float(quad_sum(dws[hr]))"),
+                     ("const float gd = round_as<T>(acc[j][e]);",
+                      "const float gd = acc[j][e];"),
+                     ("const float gx = round_as<T>(d[j][e] + xw[j][e]);",
+                      "const float gx = d[j][e] + xw[j][e];")),
 }
 FULL_TRIAL_OVER = {"model_args": {"reduced": False}, "sync": "local:1:c8",
                    "rows": 20, "max_epochs": 1, "fleet.workers": 2}
@@ -400,7 +511,10 @@ def check(cond: bool, msg: str) -> None:
 
 # ------------------------------------------------------------ 1. device ----
 
-def phase_device():
+def phase_device(planted_copies: bool = True):
+    """The card, and the kernels built (with the planted copies unless
+    ``planted_copies`` is false: a checkout of another commit, whose
+    sources the PLANTED texts need not match)."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
@@ -417,14 +531,13 @@ def phase_device():
           f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build
     t0 = time.time()
-    procs = start_planted()
     libs = build.build(["quant8", "topk_ef", "flash_attention",
                         "flash_attention_bwd", "decode_attention",
                         "ssd_scan", "ssd_scan_bwd"])
-    finish_planted(procs)
     print(f"build: {time.time() - t0:.2f} s, "
-          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values())
-          + " and the planted copies of " + ", ".join(PLANTED))
+          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    if planted_copies:            # built beside phase 2, awaited at first use
+        _PLANTED_PROCS.update(start_planted())
     return card
 
 
@@ -450,35 +563,53 @@ def start_planted() -> dict:
     return procs
 
 
+#: the planted copies' nvcc processes still running (phase_device starts
+#: them once the kernels are built; ``planted`` waits for them)
+_PLANTED_PROCS: dict = {}
+
+
 def finish_planted(procs: dict) -> None:
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"planted {name}: nvcc failed:\n{log}")
+    t0 = time.time()
+    for name in list(procs):
+        log, _ = procs[name].communicate()
+        check(procs[name].returncode == 0,
+              f"planted {name}: nvcc failed:\n{log}")
+        del procs[name]
+    print(f"  planted copies built (waited {time.time() - t0:.1f} s)")
 
 
 class planted:
-    """Inside the block the wrapper of kernel ``name`` launches its planted
-    copy (PLANTED): a control's run, never the main path's."""
+    """Inside the block the wrappers of the kernels ``names`` launch their
+    planted copies (PLANTED): a control's run, never the main path's."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, *names: str):
+        self.names = names
 
     def __enter__(self):
         import ctypes
         from repro_torch.kernels import build
+        from repro_torch.kernels.decode_attention import kernel as dk
+        if _PLANTED_PROCS:
+            finish_planted(_PLANTED_PROCS)
+        from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.ssd_scan import kernel as sk
-        sigs = {"ssd_scan": sk._SIGNATURES,
-                "ssd_scan_bwd": sk._BWD_SIGNATURES}[self.name]
-        self.kept = build.load(self.name, sigs)
-        lib = ctypes.CDLL(str(PLANTED_DIR / f"lib{self.name}.so"))
-        for fn, argtypes in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        build._LOADED[self.name] = lib
+        self.kept = {}
+        for name in self.names:
+            sigs = {"ssd_scan": sk._SIGNATURES,
+                    "ssd_scan_bwd": sk._BWD_SIGNATURES,
+                    "flash_attention": fk._SIGNATURES,
+                    "flash_attention_bwd": fk._BWD_SIGNATURES,
+                    "decode_attention": dk._SIGNATURES}[name]
+            self.kept[name] = build.load(name, sigs)
+            lib = ctypes.CDLL(str(PLANTED_DIR / f"lib{name}.so"))
+            for fn, argtypes in sigs.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            build._LOADED[name] = lib
 
     def __exit__(self, *exc):
         from repro_torch.kernels import build
-        build._LOADED[self.name] = self.kept
+        build._LOADED.update(self.kept)
 
 
 # ----------------------------------------------------------- 2. kernels ----
@@ -826,10 +957,19 @@ def redesign_baseline(only: str | None = None) -> dict:
     flash attention and its backward at their timed shapes, the SSD and
     flash kernels and the backward against float64, and smollm-360m's
     prefill end to end.  ``only="flash_attention_bwd"`` takes the
-    backward's rows alone.  ``python3 -c 'import chip_smoke as c;
-    c.phase_device(); c.redesign_baseline()'``."""
+    backward's rows alone, ``only="ssd_scan_bwd"`` the SSD backward's
+    (timed at SSD_BWD_PATH in fp32, and against float64).  ``python3 -c
+    'import chip_smoke as c; c.phase_device(False); c.redesign_baseline()'``."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if only == "ssd_scan_bwd":
+        out = {"ssd_scan_bwd": [
+                   ssd_bwd_row(gen, *shape, torch.float32, True, False, False,
+                               timed=True, gate=False)
+                   for shape in SSD_BWD_PATH],
+               "ssd_bwd_vs_float64": ssd_bwd_vs_float64()}
+        print(json.dumps({"redesign_baseline": out}))
+        return out
     out = {"flash_attention_bwd": [
                flash_bwd_row(gen, *shape, torch.float32, timed=True)
                for shape in FLASH_BWD_TIMED],
@@ -935,6 +1075,198 @@ def _attn_inputs(gen, dtype, *shapes):
             for sh in shapes]
 
 
+def _score_ties(q, K, valid, div: float, scale: float = 1.0):
+    """(delta, P), each (R, n) float64: how far each score's bf16 rounding
+    chain bf16(bf16(s) / div) can move within its TIE_SUM_ULPS band
+    (times ``scale``) around the float64 q.k (0: not a near-tie), and the
+    softmax of the central scores over the valid keys."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import round_scores
+    q64, K64 = q.double(), K.double()
+    prod = torch.einsum("rd,rnd->rn", q64, K64)
+    band = (TIE_SUM_ULPS[0] + TIE_SUM_ULPS[1] * q.shape[-1] ** 0.5) \
+        * 2.0 ** -24 * scale * torch.einsum("rd,rnd->rn", q64.abs(),
+                                             K64.abs())
+
+    def chain(x):
+        return round_scores(x.float(), torch.bfloat16, div).double()
+
+    delta = (chain(prod + band) - chain(prod - band)).masked_fill(~valid, 0.0)
+    return delta, torch.softmax(chain(prod).masked_fill(
+        ~valid, float("-inf")), -1)
+
+
+def _bf16_reach(q, K, V, valid, div: float, scale: float = 1.0):
+    """The tie witness for R rows of bf16 attention: q (R, d), K and V (R,
+    n, d) (bf16 values), valid (R, n) the keys a row reads, div bf16(sqrt
+    d) -> (lo, hi), each (R, d) float64: the bf16 outputs a kernel may give
+    that rounds where the JAX model rounds, its fp32 sums within the
+    TIE_SUM_ULPS / TIE_P_ULPS bands (times ``scale``) of the float64 ones.
+    Each score's float64 q.k takes the bf16 rounding chain bf16(bf16(s) /
+    div) at both ends of its band: a near-tie score can come out either
+    way, delta apart.  P = softmax of the central scores, in float64; a
+    kernel's P_k is within exp(+-rho_k), rho_k = delta_k + log sum_j P_j
+    exp(delta_j) + the probability band, so its bf16 P_b is between the
+    roundings of the two ends; the output is sum_k P_b,k v_k within
+    sum_k |dP_b,k| |v_k| and the sum band, rounded at both ends."""
+    import torch
+    u = 2.0 ** -24 * scale
+    V64 = V.double()
+    n = valid.sum(-1, keepdim=True).double()
+    delta, p = _score_ties(q, K, valid, div, scale)
+    rho = delta + torch.log((p * torch.exp(delta)).sum(-1, keepdim=True)) \
+        + (TIE_P_ULPS[0] + TIE_P_ULPS[1] * n.sqrt() + n / TIE_P_ULPS[2]) * u
+
+    def rn(x):
+        return x.float().bfloat16().double()
+
+    pb, pb_lo, pb_hi = rn(p), rn(p * torch.exp(-rho)), rn(p * torch.exp(rho))
+    dpb = torch.maximum(pb_hi - pb, pb - pb_lo)
+    va = V64.abs()
+    o = torch.einsum("rn,rnd->rd", pb, V64)
+    spread = torch.einsum("rn,rnd->rd", dpb, va) + (
+        TIE_SUM_ULPS[0] + TIE_SUM_ULPS[1] * n.sqrt()) * u * torch.einsum(
+        "rn,rnd->rd", pb_hi, va)
+    return rn(o - spread), rn(o + spread)
+
+
+def flash_rows(q, k, v, causal: bool):
+    """The rows of flash attention's output (b, sq, h, d), flattened, for
+    the tie witness: idx -> (q, K, V, valid) of those rows."""
+    import torch
+    b, sq, h, d = q.shape
+    sk, m = k.shape[1], k.shape[2]
+
+    def rows(idx):
+        bi, qi, hi = idx // (sq * h), idx // h % sq, idx % h
+        kv = hi // (h // m)
+        keys = torch.arange(sk, device=q.device)
+        valid = (keys[None] <= qi[:, None]) if causal else \
+            torch.ones(len(idx), sk, dtype=torch.bool, device=q.device)
+        return q[bi, qi, hi], k[bi, :, kv], v[bi, :, kv], valid
+    return rows
+
+
+def decode_rows(q, k, v, length: int):
+    """The rows of decode attention's output (b, h, d) over a cache's
+    first ``length`` positions, for the tie witness."""
+    import torch
+    b, h, d = q.shape
+    m = k.shape[2]
+
+    def rows(idx):
+        bi, hi = idx // h, idx % h
+        kv = hi // (h // m)
+        return (q[bi, hi], k[bi, :length, kv], v[bi, :length, kv],
+                torch.ones(len(idx), length, dtype=torch.bool,
+                           device=q.device))
+    return rows
+
+
+def _unexplained(x, idx, rows, div: float, scale: float = 1.0) -> int:
+    """How many elements of the rows ``idx`` of x (bf16 output, flattened
+    to (rows, d)) lie outside the tie witness's reach, rows taken in
+    chunks of at most 2^24 float64s of K."""
+    import torch
+    if len(idx) == 0:
+        return 0
+    q0, K0, _, _ = rows(idx[:1])
+    per = max(1, 2 ** 24 // (K0.shape[1] * K0.shape[2]))
+    out = 0
+    for c in range(0, len(idx), per):
+        part = idx[c:c + per]
+        lo, hi = _bf16_reach(*rows(part), div, scale)
+        val = x[part].double()
+        out += int(((val < lo) | (val > hi)).sum())
+    return out
+
+
+def _bf16_gaps(outs, refs, rows=None) -> dict:
+    """Over pairs of tensors: ||out - ref|| / ||ref||, and the worst share
+    of elements and of rows (the last dim) that differ; with ``rows`` (one
+    forward output and its rows for the tie witness) also how many of its
+    elements lie outside the witness's reach ("unexplained"), how many of
+    the plain version's do (none, or the witness is wrong), the same at
+    the TIE_SCALES_READ multiples of its bands, and of its first 4096
+    moved rows how many hold a near-tie score ("tie_rows") and how many
+    their top-probability key's ("top_tie_rows")."""
+    import torch
+    out = {"norm_rel": _norm_rel(outs, refs), "share": 0.0, "row_share": 0.0,
+           "rows": 0}
+    for o, r in zip(outs, refs):
+        of = o.reshape(-1, o.shape[-1])
+        rf = r.reshape(-1, r.shape[-1])
+        differ = of != rf
+        out["share"] = max(out["share"], float(differ.double().mean()))
+        out["row_share"] = max(out["row_share"],
+                               float(differ.any(-1).double().mean()))
+        out["rows"] += of.shape[0]
+    if rows is not None:
+        from repro_torch.kernels.flash_attention.ref import bf16_divisor
+        of = outs[0].reshape(-1, outs[0].shape[-1])
+        rf = refs[0].reshape(-1, refs[0].shape[-1])
+        div = bf16_divisor(of.shape[-1] ** -0.5)
+        moved = (of != rf).any(-1).nonzero().flatten()
+        out["moved_rows"] = len(moved)
+        out["unexplained"] = _unexplained(of, moved, rows, div)
+        out["plain_unexplained"] = _unexplained(rf, moved, rows, div)
+        for scale in TIE_SCALES_READ:
+            out[f"unexplained_x{scale:g}"] = _unexplained(of, moved, rows,
+                                                          div, scale)
+        if len(moved):
+            q, K, _, valid = rows(moved[:4096])
+            delta, p = _score_ties(q, K, valid, div)
+            top = p.argmax(-1, keepdim=True)
+            out["tie_rows"] = int((delta > 0).any(-1).sum())
+            out["top_tie_rows"] = int((delta.gather(-1, top) > 0).sum())
+    return out
+
+
+def bf16_misses(gaps: dict, grads: bool = False) -> list:
+    """The limits a bf16 reading (``_bf16_gaps``) misses: forward outputs
+    ATTN_BF16_NORM_TOL, ATTN_BF16_SHARE_TOL and the tie witness, gradients
+    ATTN_BF16_GRAD_NORM_TOL and ATTN_BF16_GRAD_SHARE_TOL, both
+    ATTN_BF16_ROW_SHARE_TOL."""
+    norm, share = ((ATTN_BF16_GRAD_NORM_TOL, ATTN_BF16_GRAD_SHARE_TOL)
+                   if grads else (ATTN_BF16_NORM_TOL, ATTN_BF16_SHARE_TOL))
+    out = []
+    if gaps["norm_rel"] > norm:
+        out.append(f"norm-wise {gaps['norm_rel']:.3e} > {norm:g}")
+    if gaps["share"] > share:
+        out.append(f"{gaps['share']:.4f} of the elements differ (> {share:g})")
+    if gaps["row_share"] > ATTN_BF16_ROW_SHARE_TOL:
+        out.append(f"{gaps['row_share']:.4f} of the rows moved (> "
+                   f"{ATTN_BF16_ROW_SHARE_TOL:g})")
+    if gaps.get("unexplained", 0):
+        out.append(f"{gaps['unexplained']} elements outside the tie "
+                   f"witness's reach")
+    return out
+
+
+def hold_bf16(what: str, outs, refs, worst: dict | None = None,
+              rows=None, grads: bool = False) -> dict:
+    """Fails unless bf16 ``outs`` are within their limits of the plain
+    version's ``refs`` (:func:`bf16_misses`; ``rows``: the tie witness's
+    rows of a forward output, ``grads``: gradients' limits), and unless
+    the witness explains every element of the plain version's moved rows
+    (a check of the witness itself); keeps the worst readings in
+    ``worst``, and the sums of the counts of rows and elements."""
+    import torch
+    torch.cuda.synchronize()
+    gaps = _bf16_gaps(outs, refs, rows)
+    check(not gaps.get("plain_unexplained", 0),
+          f"{what} bf16: the tie witness does not reach the plain version "
+          f"({gaps}): its bands are too narrow")
+    misses = bf16_misses(gaps, grads)
+    check(not misses, f"{what} bf16 against the plain version: "
+                      f"{'; '.join(misses)} ({gaps})")
+    if worst is not None:
+        for k, v in gaps.items():
+            worst[k] = (worst.get(k, 0) + v) if isinstance(v, int) \
+                else max(worst.get(k, 0.0), v)
+    return gaps
+
+
 def phase_attention_kernels() -> dict:
     """Flash attention and flash decoding against their plain versions on
     the card (within ATTN_TOL), then timed at the main path's shapes (flash
@@ -955,8 +1287,10 @@ def phase_attention_kernels() -> dict:
     #: and over the serving path's own shapes ("path")
     errs = {name: {"sweep": {}, "path": {}} for name in ATTN_TOL}
     n = {"flash_attention": 0, "decode_attention": 0}
+    #: the worst bf16 readings against the plain version (``_bf16_gaps``)
+    bf16 = {name: {} for name in ATTN_TOL}
 
-    def hold(name, out, ref, dtype, what, group="sweep"):
+    def hold(name, out, ref, dtype, what, group="sweep", rows=None):
         """Fails unless the kernel's output is within ATTN_TOL of the plain
         version's; in bf16 the tolerance is relative to the largest plain
         output where that is below 1 (long full-attention rows average to
@@ -971,6 +1305,8 @@ def phase_attention_kernels() -> dict:
         check(err <= tol, f"{name} {what} {key}: max |kernel - plain| "
                           f"{err:.3e} > {tol:.3e}")
         errs[name][group][key] = max(errs[name][group].get(key, 0.0), err)
+        if dtype == torch.bfloat16:
+            hold_bf16(f"{name} {what}", [out], [ref], bf16[name], rows)
         n[name] += 1
         return err
 
@@ -979,7 +1315,8 @@ def phase_attention_kernels() -> dict:
                                (b, sk, m, d))
         hold("flash_attention", flash_attention_kernel(q, k, v, causal=causal),
              flash_attention_plain(q, k, v, causal=causal), dtype,
-             f"b{b} sq{sq} sk{sk} h{h} m{m} d{d} causal={causal}", group)
+             f"b{b} sq{sq} sk{sk} h{h} m{m} d{d} causal={causal}", group,
+             flash_rows(q, k, v, causal))
 
     def hold_decode(b, S, lengths, h, m, d, dtype, group="sweep"):
         q, k, v = _attn_inputs(gen, dtype, (b, h, d), (b, S, m, d),
@@ -987,7 +1324,8 @@ def phase_attention_kernels() -> dict:
         for length in lengths:
             hold("decode_attention", decode_attention_kernel(q, k, v, length),
                  decode_plain(q, k, v, length), dtype,
-                 f"b{b} S{S} length{length} h{h} m{m} d{d}", group)
+                 f"b{b} S{S} length{length} h{h} m{m} d{d}", group,
+                 decode_rows(q, k, v, length))
 
     from repro_torch.kernels.decode_attention.kernel import (
         TILE, plan_splits, units)
@@ -1067,6 +1405,7 @@ def phase_attention_kernels() -> dict:
         "max_abs_err": errs["flash_attention"]["path"]["float32"],
         "max_abs_err_bf16": errs["flash_attention"]["path"]["bfloat16"],
         "sweep_max_abs_err": errs["flash_attention"]["sweep"],
+        "bf16_vs_plain": bf16["flash_attention"],
         "vs_float64": vs_fp64, "shapes": shapes}
     shapes = []
     for b, S, length in DECODE_TIMED:
@@ -1089,7 +1428,9 @@ def phase_attention_kernels() -> dict:
         "max_abs_err": errs["decode_attention"]["path"]["float32"],
         "max_abs_err_bf16": errs["decode_attention"]["path"]["bfloat16"],
         "sweep_max_abs_err": errs["decode_attention"]["sweep"],
-        "shapes": shapes}
+        "bf16_vs_plain": bf16["decode_attention"], "shapes": shapes}
+    print("  bf16 against the plain versions (worst; counts summed): "
+          + json.dumps(bf16))
     torch.cuda.empty_cache()
     return rows
 
@@ -1113,44 +1454,54 @@ def _attention_f64_grads(q, k, v, do, causal: bool = True):
     return torch.autograd.grad(o, leaves, do.double())
 
 
-def _bwd_kernel(q, k, v, do, causal: bool = True):
-    """(dq, dk, dv) of the backward kernel on a forward made here."""
+def _bwd_kernel(q, k, v, do, causal: bool = True, with_o: bool = False):
+    """(dq, dk, dv) of the backward kernel on a forward made here (with
+    ``with_o``: (o, (dq, dk, dv)))."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_kernel, flash_attention_kernel)
-    _o, lse = flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
-    return flash_attention_bwd_kernel(q, k, v, do, lse, causal=causal)
+    o, lse = flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
+    grads = flash_attention_bwd_kernel(q, k, v, do, lse, causal=causal)
+    return (o, grads) if with_o else grads
 
 
 def flash_bwd_sweep(gen) -> float:
     """The backward kernel against autograd of the plain version at every
     FLASH_BWD_SWEEP shape in fp32 and bf16 (within FLASH_BWD_TOL of the
-    largest |plain gradient|); returns the largest fp32 error relative to
-    that."""
+    largest |plain gradient|; bf16 also ``hold_bf16``, its forward with
+    the tie witness); returns the largest fp32 error relative to that."""
     import torch
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd_plain)
+        flash_attention_bwd_plain, flash_attention_plain)
     worst = 0.0
+    bf16 = {"forward": {}, "backward": {}}
     for b, sq, sk, h, m, d, causal in FLASH_BWD_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = _attn_inputs(gen, dtype, (b, sq, h, d),
                                        (b, sk, m, d), (b, sk, m, d),
                                        (b, sq, h, d))
-            got = _bwd_kernel(q, k, v, do, causal)
+            o, got = _bwd_kernel(q, k, v, do, causal, with_o=True)
             plain = flash_attention_bwd_plain(q, k, v, do, causal=causal)
             torch.cuda.synchronize()
             key = str(dtype).replace("torch.", "")
             scale = max(float(p.float().abs().max()) for p in plain)
             err = max(float((a.float() - p.float()).abs().max())
                       for a, p in zip(got, plain))
+            what = (f"flash_attention_bwd b{b} sq{sq} sk{sk} h{h} m{m} d{d} "
+                    f"causal={causal}")
             check(err <= FLASH_BWD_TOL[key] * scale,
-                  f"flash_attention_bwd b{b} sq{sq} sk{sk} h{h} m{m} d{d} "
-                  f"causal={causal} {key}: max |kernel - plain| {err:.3e} > "
+                  f"{what} {key}: max |kernel - plain| {err:.3e} > "
                   f"{FLASH_BWD_TOL[key]:g} x {scale:.3e}")
             if dtype == torch.float32:
                 worst = max(worst, err / scale)
+            else:
+                hold_bf16(f"{what} forward", [o], [flash_attention_plain(
+                    q, k, v, causal=causal)], bf16["forward"],
+                    flash_rows(q, k, v, causal))
+                hold_bf16(what, got, plain, bf16["backward"], grads=True)
     print(f"  flash_attention_bwd sweep: {len(FLASH_BWD_SWEEP)} shapes x "
           f"fp32/bf16 within FLASH_BWD_TOL (fp32 worst {worst:.3e} of the "
-          f"largest gradient)")
+          f"largest gradient); bf16 against the plain versions (worst; "
+          f"counts summed): {json.dumps(bf16)}")
     return worst
 
 
@@ -1227,6 +1578,14 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
           f"{err:.3e} > {FLASH_BWD_TOL[key]:g} x {scale:.3e}")
     check(row["repeat_bitwise"], f"flash_attention_bwd {row['shape']}: two "
                                  f"calls differ")
+    if dtype == torch.bfloat16:
+        row["bf16_vs_plain"] = {
+            "forward": hold_bf16(f"flash_attention {row['shape']}", [_o],
+                                 [flash_attention_plain(q, k, v,
+                                                        causal=True)],
+                                 rows=flash_rows(q, k, v, True)),
+            "backward": hold_bf16(f"flash_attention_bwd {row['shape']}", got,
+                                  plain, grads=True)}
     if dtype == torch.float32:
         exact = _attention_f64_grads(q, k, v, do)
         row["vs_float64"] = {
@@ -1297,6 +1656,8 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
         del qt, kt, vt, leaves
     print(f"  flash_attention_bwd {row['shape']}: max|err|={err:.3e} "
           f"(largest |g| {scale:.3e})"
+          + (f" bf16_vs_plain={json.dumps(row['bf16_vs_plain'])}"
+             if "bf16_vs_plain" in row else "")
           + (f" vs_float64={json.dumps(row['vs_float64'])}"
              if "vs_float64" in row else "")
           + (f" backward: ms={row['ms']:.5f} bound_ms="
@@ -1345,6 +1706,240 @@ def phase_flash_bwd() -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "sweep_rel_err": sweep, "vs_float64_seeded": vs_fp64,
             "shapes": shapes}
+
+
+def _bf16_controls(what: str, out, ctrl, ref, rows) -> dict:
+    """A forward output's controls against the plain version ``ref``: the
+    planted copy's ``ctrl`` (the kernel before the bf16 repair) must miss
+    ATTN_BF16_NORM_TOL, and a mix, ``out`` with every fourth row taken
+    from ``ctrl`` (a kernel that drops the rounding on a quarter of its
+    rows), must miss a limit of ``hold_bf16``."""
+    import torch
+    torch.cuda.synchronize()
+    mixed = out.reshape(-1, out.shape[-1]).clone()
+    mixed[::4] = ctrl.reshape(-1, out.shape[-1])[::4]
+    res = {"planted": _bf16_gaps([ctrl], [ref], rows),
+           "mixed": _bf16_gaps([mixed.reshape(ref.shape)], [ref], rows)}
+    res["mixed_misses"] = bf16_misses(res["mixed"])
+    check(res["planted"]["norm_rel"] > ATTN_BF16_NORM_TOL,
+          f"{what}: the kernel without the bf16 rounding reads "
+          f"{res['planted']} against the plain version, within "
+          f"{ATTN_BF16_NORM_TOL:g}: the limit does not catch it")
+    check(bool(res["mixed_misses"]),
+          f"{what}: a quarter of the rows without the bf16 rounding reads "
+          f"{res['mixed']}, within every limit: they do not catch it")
+    return res
+
+
+def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
+    """bf16 flash attention at a training-path shape, causal, q/dO (b, s,
+    h, d) and k/v (b, s, m, d): the forward and backward kernels against
+    their plain versions (``hold_bf16``) and their planted copies (the
+    kernels before the bf16 repair), which must miss ATTN_BF16_NORM_TOL
+    and ATTN_BF16_GRAD_NORM_TOL, with the forward's mixed control
+    (:func:`_bf16_controls`);
+    then CUDA-event times of each kernel, its plain version and
+    ``F.scaled_dot_product_attention`` in bf16 -- a yardstick only: SDPA
+    keeps scores and probabilities in fp32, another function than the JAX
+    model's.  Bounds: the forward's two and the backward's five s x s x d
+    products over the causal pairs at the tensor cores' bf16 rate, and the
+    bytes (inputs read once, outputs and the log-sum-exp written once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    q, k, v, do = _attn_inputs(gen, torch.bfloat16, (b, s, h, d),
+                               (b, s, m, d), (b, s, m, d), (b, s, h, d))
+    o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+    grads = flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
+    o_plain = flash_attention_plain(q, k, v, causal=True)
+    g_plain = flash_attention_bwd_plain(q, k, v, do, causal=True)
+    shape = f"b{b} s{s} h{h} m{m} d{d} causal bf16"
+    rows = flash_rows(q, k, v, True)
+    row = {"shape": shape,
+           "forward": hold_bf16(f"flash_attention {shape}", [o], [o_plain],
+                                rows=rows),
+           "backward": hold_bf16(f"flash_attention_bwd {shape}", grads,
+                                 g_plain, grads=True)}
+    with planted("flash_attention", "flash_attention_bwd"):
+        o_c, lse_c = flash_attention_kernel(q, k, v, causal=True,
+                                            with_lse=True)
+        g_c = flash_attention_bwd_kernel(q, k, v, do, lse_c, causal=True)
+        torch.cuda.synchronize()
+    controls = _bf16_controls(f"flash_attention {shape}", o, o_c, o_plain,
+                              rows)
+    row["planted_forward"] = controls["planted"]
+    row["mixed_forward"] = controls["mixed"]
+    row["planted_backward"] = _bf16_gaps(g_c, g_plain)
+    check(row["planted_backward"]["norm_rel"] > ATTN_BF16_GRAD_NORM_TOL,
+          f"flash_attention_bwd {shape}: the kernel without the bf16 "
+          f"rounding reads {row['planted_backward']} against the plain "
+          f"version, within {ATTN_BF16_GRAD_NORM_TOL:g}: the limit does not "
+          f"catch it")
+    del o_c, lse_c, g_c
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    with torch.enable_grad():
+        o_graph = flash_attention_plain(*leaves, causal=True)
+        o_lib = library_fwd()
+    pairs = _causal_pairs(s, s)
+    io = 2 * (2 * b * s * h * d + 2 * b * s * m * d) + 4 * b * h * s
+    fwd_b, fwd_by = bound_ms(io, 4 * b * h * pairs * d, BF16_OPS_PER_S)
+    bwd_b, bwd_by = bound_ms(io + 2 * b * s * h * d,
+                             10 * b * h * pairs * d, BF16_OPS_PER_S)
+    with torch.no_grad():
+        row["forward"].update(
+            ms=time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                      with_lse=True)),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
+                                                           causal=True)),
+            library_ms=time_ms(library_fwd), bound_ms=fwd_b,
+            bound_by=fwd_by)
+    row["backward"].update(
+        ms=time_ms(lambda: flash_attention_bwd_kernel(q, k, v, do, lse,
+                                                      causal=True)),
+        plain_ms=time_ms(lambda: torch.autograd.grad(
+            o_graph, leaves, do, retain_graph=True), reps=10),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), dot, retain_graph=True)),
+        bound_ms=bwd_b, bound_by=bwd_by)
+    row["library"] = ("F.scaled_dot_product_attention(..., is_causal=True, "
+                      "enable_gqa=True) in bf16 (not the JAX model's "
+                      "rounding)")
+    print(f"  flash_attention bf16 {shape}: " + json.dumps(
+        {k: row[k] for k in ("forward", "backward", "planted_forward",
+                             "mixed_forward", "planted_backward")}))
+    del q, k, v, do, o, lse, grads, o_plain, g_plain, o_graph, o_lib, leaves
+    torch.cuda.empty_cache()
+    return row
+
+
+def decode_bf16_row(gen, b: int, S: int, length: int, h: int, m: int,
+                    d: int, timed: bool = False) -> dict:
+    """bf16 decode attention over a (b, S) cache with ``length`` valid
+    positions: the kernel against its plain version (``hold_bf16``), two
+    calls bitwise equal, its planted copy (the kernel before the bf16
+    repair) that must miss ATTN_BF16_NORM_TOL and the mixed control
+    (:func:`_bf16_controls`); with ``timed`` CUDA-event
+    times of the kernel, the plain version and SDPA in bf16 (a yardstick:
+    not the JAX model's rounding) against the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain)
+    q, k, v = _attn_inputs(gen, torch.bfloat16, (b, h, d), (b, S, m, d),
+                           (b, S, m, d))
+    out = decode_attention_kernel(q, k, v, length)
+    again = decode_attention_kernel(q, k, v, length)
+    ref = decode_attention_plain(q, k, v, length)
+    shape = f"b{b} S{S} length{length} h{h} m{m} d{d} bf16"
+    rows = decode_rows(q, k, v, length)
+    row = {"shape": shape,
+           "vs_plain": hold_bf16(f"decode_attention {shape}", [out], [ref],
+                                 rows=rows),
+           "repeat_bitwise": _bits_equal(out, again)}
+    check(row["repeat_bitwise"], f"decode_attention {shape}: two calls "
+                                 f"differ")
+    with planted("decode_attention"):
+        ctrl = decode_attention_kernel(q, k, v, length)
+        torch.cuda.synchronize()
+    controls = _bf16_controls(f"decode_attention {shape}", out, ctrl, ref,
+                              rows)
+    row["planted"], row["mixed"] = controls["planted"], controls["mixed"]
+    if timed:
+        nbytes = 2 * (2 * b * length * m * d + 2 * b * h * d)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 4 * b * h * length * d, BF16_OPS_PER_S)
+        row.update(
+            ms=time_ms(lambda: decode_attention_kernel(q, k, v, length)),
+            plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, length)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :length].transpose(1, 2),
+                v[:, :length].transpose(1, 2), enable_gqa=True)),
+            library="F.scaled_dot_product_attention(..., enable_gqa=True) "
+                    "in bf16 (not the JAX model's rounding)")
+    print(f"  decode_attention {shape}: " + json.dumps(row))
+    return row
+
+
+#: the attention kernels' fp32 output bits on seeded inputs
+#: (``attention_fp32_sha256``): the kernels before the bf16 repair
+#: (4a52093) read these on an H100 80GB HBM3 at 700 W; fp32 must not move
+ATTN_FP32_SHA256_PARENT = {
+    "flash_attention":
+        "068a005006ffc6db931074393a59eba84605d328568a611a17324ae09613cbf9",
+    "flash_attention_bwd":
+        "e1edadc8b9daeb8b6b3c2767c9d5ec8f9480206809854b922fec3153b10d40ac",
+    "decode_attention":
+        "bf10b8c153c2bf00ab98b6b09ca05e34d1fd15cf9847c2a923e6c0fb66d41bd0"}
+
+
+def attention_fp32_sha256() -> dict:
+    """sha256 of the fp32 outputs of the three attention kernels on inputs
+    from their own seed, at the training path's shape and a ragged GQA
+    one: flash attention (o and the log-sum-exp), its backward (dq, dk,
+    dv), and decode at DECODE_TIMED[0].  It runs in a checkout of any
+    commit since the backward kernel (the wrappers' signatures are the
+    same): ``python3 -c 'import chip_smoke as c; c.phase_device();
+    c.attention_fp32_sha256()'``."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_kernel)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    digest = {}
+
+    def sha(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    fwd, bwd = [], []
+    for b, s, h, m, d in ((8, 64, *_SMOLLM_ATTN), (2, 47, 6, 2, 20)):
+        q, k, v, do = _attn_inputs(gen, torch.float32, (b, s, h, d),
+                                   (b, s, m, d), (b, s, m, d), (b, s, h, d))
+        o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+        fwd += [o, lse]
+        bwd += list(flash_attention_bwd_kernel(q, k, v, do, lse,
+                                               causal=True))
+    digest["flash_attention"] = sha(*fwd)
+    digest["flash_attention_bwd"] = sha(*bwd)
+    b, S, length = DECODE_TIMED[0]
+    h, m, d = _SMOLLM_ATTN
+    q, k, v = _attn_inputs(gen, torch.float32, (b, h, d), (b, S, m, d),
+                           (b, S, m, d))
+    digest["decode_attention"] = sha(decode_attention_kernel(q, k, v, length))
+    print("  attention fp32 sha256: " + json.dumps(digest))
+    return digest
+
+
+def phase_attention_bf16() -> dict:
+    """bf16 attention at the training path's shapes (ATTN_BF16_TIMED:
+    forward and backward) and decode at DECODE_BF16_TIMED, timed, and
+    decode at zamba2's cache of phase 3e (a): each kernel against its
+    plain version and its planted copy without the rounding points."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    t0 = time.time()
+    flash = [attention_bf16_row(gen, *shape) for shape in ATTN_BF16_TIMED]
+    b, S, length = DECODE_BF16_TIMED
+    decode = [decode_bf16_row(gen, b, S, length, *_SMOLLM_ATTN, timed=True),
+              decode_bf16_row(gen, 4, 16 + 32 + 1, 48, *_ZAMBA2_ATTN)]
+    print(f"  bf16 attention phase: {time.time() - t0:.1f} s")
+    return {"flash": flash, "decode": decode}
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype, model_like: bool):
@@ -1627,7 +2222,7 @@ def ssd_bwd_flop(b: int, s: int, h: int, p: int, n: int, init: bool,
 
 def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
                 model_like: bool, with_init: bool, with_dstate: bool,
-                timed: bool = False) -> dict:
+                timed: bool = False, gate: bool = True) -> dict:
     """The SSD backward kernel (through ``ssd_scan_fused`` under autograd:
     ``SSDScan``) against autograd of the chunked plain version, each
     gradient within SSD_BWD_TOL of its largest plain |g|, two calls equal
@@ -1637,9 +2232,19 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
     ``timed``: CUDA-event times of the backward alone (the kernel's
     wrapper; the plain version's autograd backward from a forward made
     outside the timed call) and of forward + backward, with a 3xTF32, an
-    fp32 and a bytes bound (no PyTorch call computes this gradient)."""
+    fp32 and a bytes bound (no PyTorch call computes this gradient).
+    Without ``gate`` (another checkout's kernel, read for comparison) a
+    miss is recorded in ``misses`` instead of failing."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as sk
+
+    misses = []
+
+    def gate_check(cond, msg):
+        if gate:
+            check(cond, msg)
+        elif not cond:
+            misses.append(msg)
     from repro_torch.kernels.ssd_scan.ops import (
         decay_rates, ssd_scan_fused, ssd_scan_recurrence)
     from repro_torch.kernels.ssd_scan.ref import (
@@ -1656,7 +2261,7 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
 
     before = sk.launches["ssd_scan_bwd"]
     got = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
-    check(sk.launches["ssd_scan_bwd"] == before + 1,
+    gate_check(sk.launches["ssd_scan_bwd"] == before + 1,
           "ssd_scan_fused under autograd did not launch the backward kernel")
     again = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
     plain = _ssd_grads(plain_fn, leaves, init, dy, dstate)
@@ -1668,7 +2273,7 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
             + (" dstate" if with_dstate else ""))
     row = {"shape": what, "rel_err": {}, "closed_form_rel_err": {},
            "repeat_bitwise": all(_bits_equal(got[k], again[k]) for k in got)}
-    check(row["repeat_bitwise"], f"ssd_scan_bwd {what}: two calls differ")
+    gate_check(row["repeat_bitwise"], f"ssd_scan_bwd {what}: two calls differ")
     if dtype == torch.bfloat16:
         with planted("ssd_scan_bwd"):
             ctrl = _ssd_grads(kernel_fn, leaves, init, dy, dstate)
@@ -1678,21 +2283,21 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
         del ctrl
         over = {k: v for k, v in row["norm_rel"].items()
                 if v > SSD_BF16_NORM_TOL}
-        check(not over, f"ssd_scan_bwd {what}: norm-wise {over} from the "
+        gate_check(not over, f"ssd_scan_bwd {what}: norm-wise {over} from the "
                         f"plain gradient, over {SSD_BF16_NORM_TOL:g}")
-        check(max(row["planted_norm_rel"].values()) > SSD_BF16_NORM_TOL,
+        gate_check(max(row["planted_norm_rel"].values()) > SSD_BF16_NORM_TOL,
               f"ssd_scan_bwd {what}: the planted backward that keeps its "
               f"cotangents fp32 reads {row['planted_norm_rel']} norm-wise, "
               f"within {SSD_BF16_NORM_TOL:g}: the limit would not catch it")
     for name, g in got.items():
         scale = float(plain[name].float().abs().max())
-        check(bool(g.float().isfinite().all()) and g.dtype == plain[name].dtype,
+        gate_check(bool(g.float().isfinite().all()) and g.dtype == plain[name].dtype,
               f"ssd_scan_bwd {what} {name}: not finite or {g.dtype}")
         err = float((g.float() - plain[name].float()).abs().max())
         row["rel_err"][name] = err / scale if scale else err
         row["closed_form_rel_err"][name] = float(
             (g.float() - closed[name].float()).abs().max()) / (scale or 1.0)
-        check(err <= SSD_BWD_TOL[key] * scale,
+        gate_check(err <= SSD_BWD_TOL[key] * scale,
               f"ssd_scan_bwd {what} {name}: max |kernel - plain| {err:.3e} "
               f"> {SSD_BWD_TOL[key]:g} x {scale:.3e}")
     if dtype == torch.float32:
@@ -1709,7 +2314,7 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
             for name, x in exact.items()}
         del exact
         for name, e in row["vs_float64"].items():
-            check(e["kernel"] <= 2 * e["plain"],
+            gate_check(e["kernel"] <= 2 * e["plain"],
                   f"ssd_scan_bwd {what} {name}: {e['kernel']:.3e} from "
                   f"float64, over twice the plain version's {e['plain']:.3e}")
     if timed:
@@ -1749,6 +2354,8 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
             library="none (no PyTorch call computes the SSD scan's "
                     "gradient)")
         del y_plain, outs
+    if misses:
+        row["misses"] = misses
     print(f"  ssd_scan_bwd {what}: |kernel - plain| / largest plain |g| "
           + json.dumps({k: float(f"{v:.3e}") for k, v in row["rel_err"].items()})
           + "; closed form " + json.dumps(
@@ -1768,6 +2375,46 @@ def ssd_bwd_row(gen, b: int, s: int, h: int, p: int, n: int, dtype,
     del leaves, init, dy, dstate, got, again, plain, closed
     torch.cuda.empty_cache()
     return row
+
+
+def ssd_bwd_vs_float64() -> dict:
+    """Rounding of the SSD backward kernel at the training path's shapes
+    (SSD_BWD_PATH, fp32, model-like inputs from their own seed, the same in
+    every checkout): the gradients of ``ssd_scan_fused`` (the kernel under
+    autograd) and of the chunked plain version against autograd of the
+    float64 recurrence, max |g - exact| per gradient, and a hash of the
+    kernel's gradient bits.  It runs in a checkout of any commit since the
+    backward kernel (``redesign_baseline(only="ssd_scan_bwd")``)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_scan_fused, ssd_scan_recurrence)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked
+    gen = torch.Generator(device="cuda").manual_seed(SSD_BWD_FP64_SEED)
+    out = {}
+    for b, s, h, p, n in SSD_BWD_PATH:
+        leaves, init, dy, dstate = _ssd_bwd_inputs(
+            gen, b, s, h, p, n, torch.float32, True, False, False)
+        got = _ssd_grads(lambda *a: ssd_scan_fused(*a[:5], init_state=a[5]),
+                         leaves, init, dy, dstate)
+        plain = _ssd_grads(lambda *a: ssd_scan_chunked(
+            *a[:5], SSD_MODEL_CHUNK, a[5]), leaves, init, dy, dstate)
+        exact = _ssd_grads(
+            lambda *a: ssd_scan_recurrence(*a[:5], a[5]),
+            [t.detach().double().requires_grad_(True) for t in leaves],
+            None, dy.double(), None)
+        row = {name: {"kernel": float((got[name].double() - x).abs().max()),
+                      "plain": float((plain[name].double() - x).abs().max()),
+                      "max_abs_grad": float(x.abs().max())}
+               for name, x in exact.items()}
+        h_ = hashlib.sha256()
+        for name in exact:
+            h_.update(got[name].cpu().numpy().tobytes())
+        row["kernel_sha256"] = h_.hexdigest()
+        out[f"b{b} s{s} h{h} p{p} n{n}"] = row
+        del leaves, dy, got, plain, exact
+    torch.cuda.empty_cache()
+    print("  ssd_scan_bwd vs the float64 recurrence: " + json.dumps(out))
+    return out
 
 
 def ssd_forward_bf16(gen) -> dict:
@@ -1841,6 +2488,16 @@ def phase_ssd_bwd() -> dict:
             rows.append(ssd_bwd_row(gen, *shape, dtype, False, with_init,
                                     True))
     fwd = ssd_forward_bf16(torch.Generator(device="cuda").manual_seed(7))
+    vs_fp64 = ssd_bwd_vs_float64()
+    for shape, row in vs_fp64.items():
+        for name, e in row.items():
+            if name == "kernel_sha256":
+                continue
+            parent = SSD_BWD_FP64_PARENT[shape][name]["kernel"]
+            check(e["kernel"] <= 2 * parent,
+                  f"ssd_scan_bwd vs float64 {shape} {name}: "
+                  f"{e['kernel']:.3e}, over twice the replaced kernel's "
+                  f"{parent:.3e}")
     timed = [r for r in rows if "ms" in r]
     main = timed[0]
     return {**{k: main[k] for k in (
@@ -1857,7 +2514,8 @@ def phase_ssd_bwd() -> dict:
             "min_planted_norm_rel_bf16": min(
                 max(r["planted_norm_rel"].values())
                 for r in rows if "norm_rel" in r),
-            "forward_bf16_rel_err": fwd, "timed": timed, "rows": rows}
+            "forward_bf16_rel_err": fwd, "vs_float64_seeded": vs_fp64,
+            "timed": timed, "rows": rows}
 
 
 # -------------------------------------------------------------- 3. path ----
@@ -3211,12 +3869,15 @@ def phase_train(helper: "CpuSide") -> dict:
     counts (its CPU run made by 3h's helper process, ``helper``); (d) the
     serving simulator's frontier on the card, equal to the
     CPU's text and holding its invariants.  Returns the training launches
-    (they join the kernels line) and each part's numbers and seconds."""
+    (they join the kernels line) and each part's numbers and seconds.
+    From here on 3h's helper shares the card (:meth:`CpuSide.go`): 3g and
+    3h time no kernel, and their seconds are those of a shared card."""
     import torch
     from repro_torch.core.workloads import is_arch_workload
     from repro_torch.experiments import PRESETS, run_experiment
     totals: dict = {}
     out = {"seconds": {}}
+    helper.go()
     t0 = time.time()
     trials = [spec for preset in PRESETS.values()
               for spec in preset.build(True) if is_arch_workload(spec.model)]
@@ -3328,8 +3989,9 @@ def cpu_side(out: Path) -> None:
     run (``PATH.3g``), then (b)'s full-width CPU gradients (both models,
     fp32 and bf16; mamba2's fp32 also with the SSD in float64), the CPU
     runs of (c)'s full-width fp32 trial and of (a)'s trials; then, once
-    the main process has reached 3h (``PATH.go``: phases 2-3g time
-    kernels and must have the card alone), (b)'s card gradients, each
+    the main process has reached 3g (``PATH.go``: phases 2-3f time
+    kernels and serving loops and must have the card alone), (b)'s card
+    gradients, each
     with a second call read in situ, held against the CPU's
     (:func:`_vs_cpu_grad`), mamba2's planted controls
     (:func:`_planted_ddt_control`) and the op witness of both models
@@ -3695,8 +4357,9 @@ def _planted_ddt_control(name: str, dtype: str, params32, cpu: dict,
 
 class CpuSide:
     """The helper process of :func:`cpu_side`: started after phase 1, let
-    onto the card at 3h (:meth:`go`), waited for there (:meth:`result`),
-    stopped by :meth:`stop` whatever happens."""
+    onto the card at 3g (:meth:`go`: its card work runs beside 3g and
+    3h), waited for at 3h (:meth:`result`), stopped by :meth:`stop`
+    whatever happens."""
 
     def __init__(self):
         CPU_SIDE_DIR.mkdir(parents=True, exist_ok=True)
@@ -3762,7 +4425,6 @@ def phase_train_ssm(helper: CpuSide) -> dict:
     totals: dict = {}
     out = {"seconds": {}}
     t0 = time.time()
-    helper.go()
     trials = _ssm_trials()
     check(len(trials) == 9 * len(SSM_TRAIN_MODELS),
           f"3h (a): {len(trials)} trials")
@@ -3878,6 +4540,11 @@ def _phases(t0, phase, card, helper) -> int:
     kern = phase_kernels()
     attn = phase_attention_kernels()
     bwd = phase_flash_bwd()
+    attn_bf16 = phase_attention_bf16()
+    fp32_bits = attention_fp32_sha256()
+    check(fp32_bits == ATTN_FP32_SHA256_PARENT,
+          "the attention kernels' fp32 outputs differ from the bits of the "
+          "kernels before the bf16 repair (ATTN_FP32_SHA256_PARENT)")
     ssd = phase_ssd_kernel()
     ssd_bwd = phase_ssd_bwd()
     phase("3: path")
@@ -3947,8 +4614,14 @@ def _phases(t0, phase, card, helper) -> int:
                      "library_ms", "shape", "library", "max_abs_err_bf16",
                      "timed_max_abs_err", "sweep_max_abs_err")},
                  **{k: row[k] for k in ("bound_fp32_ms", "bytes_bound_ms",
-                                        "launch_us", "vs_float64", "shapes")
+                                        "launch_us", "vs_float64", "shapes",
+                                        "bf16_vs_plain")
                     if k in row},
+                 "bf16_rows": ([r["forward"] | {"shape": r["shape"]}
+                                for r in attn_bf16["flash"]]
+                               if name == "flash_attention"
+                               else attn_bf16["decode"]),
+                 "fp32_sha256": fp32_bits[name],
                  "held_against_plain": True}
         summary.append(entry)
         print(f"  {name:16s} held within {ATTN_TOL[name]} of its plain "
@@ -3969,6 +4642,9 @@ def _phases(t0, phase, card, helper) -> int:
                  "library_fwd_bwd_ms", "timed_max_abs_err", "vs_float64",
                  "launch_us", "sweep_rel_err", "vs_float64_seeded",
                  "shapes")},
+             "bf16_rows": [r["backward"] | {"shape": r["shape"]}
+                           for r in attn_bf16["flash"]],
+             "fp32_sha256": fp32_bits[name],
              "held_against_plain": True}
     summary.append(entry)
     print(f"  {name:16s} held within {FLASH_BWD_TOL} of its plain version; "

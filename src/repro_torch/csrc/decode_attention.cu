@@ -41,6 +41,21 @@
 //   in split order and sets the counter back to 0.  One launch, no float
 //   atomics: the result is the same bits from call to call.
 //
+// bfloat16 rounds where the JAX model's gqa_decode rounds (kRounds): the
+// scores S = bf16(bf16(q.k) / bf16(sqrt d)) (div from the wrapper, the
+// division fp32 and rounded to nearest), P = exp(S - max) / sum over the
+// whole prefix in fp32, P_b = bf16(P), o = bf16(P_b v) summed in fp32.
+// The merge of (max, sum, accumulator) per split above cannot round
+// globally normalised P, so the bf16 instance makes two launches over the
+// same grid and splits: launch 1 (kPhase 1) scores its range, writes the
+// rounded scores to scratch and each head's (max, sum) per split to the
+// partials; launch 2 (kPhase 2) merges every split's (max, sum) in split
+// order in each block, reads its range's scores and V (K is not read
+// again), rounds P and sums P_b v in fp32 with no rescaling; the warps'
+// sums add in warp order and, with several splits, the last block to
+// draw a ticket adds the splits' sums in split order and rounds once.
+// The float32 instance (kPhase 0) does not change.
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -59,6 +74,13 @@ constexpr int kMaxD = 128;
 constexpr int kCols = kMaxD / 32; // P V columns per lane
 constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;
+
+// the types whose instance rounds where the JAX model rounds (bfloat16)
+template <typename T> constexpr bool kRounds = sizeof(T) == 2;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -135,9 +157,11 @@ struct Params {
   void* o;
   float* part;                    // units x n_splits x kGM x (d + 2), or null
   int* tickets;                   // units, zero between calls
+  float* scores;                  // units x kGM x padded length: kPhase 1, 2
   int kv_heads, group, head_chunks, length, d, n_splits, tiles_per_split;
   long long qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, osh;
   float sm_scale;
+  float div;                      // bf16(sqrt d): the rounding instance's
 };
 
 // shared memory: the ring (kStages x {K, V} x kBK rows of d * sizeof(T)
@@ -149,7 +173,9 @@ __host__ __device__ inline size_t ring_bytes(int d, int esize) {
   return size_t(kStages) * 2 * kBK * row_bytes(d, esize);
 }
 
-template <typename T, int CB>
+// kPhase 0: the fused kernel (float32); 1 and 2: the rounding instance's
+// two launches (see the head of this file)
+template <typename T, int CB, int kPhase>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -186,15 +212,17 @@ decode_attention_kernel(const Params P) {
       const int r = i / pieces, c = (i % pieces) * CB;
       const bool ok = k0 + r < P.length;
       const long long row = ok ? k0 + r : 0;
-      copy_piece<CB>(sk + r * rb + c, kb + row * kss + c, ok);
-      copy_piece<CB>(sv + r * rb + c, vb + row * vss + c, ok);
+      if constexpr (kPhase != 2)
+        copy_piece<CB>(sk + r * rb + c, kb + row * kss + c, ok);
+      if constexpr (kPhase != 1)
+        copy_piece<CB>(sv + r * rb + c, vb + row * vss + c, ok);
     }
     cp_async_commit();
   };
 
   if (t0 < t1) issue(t0);
   const T* qb = static_cast<const T*>(P.q) + b * P.qsb;
-  for (int i = tid; i < gl * d; i += kThreads) {
+  for (int i = tid; i < (kPhase == 2 ? 0 : gl * d); i += kThreads) {
     const int g = i / d, c = i % d;
     sQ[i] = to_f32(qb[(kvh * P.group + i0 + g) * P.qsh + c]);
   }
@@ -212,6 +240,27 @@ decode_attention_kernel(const Params P) {
   const int row = warp * kRows + j;
   const int p_lo = half == 0 ? 0 : (pieces + 1) / 2;
   const int p_hi = half == 0 ? (pieces + 1) / 2 : pieces;
+  // the rounding instance: this unit's rounded scores, head i at
+  // scores + i * padded length; in launch 2 the global (max, sum)
+  float* sc_unit = kPhase == 0 ? nullptr
+                  : P.scores + size_t(unit) * kGM * (n_tiles * kBK);
+  const size_t stride = size_t(kGM) * (d + 2);     // one split's partials
+  float gmax[kGM], gsum[kGM];
+  if constexpr (kPhase == 2) {
+    const float* all = P.part + size_t(unit) * P.n_splits * stride;
+#pragma unroll
+    for (int i = 0; i < kGM; ++i) {
+      gmax[i] = kNegInf;
+      gsum[i] = 0.0f;
+      if (i < gl) {
+        for (int sp = 0; sp < P.n_splits; ++sp)
+          gmax[i] = fmaxf(gmax[i], all[sp * stride + i]);
+        for (int sp = 0; sp < P.n_splits; ++sp)
+          gsum[i] = fmaf(all[sp * stride + kGM + i],
+                         expf(all[sp * stride + i] - gmax[i]), gsum[i]);
+      }
+    }
+  }
 
   for (int t = t0; t < t1; ++t) {
     cp_async_wait_all();          // tile t has landed (this thread's part)
@@ -223,57 +272,78 @@ decode_attention_kernel(const Params P) {
     const int kn = min(kBK, P.length - t * kBK);
     const bool valid = row < kn;
 
-    float sc[kGM];
+    float pr[kGM];
+    if constexpr (kPhase == 2) {  // P_b of this lane's row from its score
 #pragma unroll
-    for (int i = 0; i < kGM; ++i) sc[i] = 0.0f;
-    const unsigned char* kr = sk + row * rb;
-    for (int pc = p_lo; pc < p_hi; ++pc) {
-      float e[kE];
-      load_piece<T, CB>(kr + pc * CB, e);
+      for (int i = 0; i < kGM; ++i)
+        pr[i] = i < gl && valid
+                    ? round_bf16(__fdiv_rn(
+                          expf(sc_unit[i * (n_tiles * kBK) + t * kBK + row] -
+                               gmax[i]),
+                          gsum[i]))
+                    : 0.0f;
+    } else {
+      float sc[kGM];
 #pragma unroll
-      for (int i = 0; i < kGM; ++i) {
-        if (i < gl) {
-          const float* qr = sQ + i * d + pc * kE;
-          if constexpr (kE % 4 == 0) {  // then d % 4 == 0: aligned float4
+      for (int i = 0; i < kGM; ++i) sc[i] = 0.0f;
+      const unsigned char* kr = sk + row * rb;
+      for (int pc = p_lo; pc < p_hi; ++pc) {
+        float e[kE];
+        load_piece<T, CB>(kr + pc * CB, e);
 #pragma unroll
-            for (int u = 0; u < kE; u += 4) {
-              const float4 q4 = *reinterpret_cast<const float4*>(qr + u);
-              sc[i] = fmaf(q4.x, e[u], sc[i]);
-              sc[i] = fmaf(q4.y, e[u + 1], sc[i]);
-              sc[i] = fmaf(q4.z, e[u + 2], sc[i]);
-              sc[i] = fmaf(q4.w, e[u + 3], sc[i]);
+        for (int i = 0; i < kGM; ++i) {
+          if (i < gl) {
+            const float* qr = sQ + i * d + pc * kE;
+            if constexpr (kE % 4 == 0) {  // then d % 4 == 0: aligned float4
+#pragma unroll
+              for (int u = 0; u < kE; u += 4) {
+                const float4 q4 = *reinterpret_cast<const float4*>(qr + u);
+                sc[i] = fmaf(q4.x, e[u], sc[i]);
+                sc[i] = fmaf(q4.y, e[u + 1], sc[i]);
+                sc[i] = fmaf(q4.z, e[u + 2], sc[i]);
+                sc[i] = fmaf(q4.w, e[u + 3], sc[i]);
+              }
+            } else {
+#pragma unroll
+              for (int u = 0; u < kE; ++u) sc[i] = fmaf(qr[u], e[u], sc[i]);
             }
-          } else {
-#pragma unroll
-            for (int u = 0; u < kE; ++u) sc[i] = fmaf(qr[u], e[u], sc[i]);
           }
         }
       }
-    }
-    float pr[kGM];
 #pragma unroll
-    for (int i = 0; i < kGM; ++i) {
-      if (i < gl) {
-        const float dot = sc[i] + __shfl_xor_sync(0xffffffffu, sc[i], 16);
-        const float s = valid ? dot * P.sm_scale : kNegInf;
-        float mx = s;
+      for (int i = 0; i < kGM; ++i) {
+        if (i < gl) {
+          const float dot = sc[i] + __shfl_xor_sync(0xffffffffu, sc[i], 16);
+          float s;
+          if constexpr (kPhase == 1) {
+            s = valid ? round_bf16(__fdiv_rn(round_bf16(dot), P.div)) : kNegInf;
+            if (valid && half == 0)
+              sc_unit[i * (n_tiles * kBK) + t * kBK + row] = s;
+          } else {
+            s = valid ? dot * P.sm_scale : kNegInf;
+          }
+          float mx = s;
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m[i], mx);
-        const float pe = valid ? expf(s - m_new) : 0.0f;
-        float sum = pe;
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx);
+          const float pe = valid ? expf(s - m_new) : 0.0f;
+          float sum = pe;
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        const float corr = expf(m[i] - m_new);
-        l[i] = l[i] * corr + sum;
-        m[i] = m_new;
+          for (int off = 8; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          const float corr = expf(m[i] - m_new);
+          l[i] = l[i] * corr + sum;
+          m[i] = m_new;
+          if constexpr (kPhase == 0) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-        pr[i] = pe;
+            for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
+          }
+          pr[i] = pe;
+        }
       }
     }
+    if constexpr (kPhase == 1) continue;   // no P V in the statistics
     const int rows = min(kRows, max(0, kn - warp * kRows));
     for (int jj = 0; jj < rows; ++jj) {
       float pj[kGM];
@@ -316,29 +386,49 @@ decode_attention_kernel(const Params P) {
   }
   __syncthreads();
 
-  const size_t stride = size_t(kGM) * (d + 2);     // one split's partials
+  T* ob = static_cast<T*>(P.o) + b * P.osb;
+  if constexpr (kPhase == 1) {    // this split's (max, sum) of each head
+    float* st = P.part + (size_t(unit) * P.n_splits + split) * stride;
+    for (int i = tid; i < gl; i += kThreads) {
+      float M = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kGM + i]);
+      float L = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        L = fmaf(wl[w * kGM + i], expf(wm[w * kGM + i] - M), L);
+      st[i] = M;
+      st[kGM + i] = L;
+    }
+    return;
+  }
   float* mine = P.n_splits > 1
                     ? P.part + (size_t(unit) * P.n_splits + split) * stride
                     : nullptr;
-  T* ob = static_cast<T*>(P.o) + b * P.osb;
   for (int x = tid; x < gl * d; x += kThreads) {
     const int i = x / d, c = x % d;
     float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kGM + i]);
     float L = 0.0f, Acc = 0.0f;
+    if constexpr (kPhase == 2) {  // P_b v needs no rescaling
+      L = 1.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(wm[w * kGM + i] - M);
-      L = fmaf(wl[w * kGM + i], f, L);
-      Acc = fmaf(wa[(w * kGM + i) * d + c], f, Acc);
+      for (int w = 0; w < kWarps; ++w) Acc += wa[(w * kGM + i) * d + c];
+    } else {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kGM + i]);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(wm[w * kGM + i] - M);
+        L = fmaf(wl[w * kGM + i], f, L);
+        Acc = fmaf(wa[(w * kGM + i) * d + c], f, Acc);
+      }
     }
     if (mine == nullptr) {
       store(ob + (kvh * P.group + i0 + i) * P.osh + c,
             Acc / fmaxf(L, 1e-30f));
     } else {
       mine[2 * kGM + i * d + c] = Acc;
-      if (c == 0) {
+      if (kPhase == 0 && c == 0) {  // launch 2 keeps launch 1's (max, sum)
         mine[i] = M;
         mine[kGM + i] = L;
       }
@@ -357,6 +447,13 @@ decode_attention_kernel(const Params P) {
   const float* all = P.part + size_t(unit) * P.n_splits * stride;
   for (int x = tid; x < gl * d; x += kThreads) {
     const int i = x / d, c = x % d;
+    if constexpr (kPhase == 2) {  // the splits' sums in split order
+      float Acc = 0.0f;
+      for (int s = 0; s < P.n_splits; ++s)
+        Acc += __ldcg(all + s * stride + 2 * kGM + i * d + c);
+      store(ob + (kvh * P.group + i0 + i) * P.osh + c, Acc);
+      continue;
+    }
     float M = kNegInf;
 #pragma unroll 8
     for (int s = 0; s < P.n_splits; ++s)
@@ -374,9 +471,9 @@ decode_attention_kernel(const Params P) {
   if (tid == 0) P.tickets[unit] = 0;
 }
 
-template <typename T, int CB>
-cudaError_t launch(const Params& P, int units, cudaStream_t stream) {
-  auto kern = decode_attention_kernel<T, CB>;
+template <typename T, int CB, int kPhase>
+cudaError_t launch_phase(const Params& P, int units, cudaStream_t stream) {
+  auto kern = decode_attention_kernel<T, CB, kPhase>;
   const int gl = P.group < kGM ? P.group : kGM;
   const size_t smem =
       ring_bytes(P.d, sizeof(T)) + sizeof(float) * size_t(gl) * P.d;
@@ -390,6 +487,16 @@ cudaError_t launch(const Params& P, int units, cudaStream_t stream) {
   kern<<<dim3(unsigned(units), unsigned(P.n_splits)), kThreads, smem,
          stream>>>(P);
   return cudaGetLastError();
+}
+
+template <typename T, int CB>
+cudaError_t launch(const Params& P, int units, cudaStream_t stream) {
+  if constexpr (kRounds<T>) {
+    const cudaError_t err = launch_phase<T, CB, 1>(P, units, stream);
+    return err != cudaSuccess ? err : launch_phase<T, CB, 2>(P, units, stream);
+  } else {
+    return launch_phase<T, CB, 0>(P, units, stream);
+  }
 }
 
 template <typename T>
@@ -412,25 +519,32 @@ cudaError_t dispatch(const Params& P, int units, int piece,
 // stride in bytes and both cache pointers.  n_splits ranges of
 // tiles_per_split 64-position tiles cover the prefix; with n_splits > 1,
 // part holds units x n_splits x 8 x (d + 2) floats and tickets units ints
-// that are 0 (units = batch * kv_heads * ceil(group / 8)).
+// that are 0 (units = batch * kv_heads * ceil(group / 8)).  bfloat16
+// needs part at any n_splits, and scores: units x 8 x (the prefix rounded
+// up to whole tiles) floats.  sm_scale: d^-1/2, the float32 instance's;
+// div: bf16(sqrt d), the rounding (bfloat16) instance's.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* part,
-    void* tickets, int dtype, int batch, int heads, int kv_heads, int length,
-    int d, int n_splits, int tiles_per_split, int piece,
-    const long long* strides, float sm_scale, cudaStream_t stream) {
+    void* tickets, void* scores, int dtype, int batch, int heads,
+    int kv_heads, int length, int d, int n_splits, int tiles_per_split,
+    int piece, const long long* strides, float sm_scale, float div,
+    cudaStream_t stream) {
+  const bool rounds = dtype == 1 && kRounds<__nv_bfloat16>;
   if (d < 1 || d > kMaxD || kv_heads < 1 || heads % kv_heads != 0 ||
       length < 0 || n_splits < 1 || tiles_per_split < 0 ||
-      (n_splits > 1 && (part == nullptr || tickets == nullptr)))
+      (n_splits > 1 && (part == nullptr || tickets == nullptr)) ||
+      (rounds && (part == nullptr || scores == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = heads / kv_heads;
   const int chunks = (group + kGM - 1) / kGM;
   const int units = batch * kv_heads * chunks;
   if (units == 0) return static_cast<int>(cudaGetLastError());
   const Params P{q, k, v, o, static_cast<float*>(part),
-                 static_cast<int*>(tickets), kv_heads, group, chunks, length,
+                 static_cast<int*>(tickets), static_cast<float*>(scores),
+                 kv_heads, group, chunks, length,
                  d, n_splits, tiles_per_split, strides[0], strides[1],
                  strides[2], strides[3], strides[4], strides[5], strides[6],
-                 strides[7], strides[8], strides[9], sm_scale};
+                 strides[7], strides[8], strides[9], sm_scale, div};
   cudaError_t err;
   if (dtype == 0)
     err = dispatch<float>(P, units, piece, stream);

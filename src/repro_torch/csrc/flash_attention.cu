@@ -62,6 +62,19 @@
 // the offset the backward kernel (flash_attention_bwd.cu) recomputes P
 // from.  A null pointer (the serving path) skips that store.
 //
+// bfloat16 rounds where the JAX model's _sdpa rounds (kRounds): the scores
+// S = bf16(bf16(q.k) / bf16(sqrt d)) (the divisor comes from the wrapper,
+// the division is fp32 and rounded to nearest), masked to -1e30 after the
+// rounding, P = exp(S - max) / sum in fp32, P_b = bf16(P), o = bf16(P_b V)
+// summed in fp32.  A one-pass online softmax cannot round normalised
+// probabilities, so the bf16 instance (rounded_kernel) walks the key tiles
+// twice through the same ring: pass 1 keeps each row's max m and sum l of
+// exp(S - m) (online, in natural base), pass 2 recomputes S bit for bit,
+// rounds P = exp(S - m) / l to bf16 and adds P_b V to the fp32 accumulator
+// with no rescaling.  q, k and P_b are bf16 values, exact in TF32: every
+// product is one mma.sync pass.  Its lse is m + ln l of the rounded
+// scores.  The float32 instance is the kernel above, unchanged.
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -86,6 +99,13 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// the types whose instance rounds where the JAX model rounds (bfloat16)
+template <typename T> constexpr bool kRounds = sizeof(T) == 2;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 template <typename T>
 struct Params {
   const T* q;
@@ -96,6 +116,7 @@ struct Params {
   int heads, group, sq, sk, d;
   Strides qs, ks, vs, os;
   float sm_scale;
+  float div;                      // bf16(sqrt d): the rounding instance's
   int causal, vec;                // vec: K/V rows copied 16 bytes at a time
 };
 
@@ -351,11 +372,235 @@ flash_attention_kernel(const Params<T> P) {
   }
 }
 
+// the bfloat16 instance: two passes over the key tiles (see the head of
+// this file); NC = padded head_dim / 16
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+rounded_kernel(const Params<T> P) {
+  constexpr int kDP = 16 * NC;
+  constexpr int kLK = k_stride<T, kDP>();
+  constexpr int kLV = v_stride<T, kDP>();
+  constexpr int kND = 2 * NC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / P.heads, h = bh % P.heads, kvh = h / P.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
+  const int r0 = q0 + 16 * warp;
+  const T* kb = P.k + b * P.ks.b + kvh * P.ks.h;
+  const T* vb = P.v + b * P.vs.b + kvh * P.vs.h;
+  const int last_row = min(q0 + kBQ, P.sq) - 1;
+  const int k_end = P.causal ? min(P.sk, last_row + 1) : P.sk;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+  const int w_end = r0 >= P.sq ? 0
+                    : P.causal ? min(P.sk, min(r0 + 16, P.sq))
+                               : P.sk;
+
+  auto issue = [&](int it) {      // K/V tile it % n_tiles into its stage
+    T* sk = smem + (it % kStages) * stage_elems<T, kDP>();
+    copy_rows2(sk, kLK, kb, P.ks.s, sk + kBK * kLK, kLV, vb, P.vs.s,
+               (it % n_tiles) * kBK, kBK, k_end, P.d, P.vec, tid, kThreads);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) issue(0);
+  if (kDP > P.d) {
+    const int pad = kDP - P.d;
+    for (int i = tid; i < kStages * kBK * pad; i += kThreads) {
+      const int r = i / pad, c = P.d + i % pad;
+      T* sk = smem + (r / kBK) * stage_elems<T, kDP>();
+      sk[(r % kBK) * kLK + c] = zero<T>();
+      sk[kBK * kLK + (r % kBK) * kLV + c] = zero<T>();
+    }
+  }
+  float qv[NC][2][4];
+  load_frag_rows<T, NC>(qv, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, r0, P.sq,
+                        P.d, g, t);
+  float acc[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // each row's max, natural base
+  float l[2] = {0.0f, 0.0f};      // this lane's share of the row sums
+
+  // the rounded, masked scores of kNH 8-key groups from n0 (the forward's
+  // permuted key order: c0, c1 are row g's keys t and t + 4 of a group,
+  // c2, c3 row g + 8's); groups from ntc on are masked (kEdge)
+  auto scores = [&](const T* sk, int k0, int n0, int ntc,
+                    float (&s)[kNH][4], auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    const T* krow = sk + ((g >> 1) + 4 * (g & 1)) * kLK + 4 * t;
+#pragma unroll
+    for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      uint32_t ah[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ah[ks][e] = __float_as_uint(qv[j][e & 1][2 * ks + (e >> 1)]);
+#pragma unroll
+      for (int nt = 0; nt < kNH; ++nt) {
+        if (kEdge && n0 + nt >= ntc) continue;
+        float kv[4];
+        load4(krow + 8 * (n0 + nt) * kLK + 16 * j, kv);
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint32_t bh[2] = {__float_as_uint(kv[2 * ks]),
+                                  __float_as_uint(kv[2 * ks + 1])};
+          mma_tf32(s[nt], ah[ks], bh);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = round_bf16(__fdiv_rn(round_bf16(s[nt][e]), P.div));
+        if constexpr (kEdge) {
+          const int row = r0 + g + 8 * (e >> 1);
+          const int key = k0 + 8 * (n0 + nt) + t + 4 * (e & 1);
+          if (n0 + nt >= ntc || key >= P.sk || (P.causal && key > row))
+            val = kNegInf;
+        }
+        s[nt][e] = val;
+      }
+  };
+
+  // pass 1 (kSecond false): the online max and sum; pass 2: P_b V
+  auto attend = [&](const T* sk, const T* sv, int k0, int ntc, auto edge,
+                    auto second) {
+    constexpr bool kEdge = decltype(edge)::value;
+    constexpr bool kSecond = decltype(second)::value;
+    const T* vrow = sv + t * kLV + 2 * g;
+#pragma unroll
+    for (int n0 = 0; n0 < kNT; n0 += kNH) {
+      if (kEdge && n0 >= ntc) break;
+      float s[kNH][4];
+      scores(sk, k0, n0, ntc, s, edge);
+      if constexpr (!kSecond) {
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+          l[hr] *= expf(m[hr] - mx[hr]);
+          m[hr] = mx[hr];
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (s[nt][e] != kNegInf) l[e >> 1] += expf(s[nt][e] - m[e >> 1]);
+      } else {
+        float pv[kND][4];
+#pragma unroll
+        for (int n = 0; n < kND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kNH; ++ks) {
+          if (kEdge && n0 + ks >= ntc) continue;
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[e] = s[ks][e] == kNegInf
+                       ? 0.0f
+                       : round_bf16(__fdiv_rn(expf(s[ks][e] - m[e >> 1]),
+                                              l[e >> 1]));
+          const uint32_t pa[4] = {__float_as_uint(p[0]), __float_as_uint(p[2]),
+                                  __float_as_uint(p[1]), __float_as_uint(p[3])};
+          const T* vk = vrow + 8 * (n0 + ks) * kLV;
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            const float2 v0 = load2(vk + 16 * i);
+            const float2 v1 = load2(vk + 4 * kLV + 16 * i);
+            const uint32_t b0[2] = {__float_as_uint(v0.x), __float_as_uint(v1.x)};
+            const uint32_t b1[2] = {__float_as_uint(v0.y), __float_as_uint(v1.y)};
+            mma_tf32(pv[2 * i], pa, b0);
+            mma_tf32(pv[2 * i + 1], pa, b1);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
+      }
+    }
+  };
+
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();              // tile landed; the other stage is free
+    if (it + 1 < 2 * n_tiles) issue(it + 1);
+    if (it == n_tiles) {          // pass 1 done: the quad's sums
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+        l[hr] = fmaxf(l[hr], 1e-30f);
+      }
+    }
+    const int k0 = (it % n_tiles) * kBK;
+    const int keys = min(kBK, w_end - k0);
+    if (keys <= 0) continue;      // every key of the tile masked here
+    const int ntc = (keys + 7) / 8;
+    const T* sk = smem + (it % kStages) * stage_elems<T, kDP>();
+    const T* sv = sk + kBK * kLK;
+    const bool edge = ntc < kNT || k0 + kBK > P.sk ||
+                      (P.causal && k0 + kBK - 1 > r0);
+    if (it >= n_tiles) {
+      if (edge)
+        attend(sk, sv, k0, ntc, std::true_type{}, std::true_type{});
+      else
+        attend(sk, sv, k0, kNT, std::false_type{}, std::true_type{});
+    } else {
+      if (edge)
+        attend(sk, sv, k0, ntc, std::true_type{}, std::false_type{});
+      else
+        attend(sk, sv, k0, kNT, std::false_type{}, std::false_type{});
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    if (row >= P.sq) continue;
+    if (P.lse != nullptr && t == 0)
+      P.lse[static_cast<long long>(bh) * P.sq + row] = m[hr] + logf(l[hr]);
+    T* orow = P.o + b * P.os.b + row * P.os.s + h * P.os.h;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const float val[4] = {acc[2 * i][2 * hr], acc[2 * i + 1][2 * hr],
+                            acc[2 * i][2 * hr + 1],
+                            acc[2 * i + 1][2 * hr + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 16 * i + 4 * t + e;
+        if (c < P.d) store(orow + c, val[e]);
+      }
+    }
+  }
+}
+
 bool aligned16(long long x) { return x % 16 == 0; }
 
 template <typename T, int NC>
 cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, NC>;
+  auto kern = [] {
+    if constexpr (kRounds<T>) return rounded_kernel<T, NC>;
+    else return flash_attention_kernel<T, NC>;
+  }();
   constexpr size_t smem = smem_bytes<T, 16 * NC>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -374,8 +619,8 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int batch, int heads, int group, int sq,
                      int sk, int d,
-                     const Strides* st, float sm_scale, int causal,
-                     cudaStream_t stream) {
+                     const Strides* st, float sm_scale, float div,
+                     int causal, cudaStream_t stream) {
   const long long es = sizeof(T);
   bool vec = aligned16(d * es) &&
              aligned16(reinterpret_cast<uintptr_t>(k)) &&
@@ -386,7 +631,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), static_cast<T*>(o), lse,
                     heads, group, sq, sk, d, st[0], st[1], st[2], st[3],
-                    sm_scale, causal, int(vec)};
+                    sm_scale, div, causal, int(vec)};
   switch ((d + 15) / 16) {
 #define REPRO_FA_CASE(NC) \
   case NC:                \
@@ -409,14 +654,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 host integers, the
 // (batch, position, head) strides in elements of q, k, v and o.  lse: fp32
-// (b, h, sq) contiguous, or null.
+// (b, h, sq) contiguous, or null.  sm_scale: d^-1/2, the float32
+// instance's; div: bf16(sqrt d), the rounding (bfloat16) instance's.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int dtype,
                                       int batch, int heads, int kv_heads,
                                       int sq, int sk, int d,
                                       const long long* strides,
-                                      float sm_scale, int causal,
+                                      float sm_scale, float div, int causal,
                                       cudaStream_t stream) {
   if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -428,10 +674,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaError_t err =
       dtype == 0
           ? dispatch<float>(q, k, v, o, lse, batch, heads, group, sq, sk, d,
-                            st, sm_scale, causal, stream)
+                            st, sm_scale, div, causal, stream)
       : dtype == 1
           ? dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, heads, group,
-                                    sq, sk, d, st, sm_scale, causal, stream)
+                                    sq, sk, d, st, sm_scale, div, causal,
+                                    stream)
           : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

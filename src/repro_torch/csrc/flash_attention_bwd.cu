@@ -71,6 +71,17 @@
 //   order) free of bank conflicts; the 8-byte loads of the second product
 //   of each operand have 2-way conflicts in fp32.
 //
+// bfloat16 (kRounds) is the gradient of the forward's bfloat16 instance,
+// the JAX model's _sdpa, rounded where jax.vjp rounds: S = bf16(bf16(q.k)
+// / div) with div = bf16(sqrt d), P~ = exp(S - lse) in natural base (the
+// forward's lse of the rounded scores), P = P~ / l, dP_b = bf16(dO v^T),
+// D = rowsum(P~ dP_b) / l, dS = P (dP_b - D), dS_1 = bf16(bf16(dS) /
+// div), dv = P_b^T dO with P_b = bf16(P), dq = dS_1 k, dk = dS_1^T q -- no
+// final multiply by the scale.  dS_1, P_b, q, k, v and dO are bf16 values,
+// exact in TF32: no product needs lo parts.  dk and dv stay summed over
+// the group in fp32 (registers, or the fp32 partials) and are rounded
+// once.  The float32 instance does not change.
+//
 // Allocates nothing (l, D and the partials live in scratch the wrapper
 // allocates), and returns cudaGetLastError() so the wrapper can raise on a
 // refused launch.  The launches run on one stream, in order.
@@ -92,6 +103,13 @@ constexpr int kBN = 64;           // streamed rows a tile: keys or query rows
 constexpr int kNT = kBN / 8;      // 8-row groups a tile
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the types whose instance rounds where the JAX model rounds (bfloat16)
+template <typename T> constexpr bool kRounds = sizeof(T) == 2;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // d += a b with the tensor cores' sum taken from zero and added in fp32
 // with rounding to nearest: the tensor cores truncate where they add, and
@@ -120,8 +138,15 @@ struct Params {
   int heads, kv_heads, group, sq, sk, d;
   Strides qs, ks, vs, dos;
   float sm_scale;
+  float div;                      // bf16(sqrt d): the rounding instance's
   int causal, vec_kv, vec_qdo;    // 16-byte copies of K/V and of Q/dO rows
 };
+
+// the rounding instance's S and dS_1 from their fp32 sums
+template <typename T>
+__device__ __forceinline__ float rounded_div(float v, const Params<T>& P) {
+  return round_bf16(__fdiv_rn(round_bf16(v), P.div));
+}
 
 // C (+)= X Y^T for a warp's 16 resident rows and kNH 8-row groups n0 ..
 // of a shared tile: X as fp32 A fragments (load_frag_rows), Y read in the
@@ -193,8 +218,10 @@ __device__ __forceinline__ void xyt(const float (&x)[NC][2][4],
 // of its two rows (n-tiles 2i, 2i + 1).  The sum is taken from zero --
 // the hi x hi products (each from zero, added with rounding) apart from
 // the small ones -- and added to acc after every k-step (kPerKStep) or
-// after all kNH.  kEdge: k-steps from ntc on are skipped.
-template <typename T, int NC, int kNH, bool kEdge, bool kPerKStep>
+// after all kNH.  kEdge: k-steps from ntc on are skipped.  kAExact: A
+// holds bf16 values (the rounding instance's P_b and dS_1), no lo part.
+template <typename T, int NC, int kNH, bool kEdge, bool kPerKStep,
+          bool kAExact = false>
 __device__ __forceinline__ void add_az(const float (&a)[kNH][4],
                                        const T* zrow, int ld, int n0,
                                        int ntc, float (&acc)[2 * NC][4]) {
@@ -232,7 +259,7 @@ __device__ __forceinline__ void add_az(const float (&a)[kNH][4],
         if constexpr (kExact) {
           const uint32_t bh[2] = {__float_as_uint(bv[u][0]),
                                   __float_as_uint(bv[u][1])};
-          mma_tf32(dl, pl, bh);
+          if constexpr (!kAExact) mma_tf32(dl, pl, bh);
           if constexpr (kPerKStep) mma_tf32(d, ph, bh);
           else mma_rn(d, ph, bh);
         } else {
@@ -347,7 +374,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
   for (int hr = 0; hr < 2; ++hr) {  // the offset, lse in base 2 (unfused
                                     // multiplies: launch 2 forms the same)
     const int row = r0 + g + 8 * hr;
-    m2[hr] = row < P.sq ? __fmul_rn(P.lse[row0 + row], kLog2e) : 0.0f;
+    const float lse = row < P.sq ? P.lse[row0 + row] : 0.0f;
+    m2[hr] = kRounds<T> ? lse : __fmul_rn(lse, kLog2e);  // bf16: natural
   }
 
   float acc[2 * NC][4];
@@ -392,20 +420,27 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
             const int key = k0 + 8 * (n0 + nt) + t + 4 * (e & 1);
             keep = key < P.sk && !(P.causal && key > row);
           }
-          const float pt =
-              keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) - m2[hr])
-                   : 0.0f;
-          const float dpv = dp[nt][e] + dp_lo[nt][e];
+          float pt, dpv;
+          if constexpr (kRounds<T>) {
+            pt = keep ? expf(rounded_div(s[nt][e], P) - m2[hr]) : 0.0f;
+            dpv = round_bf16(dp[nt][e]);
+          } else {
+            pt = keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) -
+                              m2[hr])
+                      : 0.0f;
+            dpv = dp[nt][e] + dp_lo[nt][e];
+          }
           if constexpr (kGrad) {
             dp[nt][e] = pt / l[hr] * (dpv - D[hr]);
+            if constexpr (kRounds<T>) dp[nt][e] = rounded_div(dp[nt][e], P);
           } else {
             tl[hr] += pt;
             td[hr] = fmaf(pt, dpv, td[hr]);
           }
         }
       if constexpr (kGrad)
-        add_az<T, NC, kNH, kEdge, true>(dp, sk + t * kL + 2 * g, kL, n0,
-                                        ntc, acc);
+        add_az<T, NC, kNH, kEdge, true, kRounds<T>>(dp, sk + t * kL + 2 * g,
+                                                    kL, n0, ntc, acc);
     }
   };
 
@@ -456,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
       }
     }
   }
-  store_acc<T, NC>(acc, P.sm_scale,
+  store_acc<T, NC>(acc, kRounds<T> ? 1.0f : P.sm_scale,
                    P.dq + (static_cast<long long>(b) * P.sq * P.heads + h) *
                               P.d,
                    static_cast<long long>(P.heads) * P.d, r0, P.sq, P.d, g,
@@ -550,18 +585,28 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
           const int key = kw + g + 8 * (e >> 1), row = q0 + qi;
           keep = row < P.sq && !(P.causal && key > row);
         }
-        const float p =
-            keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) -
-                         __fmul_rn(rows[qi], kLog2e)) /
-                       rows[kBN + qi]
-                 : 0.0f;
-        s[nt][e] = p;
-        dp[nt][e] = p * ((dp[nt][e] + dp_lo[nt][e]) - rows[2 * kBN + qi]);
+        if constexpr (kRounds<T>) {
+          const float p =
+              keep ? expf(rounded_div(s[nt][e], P) - rows[qi]) /
+                         rows[kBN + qi]
+                   : 0.0f;
+          s[nt][e] = round_bf16(p);
+          dp[nt][e] = rounded_div(
+              p * (round_bf16(dp[nt][e]) - rows[2 * kBN + qi]), P);
+        } else {
+          const float p =
+              keep ? exp2f(__fmul_rn(s[nt][e] + s_lo[nt][e], scale) -
+                           __fmul_rn(rows[qi], kLog2e)) /
+                         rows[kBN + qi]
+                   : 0.0f;
+          s[nt][e] = p;
+          dp[nt][e] = p * ((dp[nt][e] + dp_lo[nt][e]) - rows[2 * kBN + qi]);
+        }
       }
-    add_az<T, NC, kNH, false, false>(s, sdo + t * kL + 2 * g, kL, n0, kNT,
-                                     dv);
-    add_az<T, NC, kNH, false, false>(dp, sq_ + t * kL + 2 * g, kL, n0, kNT,
-                                     dk);
+    add_az<T, NC, kNH, false, false, kRounds<T>>(s, sdo + t * kL + 2 * g, kL,
+                                                 n0, kNT, dv);
+    add_az<T, NC, kNH, false, false, kRounds<T>>(dp, sq_ + t * kL + 2 * g,
+                                                 kL, n0, kNT, dk);
   };
 
   for (int step = 0; step < n_steps; ++step) {
@@ -596,7 +641,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
     const long long at =
         (static_cast<long long>(b) * P.sk * P.kv_heads + kvh) * P.d;
     const long long ld = static_cast<long long>(P.kv_heads) * P.d;
-    store_acc<T, NC>(dk, P.sm_scale, P.dk + at, ld, kw, P.sk, P.d, g, t);
+    store_acc<T, NC>(dk, kRounds<T> ? 1.0f : P.sm_scale, P.dk + at, ld, kw,
+                     P.sk, P.d, g, t);
     store_acc<T, NC>(dv, 1.0f, P.dv + at, ld, kw, P.sk, P.d, g, t);
   }
 }
@@ -622,7 +668,7 @@ __global__ void __launch_bounds__(256) gqa_sum_kernel(const Params<T> P,
     dk += src[gi * head];
     dv += src[gi * head + P.d];
   }
-  store(P.dk + i, dk * P.sm_scale);
+  store(P.dk + i, kRounds<T> ? dk : dk * P.sm_scale);
   store(P.dv + i, dv);
 }
 
@@ -684,13 +730,13 @@ cudaError_t run(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, float* rows, float* part,
                 void* dq, void* dk, void* dv, int batch, int heads,
                 int kv_heads, int sq, int sk, int d, const Strides* st,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, float div, int causal, cudaStream_t stream) {
   const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), static_cast<const T*>(dout),
                     lse, rows, part, static_cast<T*>(dq),
                     static_cast<T*>(dk), static_cast<T*>(dv), heads,
                     kv_heads, heads / kv_heads, sq, sk, d, st[0], st[1],
-                    st[2], st[3], sm_scale, causal,
+                    st[2], st[3], sm_scale, div, causal,
                     int(vec_rows<T>(d, k, st[1], v, st[2])),
                     int(vec_rows<T>(d, q, st[0], dout, st[3]))};
   switch ((d + 15) / 16) {
@@ -719,11 +765,13 @@ cudaError_t run(const void* q, const void* k, const void* v,
 // part: fp32 (b, h, sk, 2, d) scratch, or null -- with it the dk/dv launch
 // runs one block per query head and a third launch sums the group's
 // partials; dq (b, sq, h, d), dk and dv (b, sk, m, d) contiguous.
+// sm_scale: d^-1/2, the float32 instance's; div: bf16(sqrt d), the
+// rounding (bfloat16) instance's.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, float* rows, float* part, void* dq, void* dk,
     void* dv, int dtype, int batch, int heads, int kv_heads, int sq, int sk,
-    int d, const long long* strides, float sm_scale, int causal,
+    int d, const long long* strides, float sm_scale, float div, int causal,
     cudaStream_t stream) {
   if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -735,12 +783,12 @@ extern "C" int flash_attention_bwd_launch(
   const cudaError_t err =
       dtype == 0
           ? run<float>(q, k, v, dout, lse, rows, part, dq, dk, dv, batch,
-                       heads, kv_heads, sq, sk, d, st, sm_scale, causal,
+                       heads, kv_heads, sq, sk, d, st, sm_scale, div, causal,
                        stream)
       : dtype == 1
           ? run<__nv_bfloat16>(q, k, v, dout, lse, rows, part, dq, dk, dv,
                                batch, heads, kv_heads, sq, sk, d, st,
-                               sm_scale, causal, stream)
+                               sm_scale, div, causal, stream)
           : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -8,8 +8,9 @@ the kernel takes, plans the split of the prefix over blocks
 (:func:`plan_splits`), picks the widest copy the cache's layout allows
 (:func:`copy_bytes`), allocates o (b, h, d) and, for more than one split,
 the fp32 partials with ``torch.empty``, launches once on the current
-stream, raises if the launch was refused, and adds one to
-:data:`launches`.  It replaces the Pallas TPU kernel of the JAX package's
+stream (bf16: twice, statistics then P_b V, with the partials at any
+number of splits and a scratch of the rounded scores), raises if a launch
+was refused, and adds one to :data:`launches`.  It replaces the Pallas TPU kernel of the JAX package's
 ``kernels/decode_attention/kernel.py``.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.kernels.build import check_launch, load, sm_count
 from repro_torch.kernels.flash_attention.kernel import (
     DTYPE_CODES, check_attention_inputs,
 )
+from repro_torch.kernels.flash_attention.ref import bf16_divisor
 
 #: launches since the last reset (chip_smoke reads it)
 launches = {"decode_attention": 0}
@@ -32,8 +34,8 @@ TILE, HEADS_PER_BLOCK, BLOCKS_PER_SM = 64, 8, 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"decode_attention_launch": [
-    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _P]}
+    _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, _P]}
 
 #: per card: the kernel's ticket counters (int32, zero between calls: the
 #: last block of each unit sets its counter back to 0)
@@ -85,7 +87,8 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
                             cache_v: torch.Tensor, length: int) -> torch.Tensor:
     """q (b, h, d); cache_k/v (b, S, m, d), h % m == 0; positions
-    ``>= length`` masked -> o (b, h, d) in q's dtype."""
+    ``>= length`` masked -> o (b, h, d) in q's dtype (bf16: rounded where
+    the JAX model's ``gqa_decode`` rounds, ``ref.decode_attention_ref``)."""
     check_attention_inputs("decode_attention", q, cache_k, cache_v)
     if q.dim() != 3 or cache_k.dim() != 4:
         raise ValueError("decode_attention: want q (b, h, d) and the cache "
@@ -105,11 +108,17 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
     piece = copy_bytes(d, esize, *(st * esize for st in (
         *cache_k.stride()[:3], *cache_v.stride()[:3])),
         cache_k.data_ptr(), cache_v.data_ptr())
-    part = tickets = None
-    if n_splits > 1:
+    part = tickets = scores = None
+    rounds = q.dtype == torch.bfloat16
+    if n_splits > 1 or rounds:
         part = torch.empty(n_units * n_splits * HEADS_PER_BLOCK * (d + 2),
                            dtype=torch.float32, device=q.device)
+    if n_splits > 1:
         tickets = _tickets(q.device, n_units)
+    if rounds:
+        scores = torch.empty(max(1, n_units * HEADS_PER_BLOCK * TILE
+                                 * -(-length // TILE)),
+                             dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *cache_k.stride()[:3], *cache_v.stride()[:3],
         *o.stride()[:2])
@@ -119,8 +128,9 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), o.data_ptr(),
             None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
+            None if scores is None else scores.data_ptr(),
             DTYPE_CODES[q.dtype], b, h, m, length, d, n_splits, per, piece,
-            strides, d ** -0.5, stream)
+            strides, d ** -0.5, bf16_divisor(d ** -0.5), stream)
     check_launch(rc, "decode_attention")
     launches["decode_attention"] += 1
     return o

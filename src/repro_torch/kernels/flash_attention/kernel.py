@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check_launch, load, sm_count
+from repro_torch.kernels.flash_attention.ref import bf16_divisor
 
 #: launches since the last reset (chip_smoke reads it)
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -27,12 +28,13 @@ MAX_HEAD_DIM = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {"flash_attention_launch": [
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
+    ctypes.POINTER(ctypes.c_longlong), _F, _F, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": [
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]}
+    ctypes.POINTER(ctypes.c_longlong), _F, _F, _I, _P]}
 
 #: rows of the backward's blocks (query rows of a dq block, keys of a dk/dv
 #: block); its dk/dv launch splits the GQA group over its query heads when
@@ -85,9 +87,11 @@ def split_gqa(b: int, h: int, m: int, sk: int, sms: int) -> bool:
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, with_lse: bool = False):
     """q (b, sq, h, d), k/v (b, sk, m, d), h % m == 0 -> o (b, sq, h, d)
-    in q's dtype; sm_scale = d**-0.5; causal keeps qpos >= kpos.  With
-    ``with_lse`` -> (o, lse): lse (b, h, sq) fp32, each row's natural
-    log-sum-exp of its scaled, masked scores (what the backward needs)."""
+    in q's dtype; causal keeps qpos >= kpos.  fp32: sm_scale = d**-0.5;
+    bf16: the JAX model's rounding (``ref.attention_ref``), the scores
+    divided by bf16(sqrt d).  With ``with_lse`` -> (o, lse): lse (b, h, sq)
+    fp32, each row's natural log-sum-exp of its scaled (bf16: rounded),
+    masked scores (what the backward needs)."""
     check_attention_inputs("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: want q (b, sq, h, d) and k/v "
@@ -108,7 +112,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             DTYPE_CODES[q.dtype], b, h, m, sq, sk, d, _strides(q, k, v, o),
-            d ** -0.5, int(causal), stream)
+            d ** -0.5, bf16_divisor(d ** -0.5), int(causal), stream)
     check_launch(rc, "flash_attention")
     launches["flash_attention"] += 1
     return (o, lse) if with_lse else o
@@ -117,7 +121,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
     """The gradient of :func:`flash_attention_kernel`: q, do (b, sq, h, d),
     k/v (b, sk, m, d), lse (b, h, sq) fp32 from the forward ->
-    (dq, dk, dv), contiguous, in q's dtype."""
+    (dq, dk, dv), contiguous, in q's dtype (bf16: rounded where
+    ``jax.vjp`` of the JAX model's ``_sdpa`` rounds)."""
     check_attention_inputs("flash_attention_bwd", q, k, v)
     if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
             or do.stride(-1) != 1):
@@ -151,7 +156,8 @@ def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
             lse.data_ptr(), rows.data_ptr(),
             None if part is None else part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPE_CODES[q.dtype], b, h, m, sq,
-            sk, d, _strides(q, k, v, do), d ** -0.5, int(causal), stream)
+            sk, d, _strides(q, k, v, do), d ** -0.5, bf16_divisor(d ** -0.5),
+            int(causal), stream)
     check_launch(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv

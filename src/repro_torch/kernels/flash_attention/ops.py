@@ -23,18 +23,28 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def fold_gqa(q, k, v):
-    """(b, sq, h, d), (b, sk, m, d) x2 -> (b*h, sq, d), (b*h, sk, d) x2."""
+    """(b, sq, h, d), (b, sk, m, d) x2 -> (b*h, sq, d), (b*h, sk, d) x2.
+
+    k and v are widened to at least fp32 before the repeat (a no-op in
+    fp32 and float64), so that under autograd each kv head's gradient is
+    summed over its g query heads in fp32 and rounded once, as the JAX
+    model's einsum sums over the group; q keeps its dtype, which decides
+    ``attention_ref``'s rounding."""
     b, sq, h, d = q.shape
     sk, m = k.shape[1], k.shape[2]
     g = h // m
+    wide = torch.promote_types(k.dtype, torch.float32)
     qf = q.transpose(1, 2).reshape(b * h, sq, d)
-    kf = k.transpose(1, 2).repeat_interleave(g, dim=1).reshape(b * h, sk, d)
-    vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(b * h, sk, d)
+    kf = (k.to(wide).transpose(1, 2).repeat_interleave(g, dim=1)
+          .reshape(b * h, sk, d))
+    vf = (v.to(wide).transpose(1, 2).repeat_interleave(g, dim=1)
+          .reshape(b * h, sk, d))
     return qf, kf, vf
 
 
 def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
-    """The plain version on any device: fold, ``attention_ref``, unfold."""
+    """The plain version on any device: fold, ``attention_ref``, unfold.
+    In bf16 it is the JAX model's ``_sdpa`` rounding for rounding."""
     b, sq, h, d = q.shape
     o = attention_ref(*fold_gqa(q, k, v), causal=causal, sm_scale=d ** -0.5)
     return o.reshape(b, h, sq, d).transpose(1, 2)
@@ -42,7 +52,12 @@ def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
 
 def flash_attention_bwd_plain(q, k, v, do, *, causal: bool):
     """(dq, dk, dv): autograd of :func:`flash_attention_plain` at q, k, v
-    for the upstream gradient ``do`` -- what the backward kernel computes."""
+    for the upstream gradient ``do`` -- what the backward kernel computes.
+    In bf16 that is ``jax.vjp`` of the JAX model's ``_sdpa``: dP_b =
+    bf16(dO V^T), dV = bf16(P_b^T dO), D = rowsum(P dP_b) in fp32, dS = P
+    (dP_b - D) (zero under the mask), dS_1 = bf16(bf16(dS) / bf16(sqrt
+    d)), dQ = bf16(dS_1 K), dK = bf16(dS_1^T Q), dk and dv summed over the
+    GQA group in fp32 and rounded once."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = flash_attention_plain(*leaves, causal=causal)

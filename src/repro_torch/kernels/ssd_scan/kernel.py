@@ -86,24 +86,38 @@ def entering_states(scratch: torch.Tensor, b: int, s: int, h: int, p: int,
 
 
 def bwd_smem_bytes(p: int, n: int) -> int:
-    """The shared memory of the backward's per-chunk launch: x dt, dy and
-    dxc (64 x p), B and C (64 x n), and S_prev or G (p x n) with a 64 x n
-    product, or three 64 x 64 tiles, as fp32 (rows padded by one, p and n
-    to multiples of 32), float64 decays and per-position arrays."""
-    pp, nn = -(-p // 32) * 32, -(-n // 32) * 32
-    union = max(pp * (nn + 1) + CHUNK * (nn + 1), 3 * CHUNK * (CHUNK + 1))
-    return 8 * (CHUNK + 8) + 4 * (3 * CHUNK * (pp + 1) + 2 * CHUNK * (nn + 1)
-                                  + union + 8 * CHUNK)
+    """The shared memory of the backward's largest launch, fp32 tiles with
+    padded rows (p and n padded to multiples of 8): the local launch's C
+    B^T, the head's dM o L and M (64 x 72 each), x dt and dy (64 x (p +
+    4)), float64 decays and sums; the terms launch's dy or x dt (64 x (p +
+    8)), C or B (64 x (n + 8)) and S_prev or G (p x (n + 8)); the dB/dC
+    launch's summed dM o L (64 x 72) and C or B (64 x (n + 8))."""
+    pp, nn = -(-p // 8) * 8, -(-n // 8) * 8
+    ld = CHUNK + 8
+    local = 8 * (CHUNK * (2 + 4)) + 4 * (3 * CHUNK * ld + 2 * CHUNK * (pp + 4)
+                                         + 2 * CHUNK)
+    terms = 8 * (CHUNK + 4) + 4 * (CHUNK * (pp + 8) + CHUNK * (nn + 8)
+                                   + pp * (nn + 8) + 4 * CHUNK)
+    dbc = 4 * CHUNK * (ld + nn + 8)
+    return max(local, terms, dbc)
 
 
 def bwd_scratch_floats(b: int, s: int, h: int, p: int, n: int,
-                       states: bool) -> int:
-    """Each head's dB and dC (b, s, h, n); with ``states`` (several chunks,
-    or the initial state's gradient wanted) also each chunk's sum_t e_t
+                       states: bool, terms: bool) -> int:
+    """C B^T per (b, chunk) and each head's dM o L (b, nc, h, 64, 64);
+    with ``terms`` (an entering state or a state gradient somewhere) a
+    float64 per (b, h, chunk) (an even count, so the rest stays 16-byte
+    aligned), each head's W xc G and e Z (b, s, h, n), W B G^T (b, s, h,
+    p) and the segment terms (b, s, h, 2); with ``states`` (several
+    chunks, or the initial state's gradient wanted) each chunk's sum_t e_t
     dy_t C_t^T and state gradient (b, h, nc, p, n) and its decay."""
     nc = n_chunks(s)
-    return 2 * b * s * h * n + (2 * b * h * nc * p * n + b * h * nc
-                                if states else 0)
+    out = b * nc * CHUNK * CHUNK * (1 + h)
+    if terms:
+        out += 2 * (-(-b * h * nc // 2) * 2) + b * s * h * (2 * n + p + 2)
+    if states:
+        out += 2 * b * h * nc * p * n + b * h * nc
+    return out
 
 
 def reset_launches() -> None:
@@ -235,8 +249,9 @@ def ssd_scan_bwd_kernel(x, dt, A, B, C, prev, dy, dstate, *,
     dC = torch.empty((b, s, n), dtype=C.dtype, device=x.device)
     dinit = torch.empty((b, h, p, n), **f32) if with_dinit else None
     states = n_chunks(s) > 1 or with_dinit
-    scratch = torch.empty(max(bwd_scratch_floats(b, s, h, p, n, states), 1),
-                          **f32)
+    terms = n_chunks(s) > 1 or prev is not None or dstate is not None
+    scratch = torch.empty(
+        max(bwd_scratch_floats(b, s, h, p, n, states, terms), 1), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -34,8 +34,13 @@ def gqa_spec(cfg: ModelConfig):
 
 def sdpa(q, k, v, *, causal: bool):
     """q (b,s,h,dk), k/v (b,t,m,dk) -> (b,s,h,dk); GQA by head grouping
-    (query head i reads kv head i // (h/m)), scale dk**-0.5, causal mask
-    qpos >= kpos."""
+    (query head i reads kv head i // (h/m)), causal mask qpos >= kpos.
+    fp32: scores scaled by dk**-0.5, fp32 softmax.  bf16: the JAX model's
+    ``_sdpa`` rounding for rounding -- scores q.k rounded to bf16, divided
+    by bf16(sqrt(dk)) and rounded again, masked, an fp32 softmax, the
+    probabilities rounded to bf16, P V summed in fp32 and rounded once;
+    its gradient rounds where ``jax.vjp`` of ``_sdpa`` does and sums dk
+    and dv over the GQA group in fp32."""
     return flash_attention(q, k, v, causal=causal)
 
 

@@ -220,11 +220,158 @@ def test_entering_states_read_the_accumulator_order(b, s, h, p, n):
 
 
 def test_backward_shared_memory_fits_the_zoo():
-    """mamba2-370m (p 64, n 128), zamba2-2.7b (64, 64) and p 128 with n 64
-    fit one block of an H100 (232,448 bytes); p and n both 128 do not, and
-    the wrapper refuses it before the launch."""
-    for p, n in ((64, 128), (64, 64), (128, 64), (128, 96), (96, 128)):
+    """Every (p, n) up to 128 fits one block of an H100 (232,448 bytes),
+    p and n both 128 included; mamba2-370m (p 64, n 128) and zamba2-2.7b
+    (64, 64) leave two blocks per SM (228 KB, 1 KB reserved a block): the
+    local launch's largest, 91.5 KB at the zoo's p 64."""
+    for p, n in ((64, 128), (64, 64), (128, 64), (128, 96), (96, 128),
+                 (128, 128), (1, 1), (20, 4)):
         assert ssd_kernel.bwd_smem_bytes(p, n) <= ssd_kernel.MAX_SMEM
-    assert ssd_kernel.bwd_smem_bytes(128, 128) > ssd_kernel.MAX_SMEM
+    for p, n in ((64, 128), (64, 64)):
+        assert 2 * (ssd_kernel.bwd_smem_bytes(p, n) + 1024) <= 228 * 1024
     assert ssd_kernel.bwd_smem_bytes(64, 128) == (
-        8 * 72 + 4 * (3 * 64 * 65 + 2 * 64 * 129 + 2 * 64 * 129 + 8 * 64))
+        8 * 6 * 64 + 4 * (3 * 64 * 72 + 2 * 64 * 68 + 2 * 64))
+
+
+# ------------------------------------- the backward kernel's decomposition ----
+#
+# csrc/ssd_scan_bwd.cu computes C B^T once per (b, chunk) (its gram
+# launch), writes each head's dM o L (its local launch, one block a head),
+# adds the heads' in head order in float64 and takes (dM o L)^T C and (dM
+# o L) B once per (b, chunk) (its dbc launch, with the terms launch's
+# per-head W xc G and e Z), and takes the segment sums of dda as a scan
+# over the row and column sums of the strictly lower triangle of Q = dM C
+# B^T o L.
+# Every product runs as mma.sync m16n8k8 over 64-row tiles, 16 rows a
+# warp.
+
+def _rectangle_scan(Q: torch.Tensor) -> torch.Tensor:
+    """The kernel's segment sums of Q (..., l, l): R_0 = 0, R_{t+1} = R_t -
+    row_t + col_t, row_t the sum of Q[t, :t], col_t that of Q[t+1:, t]."""
+    l = Q.shape[-1]
+    strict = Q.tril(-1)
+    d = strict.sum(-2) - strict.sum(-1)          # col_t - row_t
+    return torch.cumsum(d, -1) - d               # exclusive
+
+
+def _kernel_decomposition(d):
+    """(dx, ddt, da_log, dB, dC) computed as the kernel's launches compose
+    them, at its 64-position chunks, from the closed form's per-chunk
+    pieces; fp32 products, float64 decays and segment sums."""
+    x, dt, a_log, B, C, init = _port_args(d)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    cdt = x.dtype
+    rnd = lambda t: t.to(cdt).float()  # noqa: E731
+    dy = torch.from_numpy(d["dy"])
+    A = -torch.exp(a_log.float())
+    dtf = dt.float()
+    out = {k: [] for k in ("dx", "ddt", "dda", "dB", "dC")}
+    # the terms of S_prev and G come from the closed form's state pass
+    # (launches 1-3), here by running it on each chunk's inputs
+    for c0 in range(0, s, 64):
+        sl = slice(c0, min(c0 + 64, s))
+        l = sl.stop - c0
+        cum = torch.cumsum((dtf[:, sl].double() * A.double()), 1)  # (b,l,h)
+        lower = torch.ones(l, l, dtype=torch.bool).tril()
+        ct = cum.permute(0, 2, 1)                               # (b,h,l)
+        Lm = torch.exp((ct[..., :, None] - ct[..., None, :]).masked_fill(
+            ~lower, float("-inf"))).float()                     # (b,h,l,m)
+        xc = rnd(x[:, sl].float() * dtf[:, sl, :, None])
+        Bc, Cc, dyc = rnd(B[:, sl]), rnd(C[:, sl]), dy[:, sl]
+        gram = Cc @ Bc.transpose(1, 2)                          # once
+        total = torch.zeros(b, l, l, dtype=torch.float64)
+        dx, ddt, dda = (torch.empty(b, l, h, p), torch.empty(b, l, h),
+                        torch.empty(b, l, h))
+        for hh in range(h):                                     # head order
+            dM = rnd(dyc[:, :, hh] @ xc[:, :, hh].transpose(1, 2)) * lower
+            M = rnd(gram * Lm[:, hh])
+            total = total + (dM * Lm[:, hh]).double()
+            Q = (dM * gram * Lm[:, hh]).double()
+            dda[:, :, hh] = _rectangle_scan(Q).float()
+            dxc = rnd(M.transpose(1, 2) @ dyc[:, :, hh])
+            dx[:, :, hh] = (dxc * dtf[:, sl, hh, None]).to(cdt).float()
+            dd = (dxc * x[:, sl, hh].float()).sum(-1)
+            ddt[:, :, hh] = dda[:, :, hh] * A[hh] + dd
+        total = total.float()                                   # rounded once
+        dB, dC = total.transpose(1, 2) @ Cc, total @ Bc         # once
+        for k, v in (("dx", dx), ("ddt", ddt), ("dda", dda),
+                     ("dB", rnd(dB)), ("dC", rnd(dC))):
+            out[k].append(v)
+    cat = {k: torch.cat(v, 1) for k, v in out.items()}
+    da_log = (cat["dda"] * dtf).sum((0, 1)) * A
+    return {"dx": cat["dx"].to(cdt), "ddt": cat["ddt"], "da_log": da_log,
+            "dB": cat["dB"].to(cdt), "dC": cat["dC"].to(cdt)}
+
+
+def test_rectangle_scan_is_the_closed_forms_segment_sums():
+    """R_t = sum_{r >= t} sum_{m < t} Q[r, m], as the closed form takes it
+    (a reverse cumsum of exclusive row cumsums), to float64 rounding."""
+    rng = np.random.default_rng(4)
+    Q = torch.from_numpy(rng.standard_normal((3, 64, 64))).tril()
+    want = torch.diagonal(torch.flip(torch.cumsum(torch.flip(
+        torch.cumsum(Q, -1) - Q, (-2,)), -2), (-2,)), dim1=-2, dim2=-1)
+    torch.testing.assert_close(_rectangle_scan(Q), want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,n,seed", [
+    (2, 64, 4, 16, 8, 133), (2, 64, 4, 16, 8, 134), (1, 47, 6, 8, 12, 56),
+    (2, 64, 8, 8, 16, 144)], ids=["heads", "heads-again", "ragged", "eight"])
+def test_kernel_decomposition_holds_the_closed_form(b, s, h, p, n, seed,
+                                                    dtype):
+    """C B^T once per (b, chunk), each head's dM o L added in head order
+    in float64, rounded once and multiplied by C and B once per (b,
+    chunk), the segment sums as the rectangle scan: the closed
+    form's gradient (no state terms: one chunk, no initial state, the
+    final state unused), within CLOSED_TOL of each largest |g| in fp32 and
+    CLOSED_BF16_TOL in bf16 (the same rounding points)."""
+    d = _inputs(b, s, h, p, n, seed=seed, model_like=True, dtype=dtype)
+    _hold_decomposition(d, CLOSED_TOL if dtype == torch.float32
+                        else CLOSED_BF16_TOL)
+
+
+def _hold_decomposition(d, tol: float) -> None:
+    d["dstate"] = np.zeros_like(d["dstate"])
+    got = _kernel_decomposition(d)
+    x, dt, a_log, B, C, _ = _port_args(d)
+    want = dict(zip(NAMES, ssd_scan_chunked_bwd(
+        x, dt, a_log, B, C, 64, None, torch.from_numpy(d["dy"]), None)))
+    for name, g in got.items():
+        assert g.dtype == want[name].dtype, name
+        assert _rel(g.float(), want[name].float()) <= tol, name
+
+
+@pytest.mark.parametrize("h", [32, 80], ids=["mamba2-heads", "zamba2-heads"])
+def test_head_order_sum_holds_at_the_zoos_heads(h):
+    """The dB/dC launch adds one dM o L tile a head, 32 (mamba2-370m) or
+    80 (zamba2-2.7b) of them, in float64 and rounds once: the closed
+    form's fp32 gradient within CLOSED_TOL at those head counts (narrow p
+    and n keep it quick)."""
+    d = _inputs(1, 64, h, 4, 8, seed=h, model_like=True,
+                dtype=torch.float32)
+    _hold_decomposition(d, CLOSED_TOL)
+
+
+def _mma_c_map(r0: int, c0: int, nt: int):
+    """(row, column) of acc[j][e] of every lane of a warp_mm strip."""
+    return [(r0 + g + 8 * (e >> 1), c0 + 8 * j + 2 * t + (e & 1))
+            for lane in range(32) for g, t in [(lane >> 2, lane & 3)]
+            for j in range(nt) for e in range(4)]
+
+
+@pytest.mark.parametrize("warp", range(4))
+def test_fragment_maps_cover_the_causal_tiles(warp):
+    """warp_mm's C fragment covers the warp's 16 rows x 8 nt columns once;
+    the tiles j < 2 warp + 2 of dM (and C B^T) hold every m <= t of its
+    rows; M^T dy from k = 16 warp reads every t >= m of its rows m, and (dM
+    o L) B up to k = 16 warp + 16 every m <= t."""
+    r0 = 16 * warp
+    cells = _mma_c_map(r0, 0, 8)
+    assert sorted(cells) == [(r, c) for r in range(r0, r0 + 16)
+                             for c in range(64)]
+    kept = set(_mma_c_map(r0, 0, 2 * warp + 2))
+    assert {(r, m) for r in range(r0, r0 + 16) for m in range(r + 1)} <= kept
+    assert all(t >= r0 for m in range(r0, r0 + 16) for t in range(m, 64))
+    assert all(m < r0 + 16 for t in range(r0, r0 + 16) for m in range(t + 1))
