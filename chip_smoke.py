@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. device -- the card's name and power limit (nvidia-smi), and a build of
    the CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per source,
    started together), with the planted copies that the bf16 controls run
-   (PLANTED);
+   (PLANTED) and ptxas's registers and spill bytes of every flash forward
+   instance (PTXAS);
 2. kernels -- each codec kernel against its plain PyTorch version on the
    card, bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's
    update vector) and 22,253,615 (the ResNet50 stand-in's); each attention
@@ -85,7 +86,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    missing the norm-wise limits, and a quarter of a forward's rows taken
    from them missing a limit; and the attention
    kernels' fp32 output bits equal to those of the kernels before the
-   bf16 repair (ATTN_FP32_SHA256_PARENT);
+   bf16 repair (ATTN_FP32_SHA256_PARENT); the flash forward widened to
+   dk != dv and dk up to 192 against its plain version in fp32 and bf16
+   (``hold_bf16``, tie witness and all) over FLASH_WIDE_SWEEP (MLA's h 16,
+   dk 192, dv 128 at s 64, 512 and 47; a GQA group at dk 24 / dv 16 and
+   16 / 24; dk = dv = 192; dk 192 beside dv 64) and at phase 3i's shapes
+   (FLASH_MOE_PATH), timed at MLA's b 2, s 512 in fp32 and bf16
+   (FLASH_MLA_TIMED; SDPA computes the fp32 function), decode attention
+   timed at grok's heads (DECODE_GROK_TIMED), a gradient at dk != dv or dk
+   > 128 refused on the card naming its ROADMAP.md item, and the bf16
+   flash outputs at today's shapes equal to the bits of the kernel before
+   the widening (ATTN_BF16_SHA256_PARENT);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -115,7 +126,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    perplexity must match the same model's on the CPU, teacher-forced with
    those tokens, within SERVE_TOL; greedy tokens must be the card logits'
    argmax, and the CPU's wherever its top-two margin exceeds twice
-   SERVE_TOL; then a profile of 16 decode steps;
+   SERVE_TOL; then a profile of 16 decode steps; first, the model's fp32
+   logits over decode steps, a forward and a prefill hash as the port's
+   before rope's tables were shared (SERVE_FP32_SHA256_PARENT);
 3e. serve -- full-width mamba2-370m and zamba2-2.7b (fp32, seeded random
    weights): mamba2 (a) the launcher's defaults, (b) batch 8, prompt 449,
    64 greedy tokens (perplexity's forward over 512 positions, two of the
@@ -182,6 +195,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (c) FULL_TRIAL with mamba2-370m at full width in fp32 within
    FULL_TRIAL_RTOL, a control at lr x FULL_TRIAL_CONTROL_LR that must
    miss it.  Launches exact where 3g's are; they join the kernels line;
+3i. serve the MoE family -- deepseek-v2-lite-16b at full width and depth
+   (27 layers, MLA, 64 experts top 6 + 2 shared, 15.71 B parameters,
+   fp32, seeded weights drawn on the card): (a) the launcher's defaults,
+   each request's forward held against its replayed decode steps within
+   SERVE_TOL (the absorbed MLA decode against the materialised MLA
+   prefill through the widened flash kernel); the first MOE_CUT_LAYERS
+   layers (1.67 B parameters) served greedily, card vs CPU within
+   SERVE_TOL, greedy tokens by the margin rule, and the CPU's own
+   forward-vs-decode gap read; (b) a teacher-forced forward at b 2 over
+   512 positions, the cut's forward card vs CPU; (c) a profile of 16
+   decode steps.  grok-1-314b at full width over its first GROK_LAYERS
+   of 64 layers (11.45 B parameters): (a) the launcher's defaults, (b)
+   ``Model.prefill`` at b 2, s 512 against the token-by-token decode
+   loop, and the reduced grok card vs CPU.  Launches exact: flash =
+   layers x forwards, decode attention = layers x steps (none for MLA).
+   Routing: a token whose K-th and (K+1)-th gates differ by about the
+   fp32 sums' rounding routes either way on two sound runs, so a run
+   held against another takes the other's experts (``Routes``, a hook
+   local to this script), each forced expert's gate within
+   ROUTE_GATE_TOL of its token's own K-th (a planted wrong route must
+   miss), and the forwards held against decode steps drop no assignment
+   (a capacity factor of 1.0 drops them in a forward of b*s tokens, never
+   in deepseek's step of 4); the phase's seconds are printed;
 4. summary -- one JSON line listing every ported kernel and the two
    backward kernels.
 
@@ -234,6 +270,36 @@ FLASH_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
                (4, 16 + 32 - 1, *_SMOLLM_ATTN),
                (4, 16 + 32 - 1, ZAMBA2_HEADS, ZAMBA2_KV_HEADS,
                 ZAMBA2_HEAD_DIM))
+#: deepseek-v2-lite-16b's MLA prefill (phase 3i): h 16 over m 16 (the
+#: per-head K materialised from the latent), dk 192 = nope 128 + rope 64,
+#: dv 128; grok-1-314b's attention: h 48 over m 8, head_dim 128
+MLA_HEADS, MLA_DK, MLA_DV = 16, 192, 128
+GROK_HEADS, GROK_KV_HEADS, GROK_HEAD_DIM = 48, 8, 128
+#: the widened flash forward against its plain version (b, sq, sk, h, m,
+#: dk, dv, causal): MLA's heads at s 64, 512 and a ragged 47, a GQA group
+#: with dk != dv (both up to 128: one padded width), dk = dv = 192, and
+#: dk 192 beside dv 64 (dv padded to 128)
+FLASH_WIDE_SWEEP = tuple(
+    (2, s, s, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV, causal)
+    for s in (64, 512, 47) for causal in (True, False)) + (
+    (2, 47, 47, 4, 2, 24, 16, True), (2, 47, 47, 4, 2, 24, 16, False),
+    (1, 130, 577, 4, 2, 24, 16, False), (2, 47, 47, 4, 2, 16, 24, True),
+    (2, 47, 47, 3, 1, 192, 192, True), (1, 577, 577, 3, 1, 192, 192, False),
+    (2, 200, 200, 4, 2, 192, 64, True))
+#: the shapes phase 3i's forwards give flash attention (b, s, h, m, dk,
+#: dv): deepseek's launcher-default perplexities and its forward at b 2
+#: over 512, grok's the same and its prefill
+FLASH_MOE_PATH = ((4, 16 + 32 - 1, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV),
+                  (2, 512, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV),
+                  (4, 16 + 32 - 1, GROK_HEADS, GROK_KV_HEADS, GROK_HEAD_DIM,
+                   GROK_HEAD_DIM),
+                  (2, 512, GROK_HEADS, GROK_KV_HEADS, GROK_HEAD_DIM,
+                   GROK_HEAD_DIM))
+#: the MLA row of the kernel table: 3i's forward at b 2 over 512
+FLASH_MLA_TIMED = FLASH_MOE_PATH[1]
+#: the decode row at grok's heads: the last step of 3i (b)'s launcher
+#: defaults (b 4, S 49, 48 positions)
+DECODE_GROK_TIMED = (4, 16 + 32 + 1, 16 + 32)
 #: flash attention against attention in float64 (the main shape, inputs
 #: from FLASH_FP64_SEED): the CUDA-core kernel that the tensor-core one
 #: replaced read this max |o - exact| on these inputs
@@ -466,11 +532,15 @@ PLANTED = {
     # (what the controls run)
     "flash_attention": (_NO_BF16_ROUNDING,
                         ("dispatch<float>(q, k, v, o, lse, batch, heads, "
-                         "group, sq, sk, d,\n                            st, "
-                         "sm_scale, div, causal, stream)",
+                         "group, sq, sk, d,\n                            dv, "
+                         "st, sm_scale, div, causal, stream)",
                          "cudaErrorInvalidValue"),
                         *((f"    REPRO_FA_CASE({nc})\n", "")
-                          for nc in (1, 3, 6, 7, 8))),
+                          for nc in (1, 3, 6, 7, 8)),
+                        ("  if (nc <= 12 && nv <= 8) return launch<T, 12, 8>"
+                         "(P, batch, stream);\n  if (nc <= 12 && nv <= 12) "
+                         "return launch<T, 12, 12>(P, batch, stream);\n",
+                         "")),
     "flash_attention_bwd": (_NO_BF16_ROUNDING,
                             ("run<float>(q, k, v, dout, lse, rows, part, dq, "
                              "dk, dv, batch,\n                       heads, "
@@ -531,14 +601,69 @@ def phase_device(planted_copies: bool = True):
           f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build
     t0 = time.time()
+    ptxas = start_ptxas("flash_attention")
     libs = build.build(["quant8", "topk_ef", "flash_attention",
                         "flash_attention_bwd", "decode_attention",
                         "ssd_scan", "ssd_scan_bwd"])
     print(f"build: {time.time() - t0:.2f} s, "
           + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    PTXAS.update(read_ptxas(ptxas))
+    print("flash_attention registers and spills (ptxas -v): "
+          + json.dumps(PTXAS))
     if planted_copies:            # built beside phase 2, awaited at first use
         _PLANTED_PROCS.update(start_planted())
     return card
+
+
+#: the flash forward's instances as ``nvcc -Xptxas -v`` reports them
+#: (registers, stack frame and spill bytes), compiled beside phase 1's
+#: build into PTXAS_DIR
+PTXAS_DIR = ROOT / "build" / "ptxas"
+PTXAS: dict = {}
+
+
+def start_ptxas(name: str):
+    """nvcc of ``csrc/<name>.cu`` to a cubin with ptxas's report, at the
+    build's architecture, standard and optimisation."""
+    from repro_torch.kernels import build
+    PTXAS_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+         "-o", str(PTXAS_DIR / f"{name}.cubin"), str(build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def read_ptxas(proc) -> dict:
+    """{instance: {registers, stack, spill_stores, spill_loads}} from
+    ptxas's report; an instance is named by its kernel (the fp32 one or
+    the bf16 ``rounded``), its type and its padded dk and dv."""
+    import re
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{log}")
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            widths = re.search(r"Li(\d+)E(?:Li(\d+)E)?", mangled)
+            nc = int(widths.group(1)) if widths else 0
+            nv = int(widths.group(2) or nc) if widths else 0
+            name = (("rounded bf16" if "rounded" in mangled else "fp32")
+                    + (f" dk{16 * nc} dv{16 * nv}" if widths else ""))
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            out.setdefault(name, {}).update(
+                stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                spill_loads=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.setdefault(name, {})["registers"] = int(regs.group(1))
+    check(out, f"no ptxas report in nvcc's output:\n{log}")
+    return out
 
 
 def start_planted() -> dict:
@@ -662,8 +787,10 @@ def tf32x3_bound_ms(nbytes: float, flop: float) -> tuple[float, str]:
     return bound_ms(nbytes, 3 * flop, TF32_OPS_PER_S)
 
 
-def decode_timed_row(gen, b: int, S: int, length: int) -> dict:
-    """Decode attention at smollm's heads in fp32 over a (b, S) cache with
+def decode_timed_row(gen, b: int, S: int, length: int,
+                     heads: tuple = None) -> dict:
+    """Decode attention at smollm's heads (or ``heads``: (h, m, d)) in fp32
+    over a (b, S) cache with
     ``length`` valid positions: the kernel against its plain version, two
     kernel calls compared bitwise, then CUDA-event times of the kernel, the
     plain version and ``F.scaled_dot_product_attention`` over the same
@@ -674,7 +801,7 @@ def decode_timed_row(gen, b: int, S: int, length: int) -> dict:
         decode_attention_kernel)
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_plain as decode_plain)
-    h, m, d = SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM
+    h, m, d = heads or (SMOLLM_HEADS, SMOLLM_KV_HEADS, SMOLLM_HEAD_DIM)
     q, k, v = _attn_inputs(gen, torch.float32, (b, h, d), (b, S, m, d),
                            (b, S, m, d))
 
@@ -827,8 +954,10 @@ def _causal_pairs(sq: int, sk: int) -> int:
     return sum(min(sk, i + 1) for i in range(sq))
 
 
-def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
-    """Flash attention, causal fp32, q (b, s, h, d) and k/v (b, s, m, d):
+def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int,
+                    dv: int | None = None) -> dict:
+    """Flash attention, causal fp32, q (b, s, h, d), k (b, s, m, d) and v
+    (b, s, m, dv) (dv: d unless given):
     the kernel against its plain version, two kernel calls compared
     bitwise, then CUDA-event times of the kernel, the plain version and
     ``F.scaled_dot_product_attention``, and the kernel's device time by
@@ -842,8 +971,9 @@ def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    dv = dv or d
     q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
-                           (b, s, m, d))
+                           (b, s, m, dv))
 
     def kernel_fn():
         return flash_attention_kernel(q, k, v, causal=True)
@@ -858,10 +988,11 @@ def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
 
     out, again, ref, lib = kernel_fn(), kernel_fn(), plain_fn(), library_fn()
     torch.cuda.synchronize()
-    flop = 4 * b * h * _causal_pairs(s, s) * d
-    nbytes = 4 * (2 * b * s * h * d + 2 * b * s * m * d)
+    flop = 2 * b * h * _causal_pairs(s, s) * (d + dv)
+    nbytes = 4 * (b * s * h * (d + dv) + b * s * m * (d + dv))
     b_ms, by = tf32x3_bound_ms(nbytes, flop)
-    row = {"shape": f"b{b} s{s} h{h} m{m} d{d} causal fp32",
+    widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
+    row = {"shape": f"b{b} s{s} h{h} m{m} {widths} causal fp32",
            "max_abs_err": float((out - ref).abs().max()),
            "repeat_bitwise": _bits_equal(out, again),
            "library_max_abs_err": float((lib - ref).abs().max()),
@@ -1205,8 +1336,11 @@ def _bf16_gaps(outs, refs, rows=None) -> dict:
         from repro_torch.kernels.flash_attention.ref import bf16_divisor
         of = outs[0].reshape(-1, outs[0].shape[-1])
         rf = refs[0].reshape(-1, refs[0].shape[-1])
-        div = bf16_divisor(of.shape[-1] ** -0.5)
         moved = (of != rf).any(-1).nonzero().flatten()
+        # the scores' divisor is bf16(sqrt dk), q's width (dv may differ)
+        dk = rows(torch.zeros(1, dtype=torch.long,
+                              device=of.device))[0].shape[-1]
+        div = bf16_divisor(dk ** -0.5)
         out["moved_rows"] = len(moved)
         out["unexplained"] = _unexplained(of, moved, rows, div)
         out["plain_unexplained"] = _unexplained(rf, moved, rows, div)
@@ -1310,12 +1444,15 @@ def phase_attention_kernels() -> dict:
         n[name] += 1
         return err
 
-    def hold_flash(b, sq, sk, h, m, d, causal, dtype, group="sweep"):
+    def hold_flash(b, sq, sk, h, m, d, causal, dtype, group="sweep",
+                   dv=None):
+        dv = dv or d
         q, k, v = _attn_inputs(gen, dtype, (b, sq, h, d), (b, sk, m, d),
-                               (b, sk, m, d))
+                               (b, sk, m, dv))
+        widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
         hold("flash_attention", flash_attention_kernel(q, k, v, causal=causal),
              flash_attention_plain(q, k, v, causal=causal), dtype,
-             f"b{b} sq{sq} sk{sk} h{h} m{m} d{d} causal={causal}", group,
+             f"b{b} sq{sq} sk{sk} h{h} m{m} {widths} causal={causal}", group,
              flash_rows(q, k, v, causal))
 
     def hold_decode(b, S, lengths, h, m, d, dtype, group="sweep"):
@@ -1372,6 +1509,16 @@ def phase_attention_kernels() -> dict:
         h, m, d = ZAMBA2_HEADS, ZAMBA2_KV_HEADS, ZAMBA2_HEAD_DIM
         hold_flash(4, 16 + 32 - 1, 16 + 32 - 1, h, m, d, True, dtype, "path")
         hold_decode(4, 16 + 32 + 1, (1, 16, 48), h, m, d, dtype, "path")
+        # the widened forward (dk != dv, dk > 128), then phase 3i's shapes:
+        # deepseek's MLA prefill and grok's forwards, and grok's caches at
+        # the first, a middle and the last length of its launcher defaults
+        for b, sq, sk, h, m, d, dv, causal in FLASH_WIDE_SWEEP:
+            hold_flash(b, sq, sk, h, m, d, causal, dtype, dv=dv)
+        for b, s, h, m, d, dv in FLASH_MOE_PATH:
+            hold_flash(b, s, s, h, m, d, True, dtype, "path", dv=dv)
+        b, S, length = DECODE_GROK_TIMED
+        hold_decode(b, S, (1, 16, length), GROK_HEADS, GROK_KV_HEADS,
+                    GROK_HEAD_DIM, dtype, "path")
     for name, by_group in errs.items():
         print(f"  {name}: {n[name]} shapes within {ATTN_TOL[name]} of the "
               f"plain version; max |err| " + "; ".join(
@@ -1391,6 +1538,17 @@ def phase_attention_kernels() -> dict:
         errs["flash_attention"]["path"]["float32"] = max(
             errs["flash_attention"]["path"]["float32"], row["max_abs_err"])
         shapes.append(row)
+    mla = flash_timed_row(gen, *FLASH_MLA_TIMED)
+    check(mla["repeat_bitwise"], f"flash_attention {mla['shape']}: two "
+                                 f"calls differ")
+    check(mla["library_max_abs_err"] <= 1e-4,
+          "flash_attention: the library call is not the same function at "
+          "MLA's widths")
+    check(mla["max_abs_err"] <= ATTN_TOL["flash_attention"]["float32"],
+          f"flash_attention timed {mla['shape']}: max |kernel - plain| "
+          f"{mla['max_abs_err']:.3e}")
+    mla_bf16 = flash_bf16_timed_row(gen, *FLASH_MLA_TIMED)
+    refused = wide_gradient_refused(gen)
     vs_fp64 = flash_vs_float64()
     check(vs_fp64["kernel"] <= 2 * FLASH_FP64_PARENT,
           f"flash_attention: {vs_fp64['kernel']:.3e} from float64, over "
@@ -1406,7 +1564,9 @@ def phase_attention_kernels() -> dict:
         "max_abs_err_bf16": errs["flash_attention"]["path"]["bfloat16"],
         "sweep_max_abs_err": errs["flash_attention"]["sweep"],
         "bf16_vs_plain": bf16["flash_attention"],
-        "vs_float64": vs_fp64, "shapes": shapes}
+        "vs_float64": vs_fp64, "shapes": shapes,
+        "mla": {"float32": mla, "bfloat16": mla_bf16},
+        "wide_gradient_refused": refused}
     shapes = []
     for b, S, length in DECODE_TIMED:
         row = decode_timed_row(gen, b, S, length)
@@ -1420,6 +1580,11 @@ def phase_attention_kernels() -> dict:
         errs["decode_attention"]["path"]["float32"] = max(
             errs["decode_attention"]["path"]["float32"], row["max_abs_err"])
         shapes.append(row)
+    grok = decode_timed_row(gen, *DECODE_GROK_TIMED,
+                            heads=(GROK_HEADS, GROK_KV_HEADS, GROK_HEAD_DIM))
+    check(grok["repeat_bitwise"] and grok["library_max_abs_err"] <= 1e-4
+          and grok["max_abs_err"] <= ATTN_TOL["decode_attention"]["float32"],
+          f"decode_attention timed {grok['shape']}: {grok}")
     main = shapes[0]
     rows["decode_attention"] = {
         **{k: main[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
@@ -1428,7 +1593,8 @@ def phase_attention_kernels() -> dict:
         "max_abs_err": errs["decode_attention"]["path"]["float32"],
         "max_abs_err_bf16": errs["decode_attention"]["path"]["bfloat16"],
         "sweep_max_abs_err": errs["decode_attention"]["sweep"],
-        "bf16_vs_plain": bf16["decode_attention"], "shapes": shapes}
+        "bf16_vs_plain": bf16["decode_attention"], "shapes": shapes,
+        "grok": grok}
     print("  bf16 against the plain versions (worst; counts summed): "
           + json.dumps(bf16))
     torch.cuda.empty_cache()
@@ -1873,6 +2039,103 @@ def decode_bf16_row(gen, b: int, S: int, length: int, h: int, m: int,
     return row
 
 
+def flash_bf16_timed_row(gen, b: int, s: int, h: int, m: int, d: int,
+                         dv: int) -> dict:
+    """bf16 flash attention forward at q (b, s, h, d), k (b, s, m, d), v
+    (b, s, m, dv), causal: the kernel against its plain version
+    (``hold_bf16`` with the tie witness), then CUDA-event times of the
+    kernel, its plain version and ``F.scaled_dot_product_attention`` in
+    bf16 (a yardstick: another function).  Bound: QK^T and P V over the
+    causal pairs at the tensor cores' bf16 rate, and the bytes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    q, k, v = _attn_inputs(gen, torch.bfloat16, (b, s, h, d), (b, s, m, d),
+                           (b, s, m, dv))
+    shape = f"b{b} s{s} h{h} m{m} dk{d} dv{dv} causal bf16"
+    o = flash_attention_kernel(q, k, v, causal=True)
+    row = {"shape": shape, **hold_bf16(
+        f"flash_attention {shape}", [o], [flash_attention_plain(
+            q, k, v, causal=True)], rows=flash_rows(q, k, v, True))}
+
+    def library_fn():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    nbytes = 2 * (b * s * h * (d + dv) + b * s * m * (d + dv))
+    b_ms, by = bound_ms(nbytes, 2 * b * h * _causal_pairs(s, s) * (d + dv),
+                        BF16_OPS_PER_S)
+    row.update(ms=time_ms(lambda: flash_attention_kernel(q, k, v,
+                                                         causal=True)),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
+                                                              causal=True)),
+               library_ms=time_ms(library_fn), bound_ms=b_ms, bound_by=by,
+               library="F.scaled_dot_product_attention(..., is_causal=True, "
+                       "enable_gqa=True) in bf16 (not the JAX model's "
+                       "rounding)")
+    print(f"  flash_attention {shape}: " + json.dumps(row))
+    del q, k, v, o
+    return row
+
+
+def wide_gradient_refused(gen) -> list:
+    """A gradient through flash attention on the card at dk != dv or dk >
+    128 (MLA's 192 / 128, and 160 / 160) must raise NotImplementedError
+    naming its ROADMAP.md item before any kernel runs; the same call
+    without a gradient runs the forward."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import WIDE_BACKWARD_QUEUED
+    out = []
+    for dk, dv in ((MLA_DK, MLA_DV), (160, 160)):
+        q, k, v = _attn_inputs(gen, torch.float32, (1, 8, 2, dk),
+                               (1, 8, 2, dk), (1, 8, 2, dv))
+        try:
+            flash_attention(q.requires_grad_(True), k, v, causal=True)
+            said = None
+        except NotImplementedError as e:
+            said = str(e)
+        check(said is not None and WIDE_BACKWARD_QUEUED in said,
+              f"flash attention's gradient at dk {dk}, dv {dv} on the card "
+              f"was not refused naming {WIDE_BACKWARD_QUEUED}: {said!r}")
+        with torch.no_grad():
+            check(flash_attention(q, k, v, causal=True).shape == (1, 8, 2, dv),
+                  f"flash attention's forward at dk {dk}, dv {dv}")
+        out.append({"dk": dk, "dv": dv, "refused": said})
+    print(f"  flash attention's gradient refused on the card at dk != dv "
+          f"or dk > 128: {[(r['dk'], r['dv']) for r in out]}")
+    return out
+
+
+def flash_bf16_sha256() -> str:
+    """sha256 of flash attention's bf16 outputs (o and the log-sum-exp) on
+    seeded inputs at the shapes ``attention_fp32_sha256`` and
+    ``phase_attention_bf16`` give it (the training path's b 8, s 64 with
+    smollm's and zamba2's heads, a ragged GQA one).  It runs in a checkout
+    of any commit since the bf16 repair: ``python3 -c 'import chip_smoke
+    as c; c.phase_device(False); print(c.flash_bf16_sha256())'``."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h = hashlib.sha256()
+    for b, s, hh, m, d in ((8, 64, *_SMOLLM_ATTN), (8, 64, *_ZAMBA2_ATTN),
+                           (2, 47, 6, 2, 20)):
+        q, k, v = _attn_inputs(gen, torch.bfloat16, (b, s, hh, d),
+                               (b, s, m, d), (b, s, m, d))
+        for causal in (True, False):
+            o, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                            with_lse=True)
+            h.update(o.view(torch.int16).cpu().numpy().tobytes())
+            h.update(lse.cpu().numpy().tobytes())
+    digest = h.hexdigest()
+    print(f"  flash attention bf16 sha256: {digest}")
+    return digest
+
+
 #: the attention kernels' fp32 output bits on seeded inputs
 #: (``attention_fp32_sha256``): the kernels before the bf16 repair
 #: (4a52093) read these on an H100 80GB HBM3 at 700 W; fp32 must not move
@@ -1883,6 +2146,13 @@ ATTN_FP32_SHA256_PARENT = {
         "e1edadc8b9daeb8b6b3c2767c9d5ec8f9480206809854b922fec3153b10d40ac",
     "decode_attention":
         "bf10b8c153c2bf00ab98b6b09ca05e34d1fd15cf9847c2a923e6c0fb66d41bd0"}
+
+
+#: flash attention's bf16 output bits on seeded inputs
+#: (``flash_bf16_sha256``): the kernel before the widening to dk != dv
+#: (e6a6006) read this on an H100 80GB HBM3 at 700 W; they must not move
+ATTN_BF16_SHA256_PARENT = (
+    "6e0c7e32e78f55706b43cd36fa18ec6cc5959012f25800da656fc3db8447e267")
 
 
 def attention_fp32_sha256() -> dict:
@@ -2958,14 +3228,114 @@ def _reset_path_launches() -> None:
 def _want_launches(cfg, steps: int, forwards: int) -> dict:
     """Exact launch counts of ``steps`` decode steps and ``forwards``
     forwards: flash per attention layer per forward, decode attention per
-    attention layer per step, the SSD scan per Mamba2 layer per forward
-    (never in a decode step: that is the single-step recurrence)."""
+    attention layer per step (none with MLA: its decode is plain products
+    in the latent space), the SSD scan per Mamba2 layer per forward (never
+    in a decode step: that is the single-step recurrence)."""
     layers = cfg.num_layers
-    attn = {"dense": layers, "ssm": 0,
+    attn = {"dense": layers, "moe": layers, "ssm": 0,
             "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
-    mamba = 0 if cfg.family == "dense" else layers
+    mamba = layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn * forwards,
-            "decode_attention": attn * steps, "ssd_scan": mamba * forwards}
+            "decode_attention": 0 if cfg.use_mla else attn * steps,
+            "ssd_scan": mamba * forwards}
+
+
+#: a forced expert's own gate may lie this far below the K-th largest
+#: gate of its token (gates are fp32 softmax probabilities, ~1/E): two
+#: sound runs whose fp32 sums differ (card vs CPU, a forward vs decode
+#: steps) route a token whose K-th and (K+1)-th gates lie within their
+#: rounding either way; an expert further below is a wrong route
+ROUTE_GATE_TOL = 1e-5
+
+
+class Routes:
+    """A hook local to this script on the MoE router
+    (``repro_torch.models.moe.route``, swapped in for the block): every
+    call's chosen experts are kept (``records``, on the card, in call
+    order).  ``force``: a list of expert choices, one per call, that the
+    calls take instead of their own -- so that two runs whose fp32 sums
+    differ route alike -- each forced expert's own gate held at least its
+    own K-th largest gate less ROUTE_GATE_TOL (:meth:`hold`).
+    ``no_drops``: every call's capacity is its token count, so no
+    assignment is dropped (a forward's tokens then route as decode steps
+    at batch 4 do: the model's capacity factor of 1.0 drops assignments in
+    a forward of b*s tokens and none in a step of b)."""
+
+    def __init__(self, force=None, no_drops: bool = False):
+        self.force = None if force is None else list(force)
+        self.no_drops = no_drops
+        self.records: list = []
+        self.slack = float("inf")      # least forced gate - own K-th gate
+        self.moved = 0                 # tokens whose forced set differs
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._kept = moe.route, moe._capacity
+        moe.route = self._route
+        if self.no_drops:
+            moe._capacity = lambda tokens, cfg: max(tokens,
+                                                    cfg.experts_per_token)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe._capacity = self._kept
+
+    def _route(self, gates, k):
+        import torch
+        g, idx = self._kept[0](gates, k)
+        if self.force is not None:
+            check(bool(self.force), "Routes: more router calls than forced "
+                                    "choices")
+            want = self.force.pop(0).to(gates.device)
+            check(want.shape == idx.shape, f"Routes: forced {want.shape}, "
+                                           f"the call routes {idx.shape}")
+            forced = gates.gather(-1, want)
+            self.slack = min(self.slack,
+                             float((forced - g[:, -1:]).min()))
+            self.moved += int((torch.sort(want, -1).values
+                               != torch.sort(idx, -1).values).any(-1).sum())
+            g, idx = forced, want
+        self.records.append(idx.clone())
+        return g, idx
+
+    def reading(self) -> dict:
+        return {"calls": len(self.records), "moved_tokens": self.moved,
+                "least_slack": self.slack}
+
+    def hold(self, what: str) -> None:
+        """Fails unless every forced choice was used and none lies further
+        than ROUTE_GATE_TOL below its token's own K-th gate."""
+        if self.force is None:
+            return
+        check(not self.force, f"{what}: {len(self.force)} forced routes "
+                              f"left unused")
+        check(self.slack >= -ROUTE_GATE_TOL,
+              f"{what}: a forced expert's gate lies {-self.slack:.3e} below "
+              f"its token's K-th (> ROUTE_GATE_TOL {ROUTE_GATE_TOL:g}): a "
+              f"wrong route, not a near-tie")
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of a moe config (the router's calls a pass makes)."""
+    return cfg.num_layers - cfg.first_k_dense if cfg.family == "moe" else 0
+
+
+def steps_as_forward(records: list, layers: int, b: int, s: int) -> list:
+    """Routes recorded over the decode steps that fed the first s - 1
+    tokens of (b, s) -- step-major, one (b, K) per MoE layer -- as the
+    calls of a forward over those s - 1 positions: one (b (s-1), K) per
+    layer, tokens batch-major."""
+    import torch
+    if not layers:
+        return []
+    steps = len(records) // layers
+    check(steps * layers == len(records) and steps == s - 1,
+          f"{len(records)} routed calls for {layers} MoE layers over "
+          f"{s - 1} steps")
+    return [torch.stack([records[t * layers + i] for t in range(steps)],
+                        dim=1).reshape(b * steps, -1)
+            for i in range(layers)]
 
 
 def _card_step_logits(model, out, max_seq: int):
@@ -2984,21 +3354,36 @@ def _card_step_logits(model, out, max_seq: int):
     return torch.stack(steps, dim=1).cpu()                      # (b, s-1, V)
 
 
-def _vs_cpu(cpu_model, out, card, what: str) -> dict:
+def _vs_cpu(cpu_model, out, card, what: str, routes=None) -> dict:
     """The card's per-step logits ``card`` against the same model on the
     CPU, teacher-forced with the card's tokens ``out`` (b, s), within
-    SERVE_TOL of the largest; the CPU's perplexity from the same logits
-    (``perplexity``'s arithmetic)."""
+    SERVE_TOL of the largest; the CPU's perplexity (``perplexity``'s
+    arithmetic: the loss with AUX_COEF of the MoE layers' aux).  MoE (``routes``: the card's, as ``_serve_run`` keeps
+    them): the CPU forward that the steps are held against drops nothing
+    and takes the card's decode steps' experts, the one that gives the
+    perplexity the card perplexity forward's (:class:`Routes`)."""
     import torch
     from repro_torch.models.common import cross_entropy
+    from repro_torch.models.transformer import AUX_COEF
+    routes = routes or {}
+    moe = cpu_model.cfg.family == "moe"
     with torch.no_grad():
-        cpu, _ = cpu_model.forward({"tokens": out[:, :-1]})
+        with Routes(force=routes.get("steps_as_forward"),
+                    no_drops=moe) as held:
+            cpu, aux = cpu_model.forward({"tokens": out[:, :-1]})
+        held.hold(f"{what}: the CPU forward held against the card's steps")
+        ppl_logits = cpu
+        if moe:
+            with Routes(force=routes["perplexity"]) as held:
+                ppl_logits, aux = cpu_model.forward({"tokens": out[:, :-1]})
+            held.hold(f"{what}: the CPU perplexity forward")
     err = float((card - cpu).abs().max())
     scale = float(cpu.abs().max())
     check(err <= SERVE_TOL * max(1.0, scale),
           f"{what}: card vs CPU teacher-forced logits differ by {err:.3e}")
     return {"logits_max_abs_err": err, "logits_max_abs": scale,
-            "cpu_ppl": float(torch.exp(cross_entropy(cpu, out[:, 1:]))),
+            "cpu_ppl": float(torch.exp(cross_entropy(ppl_logits, out[:, 1:])
+                                       + AUX_COEF * aux)),
             "cpu_logits": cpu}
 
 
@@ -3006,7 +3391,12 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
                seed, what: str) -> dict:
     """One generate() + perplexity on the card, launches counted; then the
     card's teacher-forced forward against its replayed decode steps, and
-    the CPU comparison."""
+    the CPU comparison (none when ``cpu_model`` is None).  MoE: the
+    forward held against the steps drops nothing and takes the steps'
+    experts, and the replayed steps drop nothing either (a step of b
+    tokens drops an assignment only where more than C of them pick one
+    expert: grok at batch 4, C = 2; deepseek's C = 6 never drops at 4)
+    (:class:`Routes`)."""
     import torch
     from repro_torch.serving import perplexity
     gen.decode_steps = 0
@@ -3018,7 +3408,8 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
                        temperature=temperature, seed=seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ppl = perplexity(model, out)
+    with Routes() as ppl_routes:
+        ppl = perplexity(model, out)
     launches = _path_launches()
     peak = torch.cuda.max_memory_allocated()
     b, s = prompts.shape
@@ -3030,27 +3421,44 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
     check(out.shape == (b, s + new_tokens)
           and bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
           f"{what}: tokens out of range or of shape {out.shape}")
+    check(ppl == ppl and ppl > 1.0, f"{what}: perplexity {ppl!r}")
     out_t = torch.from_numpy(out).long()
-    card = _card_step_logits(model, out_t, gen.max_seq)
-    with torch.no_grad():
+    moe = model.cfg.family == "moe"
+    with Routes(no_drops=moe) as step_routes:
+        card = _card_step_logits(model, out_t, gen.max_seq)
+    routes = {"perplexity": ppl_routes.records,
+              "steps_as_forward": steps_as_forward(
+                  step_routes.records, moe_layers(model.cfg), *out_t.shape)}
+    with torch.no_grad(), Routes(force=routes["steps_as_forward"],
+                                 no_drops=moe) as held:
         card_fwd = model.forward({"tokens": out_t[:, :-1].cuda()})[0].cpu()
+    held.hold(f"{what}: the card's forward held against its steps")
     fwd_err = float((card_fwd - card).abs().max())
     check(fwd_err <= SERVE_TOL * max(1.0, float(card.abs().max())),
           f"{what}: the card's forward vs its decode steps differ by "
           f"{fwd_err:.3e}")
     del card_fwd
-    cmp = _vs_cpu(cpu_model, out_t, card, what)
-    cpu = cmp.pop("cpu_logits")
-    rel = abs(ppl - cmp["cpu_ppl"]) / cmp["cpu_ppl"]
-    check(rel <= SERVE_TOL, f"{what}: ppl {ppl!r} on the card vs "
-                            f"{cmp['cpu_ppl']!r} on the CPU")
     row = {"batch": b, "prompt": s, "new_tokens": new_tokens,
            "temperature": temperature, "wall_s": wall,
            "tok_per_s": b * new_tokens / wall,
            "ms_per_decode_step": wall / gen.decode_steps * 1e3,
-           "peak_mem_bytes": peak, "ppl": ppl, "ppl_rel_vs_cpu": rel,
+           "peak_mem_bytes": peak, "ppl": ppl,
            "forward_vs_decode_max_abs_err": fwd_err,
-           "launches": launches, **cmp}
+           "forward_vs_decode_routes": held.reading(),
+           "launches": launches}
+    if cpu_model is None:
+        print(f"  {what}: {b}x{new_tokens} tokens in {wall:.3f} s "
+              f"({row['tok_per_s']:.1f} tok/s, "
+              f"{row['ms_per_decode_step']:.3f} ms/decode step, peak "
+              f"{peak / 2**30:.3f} GiB) ppl={ppl:.4f}, forward vs decode "
+              f"{fwd_err:.3e} launches={launches}")
+        return row
+    cmp = _vs_cpu(cpu_model, out_t, card, what, routes if moe else None)
+    cpu = cmp.pop("cpu_logits")
+    rel = abs(ppl - cmp["cpu_ppl"]) / cmp["cpu_ppl"]
+    check(rel <= SERVE_TOL, f"{what}: ppl {ppl!r} on the card vs "
+                            f"{cmp['cpu_ppl']!r} on the CPU")
+    row.update(ppl_rel_vs_cpu=rel, **cmp)
     if temperature == 0:                 # greedy: tokens where margins allow
         top2 = cpu[:, s - 1:].topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
@@ -3141,23 +3549,37 @@ def _profile_decode(model, prompt, steps: int = 16) -> dict:
                                              key=lambda kv: -kv[1]))}
 
 
-def _full_width(name: str):
-    """The full-width arch in fp32 (as the launcher forces), its model on
-    the card from seed 0, and the same parameters on the CPU."""
+def _full_width(name: str, cpu: bool = True, layers: int | None = None):
+    """The full-width arch in fp32 (as the launcher forces; ``layers``: its
+    first that many), its model on the card from seed 0, and (``cpu``) the
+    same parameters on the CPU."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, build_model
     from repro_torch.models.common import tree_map
     arch = get_arch(name)
-    arch = arch.replace(model=arch.model.replace(dtype="float32"))
+    arch = arch.replace(model=arch.model.replace(
+        dtype="float32", num_layers=layers or arch.model.num_layers))
     cfg = arch.model
     t0 = time.perf_counter()
     model = build_model(arch, device="cuda", seed=0)
-    cpu_model = Model(cfg, tree_map(lambda t: t.detach().cpu(), model.params))
+    cpu_model = (Model(cfg, tree_map(lambda t: t.detach().cpu(),
+                                     model.params)) if cpu else None)
     torch.cuda.synchronize()
     widths = (f"{cfg.num_heads}/{cfg.kv_heads} heads x {cfg.hdim}"
               if cfg.num_heads else "")
-    if cfg.family != "dense":
+    if cfg.use_mla:
+        widths = (f"MLA {cfg.num_heads} heads, latent {cfg.kv_lora_rank}, "
+                  f"dk {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, dv "
+                  f"{cfg.v_head_dim}")
+    if cfg.family == "moe":
+        widths += (f"; {cfg.num_experts} experts x {cfg.moe_d_ff} top "
+                   f"{cfg.experts_per_token}"
+                   + (f" + {cfg.num_shared_experts} shared"
+                      if cfg.num_shared_experts else "")
+                   + (f", {cfg.first_k_dense} dense first layer of "
+                      f"{cfg.dense_d_ff}" if cfg.first_k_dense else ""))
+    elif cfg.family != "dense":
         widths = (f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
                   f"{cfg.ssm_state}" + (f"; every {cfg.attn_every} layers "
                                         f"a shared block of {widths}"
@@ -3168,6 +3590,40 @@ def _full_width(name: str):
     return arch, model, cpu_model
 
 
+#: full-width smollm-360m's fp32 logits on the card (``serve_fp32_sha256``):
+#: the port before rope's tables were shared (e6a6006) read this on an
+#: H100 80GB HBM3 at 700 W; building the tables once a step must not move
+#: a bit
+SERVE_FP32_SHA256_PARENT = (
+    "d15b2c2dce993732bbb46a7d167c56216ad4d68aec458a2e1b76e5411246374a")
+
+
+def serve_fp32_sha256(model=None) -> str:
+    """sha256 of full-width smollm-360m's fp32 logits on the card (seed 0,
+    or ``model``): 48 decode steps at batch 4 from a fresh cache, the
+    teacher-forced forward and ``Model.prefill``'s last logits over the
+    same tokens (from their own seed).  It runs in a checkout of any
+    commit since the zoo serves: ``python3 -c 'import chip_smoke as c;
+    c.phase_device(False); print(c.serve_fp32_sha256())'``."""
+    import numpy as np
+    import torch
+    if model is None:
+        _arch, model, _ = _full_width("smollm-360m", cpu=False)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, model.cfg.vocab_size, (4, 48))).cuda()
+    h = hashlib.sha256()
+    with torch.no_grad():
+        cache = model.init_cache(4, 48)
+        for pos in range(48):
+            logits, cache = model.decode_step(cache, toks[:, pos], pos)
+            h.update(logits.cpu().numpy().tobytes())
+        h.update(model.forward({"tokens": toks})[0].cpu().numpy().tobytes())
+        h.update(model.prefill({"tokens": toks})[0].cpu().numpy().tobytes())
+    digest = h.hexdigest()
+    print(f"  smollm-360m fp32 logits sha256: {digest}")
+    return digest
+
+
 def phase_serve() -> dict:
     """Full-width smollm-360m served on the card (see the module docstring,
     3d); returns the runs' numbers and the launch totals."""
@@ -3176,6 +3632,9 @@ def phase_serve() -> dict:
     from repro_torch.serving import Generator
     arch, model, cpu_model = _full_width("smollm-360m")
     cfg = arch.model
+    check(serve_fp32_sha256(model) == SERVE_FP32_SHA256_PARENT,
+          "smollm-360m's fp32 logits differ from the bits of the port "
+          "before rope's tables were shared (SERVE_FP32_SHA256_PARENT)")
     rows = {}
     totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     rng = np.random.default_rng(0)
@@ -3310,6 +3769,236 @@ def phase_serve_ssm() -> dict:
     del gen, model, cpu_model
     torch.cuda.empty_cache()
     return {"runs": rows, "launches": totals, "mamba2_decode_profile": prof}
+
+
+# ------------------------------------------------ 3i. serve the MoE family ---
+
+#: 3i: deepseek-v2-lite-16b's card-vs-CPU hold runs its first
+#: MOE_CUT_LAYERS layers (the dense layer and two MoE layers, the real
+#: embed and unembed: 1.67 B parameters) on both
+MOE_CUT_LAYERS = 3
+#: grok-1-314b at full width over its first GROK_LAYERS of 64 layers (the
+#: whole model is 1,266 GB in fp32 and fits no card; these 11.45 B
+#: parameters are 45.8 GB)
+GROK_LAYERS = 2
+#: deepseek's teacher-forced forward (the perplexity's) and grok's prefill
+#: against its decode loop: (b, positions)
+MOE_FORWARD = (2, 512)
+
+
+def _cut(model, layers: int):
+    """A moe model's first ``layers`` layers with its embed, final norm and
+    unembed, as a Model of that depth over views of its parameters."""
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_map
+    cfg = model.cfg
+    params = dict(model.params)
+    params["blocks"] = tree_map(lambda a: a[:layers - cfg.first_k_dense],
+                                params["blocks"])
+    return Model(cfg.replace(num_layers=layers), params)
+
+
+def _route_control(card_model, cpu_model, toks) -> dict:
+    """The routing hold's control: the card's experts for a forward, with
+    every token's K-th expert of the first MoE layer moved half the experts
+    on, forced on the CPU: the hold must read it as a wrong route."""
+    import torch
+    with torch.no_grad(), Routes() as card:
+        card_model.forward({"tokens": toks.cuda()})
+    wrong = [r.cpu() for r in card.records]
+    e = card_model.cfg.num_experts
+    wrong[0][:, -1] = (wrong[0][:, -1] + e // 2) % e
+    with torch.no_grad(), Routes(force=wrong) as planted_run:
+        cpu_model.forward({"tokens": toks})
+    out = planted_run.reading()
+    check(out["least_slack"] < -ROUTE_GATE_TOL,
+          f"routing control: a planted wrong route reads {out}, within "
+          f"ROUTE_GATE_TOL: the hold does not catch it")
+    return out
+
+
+def phase_serve_moe() -> dict:
+    """The MoE family served on the card (see the module docstring, 3i);
+    returns the runs' numbers, the launch totals and the phase's
+    seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import Generator, perplexity
+    t_phase = time.perf_counter()
+    rows = {}
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    rng = np.random.default_rng(3)
+    torch.cuda.empty_cache()
+    arch, model, _ = _full_width("deepseek-v2-lite-16b", cpu=False)
+    cfg = arch.model
+    vocab = cfg.vocab_size
+    gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
+    for r in range(2):                   # (a) the launcher's defaults
+        prompts = rng.integers(0, vocab, (4, 16)).astype(np.int32)
+        rows[f"deepseek a{r}"] = _serve_run(gen, model, None, prompts, 32,
+                                            0.8, r, f"deepseek (a) request {r}")
+        count(rows[f"deepseek a{r}"]["launches"])
+    # the first MOE_CUT_LAYERS layers, card vs CPU: a greedy request, then
+    # the model's own forward (capacity drops and all) at (b)'s tokens
+    cut = _cut(model, MOE_CUT_LAYERS)
+    cpu_cut = Model(cut.cfg, tree_map(lambda t: t.detach().cpu(),
+                                      cut.params))
+    gen_cut = Generator(arch.replace(model=cut.cfg), cut,
+                        max_seq=16 + 32 + 1, device="cuda")
+    prompts = rng.integers(0, vocab, (4, 16)).astype(np.int32)
+    rows["deepseek cut"] = _serve_run(
+        gen_cut, cut, cpu_cut, prompts, 32, 0.0, 0,
+        f"deepseek first {MOE_CUT_LAYERS} layers, card vs CPU, greedy")
+    count(rows["deepseek cut"]["launches"])
+    # the CPU's own gap between its forward (nothing dropped, its steps'
+    # experts) and its decode steps, which SERVE_TOL's forward-vs-decode
+    # hold must exceed
+    toks = torch.from_numpy(rng.integers(0, vocab, (4, 16 + 32)))
+    with Routes(no_drops=True) as cpu_steps:
+        steps = _card_step_logits(cpu_cut, toks, 16 + 32 + 1)
+    with torch.no_grad(), Routes(force=steps_as_forward(
+            cpu_steps.records, moe_layers(cut.cfg), *toks.shape),
+            no_drops=True) as held:
+        fwd = cpu_cut.forward({"tokens": toks[:, :-1]})[0]
+    held.hold("deepseek: the CPU forward held against its steps")
+    gap, scale = float((fwd - steps).abs().max()), float(steps.abs().max())
+    check(gap <= SERVE_TOL * max(1.0, scale),
+          f"deepseek first {MOE_CUT_LAYERS} layers on the CPU: forward vs "
+          f"decode steps {gap:.3e}, over SERVE_TOL")
+    rows["deepseek cut"]["cpu_forward_vs_decode_max_abs_err"] = gap
+    print(f"  deepseek first {MOE_CUT_LAYERS} layers on the CPU: forward vs "
+          f"its decode steps {gap:.3e} (largest |logit| {scale:.3f})")
+    del steps, fwd
+
+    # (b) the teacher-forced forward at b 2 over 512 positions
+    b, s = MOE_FORWARD
+    toks = torch.from_numpy(rng.integers(0, vocab, (b, s + 1)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_path_launches()
+    t0 = time.perf_counter()
+    ppl = perplexity(model, toks)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = _path_launches()
+    check(launches == _want_launches(cfg, 0, 1),
+          f"deepseek (b): launches {launches}, want {cfg.num_layers} flash")
+    check(ppl == ppl and ppl > 1.0, f"deepseek (b): perplexity {ppl!r}")
+    count(launches)
+    _reset_path_launches()
+    with torch.no_grad(), Routes() as card_routes:
+        card = cut.forward({"tokens": toks[:, :-1].cuda()})[0].cpu()
+    count(_path_launches())
+    with torch.no_grad(), Routes(force=card_routes.records) as held:
+        cpu = cpu_cut.forward({"tokens": toks[:, :-1]})[0]
+    held.hold(f"deepseek (b) first {MOE_CUT_LAYERS} layers: the CPU forward")
+    err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    check(err <= SERVE_TOL * max(1.0, scale),
+          f"deepseek (b) first {MOE_CUT_LAYERS} layers: card vs CPU logits "
+          f"differ by {err:.3e}")
+    rows["deepseek b"] = {
+        "batch": b, "positions": s, "seconds": t_fwd, "ppl": ppl,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "cut_logits_max_abs_err": err,
+        "cut_logits_max_abs": scale, "cut_routes": held.reading(),
+        "route_control": _route_control(cut, cpu_cut, toks[:1, :33])}
+    print(f"  deepseek (b) forward b{b} s{s}: {t_fwd:.3f} s, ppl={ppl:.4f}, "
+          f"launches={launches}; first {MOE_CUT_LAYERS} layers card vs CPU "
+          f"{err:.3e} (largest |logit| {scale:.3f}), routes "
+          f"{held.reading()}, control {rows['deepseek b']['route_control']}")
+    del card, cpu, cut, cpu_cut, gen_cut
+    # (c) 16 decode steps profiled
+    prof = _profile_decode(model, torch.from_numpy(
+        rng.integers(0, vocab, (8, 16))).cuda())
+    print("  deepseek decode-step profile: " + json.dumps(prof))
+    del gen, model
+    torch.cuda.empty_cache()
+
+    # grok-1-314b over its first GROK_LAYERS layers
+    arch, model, _ = _full_width("grok-1-314b", cpu=False, layers=GROK_LAYERS)
+    cfg = arch.model
+    print(f"  grok-1-314b: layers 0-{GROK_LAYERS - 1} of 64 ran (the first "
+          f"{GROK_LAYERS}), full width")
+    vocab = cfg.vocab_size
+    gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
+    for r in range(2):                   # (a) the launcher's defaults
+        prompts = rng.integers(0, vocab, (4, 16)).astype(np.int32)
+        rows[f"grok a{r}"] = _serve_run(gen, model, None, prompts, 32, 0.8,
+                                        r, f"grok (a) request {r}")
+        count(rows[f"grok a{r}"]["launches"])
+    # (b) Model.prefill against the token-by-token decode loop; the prefill
+    # drops nothing and takes the loop's experts (Routes)
+    b, s = MOE_FORWARD
+    toks = torch.from_numpy(rng.integers(0, vocab, (b, s))).cuda()
+    torch.cuda.synchronize()
+    _reset_path_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache = model.init_cache(b, s)
+        with Routes(no_drops=True) as loop_routes:
+            for pos in range(s):
+                dl, cache = model.decode_step(cache, toks[:, pos], pos)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        force = steps_as_forward(loop_routes.records, moe_layers(cfg), b,
+                                 s + 1)
+        t0 = time.perf_counter()
+        with Routes(force=force, no_drops=True) as held:
+            pl, pc = model.prefill({"tokens": toks}, max_seq=s)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    held.hold("grok (b): the prefill held against the decode loop")
+    launches = _path_launches()
+    check(launches == _want_launches(cfg, s, 1),
+          f"grok (b): launches {launches}, want {cfg.num_layers} flash and "
+          f"{cfg.num_layers} x {s} decode")
+    count(launches)
+    errs = {"last_logits": float((pl - dl).abs().max()),
+            "cache_k": float((pc["k"] - cache["k"]).abs().max()),
+            "cache_v": float((pc["v"] - cache["v"]).abs().max())}
+    scale = float(dl.abs().max())
+    for what, e in errs.items():
+        check(e <= SERVE_TOL * max(1.0, scale),
+              f"grok (b): prefill {what} vs the decode loop differ by {e:.3e}")
+    rows["grok b"] = {"batch": b, "prompt": s, "prefill_s": t_prefill,
+                      "decode_loop_s": t_decode,
+                      "ms_per_decode_step": t_decode / s * 1e3,
+                      "max_abs_err": errs, "logits_max_abs": scale,
+                      "routes": held.reading(), "launches": launches}
+    print(f"  grok (b) prefill b{b} s{s}: {t_prefill:.3f} s; decode loop "
+          f"{t_decode:.3f} s ({t_decode / s * 1e3:.3f} ms/step); prefill vs "
+          f"decode loop: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items())
+          + f"; routes {held.reading()}; launches={launches}")
+    del pc, cache, pl, dl, gen, model
+    torch.cuda.empty_cache()
+    # card vs CPU at grok's reduced config (the same seeded parameters)
+    red = get_reduced("grok-1-314b")
+    red = red.replace(model=red.model.replace(dtype="float32"))
+    cpu_red = build_model(red, device="cpu", seed=0)
+    card_red = Model(red.model, tree_map(lambda t: t.cuda(), cpu_red.params))
+    gen = Generator(red, card_red, max_seq=16 + 32 + 1, device="cuda")
+    # greedy at batch 2, where a step's capacity (2) drops nothing, so the
+    # generated tokens are the replayed steps' argmax
+    for r, (batch, temperature) in enumerate(((2, 0.0), (4, 0.8))):
+        prompts = rng.integers(0, red.model.vocab_size, (batch, 16)).astype(
+            np.int32)
+        rows[f"grok reduced {r}"] = _serve_run(
+            gen, card_red, cpu_red, prompts, 32, temperature, r,
+            f"grok reduced, card vs CPU, temperature {temperature}")
+        count(rows[f"grok reduced {r}"]["launches"])
+    seconds = time.perf_counter() - t_phase
+    print(f"  3i: {seconds:.1f} s")
+    return {"runs": rows, "launches": totals, "deepseek_decode_profile": prof,
+            "seconds": seconds}
 
 
 # ------------------------------------------------- 3g. train smollm-360m ---
@@ -4545,6 +5234,10 @@ def _phases(t0, phase, card, helper) -> int:
     check(fp32_bits == ATTN_FP32_SHA256_PARENT,
           "the attention kernels' fp32 outputs differ from the bits of the "
           "kernels before the bf16 repair (ATTN_FP32_SHA256_PARENT)")
+    bf16_bits = flash_bf16_sha256()
+    check(bf16_bits == ATTN_BF16_SHA256_PARENT,
+          "flash attention's bf16 outputs differ from the bits of the kernel "
+          "before the widening (ATTN_BF16_SHA256_PARENT)")
     ssd = phase_ssd_kernel()
     ssd_bwd = phase_ssd_bwd()
     phase("3: path")
@@ -4574,12 +5267,15 @@ def _phases(t0, phase, card, helper) -> int:
     train_ssm = phase_train_ssm(helper)
     print(json.dumps({"train_ssm": {k: v for k, v in train_ssm.items()
                                     if k != "full"}}))
+    phase("3i: serve the MoE family")
+    serve_moe = phase_serve_moe()
+    print(json.dumps({"serve_moe": serve_moe}))
     trained = {k: train["launches"].get(k, 0) + train_ssm["launches"].get(k, 0)
                for k in train_ssm["launches"]}
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
         + elastic["launches"] + trained["quantize8_ef"]
     serve_launches = {k: serve["launches"][k] + serve_ssm["launches"][k]
-                      for k in serve["launches"]}
+                      + serve_moe["launches"][k] for k in serve["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         check(serve_launches[name] > 0,
               f"{name} never launched on the serving path")
@@ -4615,13 +5311,16 @@ def _phases(t0, phase, card, helper) -> int:
                      "timed_max_abs_err", "sweep_max_abs_err")},
                  **{k: row[k] for k in ("bound_fp32_ms", "bytes_bound_ms",
                                         "launch_us", "vs_float64", "shapes",
-                                        "bf16_vs_plain")
+                                        "bf16_vs_plain", "mla", "grok")
                     if k in row},
+                 **({"ptxas": PTXAS} if name == "flash_attention" else {}),
                  "bf16_rows": ([r["forward"] | {"shape": r["shape"]}
                                 for r in attn_bf16["flash"]]
                                if name == "flash_attention"
                                else attn_bf16["decode"]),
                  "fp32_sha256": fp32_bits[name],
+                 **({"bf16_sha256": bf16_bits}
+                    if name == "flash_attention" else {}),
                  "held_against_plain": True}
         summary.append(entry)
         print(f"  {name:16s} held within {ATTN_TOL[name]} of its plain "

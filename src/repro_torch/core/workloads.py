@@ -19,9 +19,9 @@ the JAX package's ``ravel_pytree`` order (dict keys sorted at every level,
 each stacked ``(L, ...)`` leaf raveled row-major), so the engine, the
 algorithms, the comm stack and the codecs take it as they take a study
 model's, and the int8 codec's 256-element blocks cover the same elements
-as the reference's.  The MoE family is not built yet (ROADMAP.md queue A6,
-MoE and MLA); encoder and VLM archs need non-token inputs and raise as in
-the JAX package.  On the card, the gradients of attention and of the SSD
+as the reference's.  The MoE family serves but does not train yet
+(ROADMAP.md queue A6, MoE training); encoder and VLM archs need non-token
+inputs and raise as in the JAX package.  On the card, the gradients of attention and of the SSD
 scan come from their CUDA backward kernels, so the dense, ssm and hybrid
 families all train there.
 
@@ -62,6 +62,18 @@ EVAL_ROWS = 512
 ARCH_NAMES = tuple(spec_name(a) for a in ARCH_IDS)
 
 
+#: where training the MoE family waits (its flash backward at MLA's dk 192
+#: / dv 128)
+MOE_TRAINING_QUEUED = "ROADMAP.md queue A6 (MoE training)"
+
+
+def _check_trains(name: str, cfg) -> None:
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{name}: the port serves the MoE family but does not train it; "
+            f"that is {MOE_TRAINING_QUEUED}")
+
+
 def is_arch_workload(name: str) -> bool:
     return name in ARCH_NAMES
 
@@ -74,10 +86,11 @@ def _lm_arch(name: str) -> bool:
 def check_pairing(name: str, dataset: str) -> None:
     """Raise unless model ``name`` can train on ``dataset``: architectures
     on the LM corpus, study stand-ins on a feature dataset.  An
-    architecture whose family the port cannot build yet raises too (MoE:
-    ROADMAP.md queue A6, MoE and MLA), so a sweep rejects it at expansion;
-    encoder/VLM names raise ``ValueError`` at construction, as in the JAX
-    package."""
+    architecture the port cannot train yet raises ``NotImplementedError``
+    too (the MoE family: :data:`MOE_TRAINING_QUEUED`; it serves, but its
+    flash backward at MLA's widths is not written), so a sweep rejects it
+    at expansion; encoder/VLM names raise ``ValueError`` at construction,
+    as in the JAX package."""
     if is_arch_workload(name):
         if dataset != TOKEN_DATASET:
             raise ValueError(
@@ -85,7 +98,9 @@ def check_pairing(name: str, dataset: str) -> None:
                 f"LM corpus; set dataset={TOKEN_DATASET!r} "
                 f"(got {dataset!r})")
         if _lm_arch(name):
-            tfm.check_family(get_arch(arch_key(name)).model)
+            cfg = get_arch(arch_key(name)).model
+            tfm.check_family(cfg)
+            _check_trains(name, cfg)
     elif dataset == TOKEN_DATASET:
         raise ValueError(
             f"dataset={TOKEN_DATASET!r} is the architecture workloads' "
@@ -206,6 +221,7 @@ class ArchWorkload:
             raise ValueError(
                 f"arch workload {name!r}: encoder/VLM batches need "
                 "frames/images; only LM-style archs run through the engine")
+        _check_trains(name, cfg)
         self.spec = tfm.model_spec(cfg)
         self.layout = ravel_layout(self.spec)
         self.n_params = param_count(self.spec)

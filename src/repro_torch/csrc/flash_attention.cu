@@ -11,13 +11,24 @@
 // diagonal skipped.  Any sq and sk: the ragged tails are masked here (the
 // Pallas kernel asserts divisibility instead).
 //
-// Layout: q (b, sq, h, d) and k/v (b, sk, m, d) read in place through
-// their batch/position/head strides (head_dim contiguous); query head h
-// reads kv head h / g with g = h_total / m, the mapping of _sdpa's
-// reshape(b, s, m, g, d) and of the Pallas wrapper's jnp.repeat -- but
-// with no repeat copy and no transpose copy.  o is (b, sq, h, d).
-// Types: float32 or bfloat16 in and out, fp32 arithmetic inside; any
-// head_dim <= 128 (padded with zeros to a multiple of 16 on chip).
+// Layout: q (b, sq, h, dk), k (b, sk, m, dk) and v (b, sk, m, dv) read in
+// place through their batch/position/head strides (head_dim contiguous);
+// query head h reads kv head h / g with g = h_total / m, the mapping of
+// _sdpa's reshape(b, s, m, g, d) and of the Pallas wrapper's jnp.repeat --
+// but with no repeat copy and no transpose copy.  o is (b, sq, h, dv).
+// Types: float32 or bfloat16 in and out, fp32 arithmetic inside.
+//
+// Head widths: the score side (dk, Q and K) and the value side (dv, V and
+// the accumulator) are separate template widths, each padded with zeros to
+// a multiple of 16 on chip (zeros add nothing to a product: the padding is
+// exact).  dk and dv up to 128 run one width for both sides, the larger;
+// dk up to 192 (MLA's 128 + 64) runs at 192 beside dv padded to 128 (MLA's
+// 128) or 192.  Q's fragments stay in registers (96 floats a lane at dk
+// 192), so at those widths P V is walked in strips of kStrip 16-column
+// pieces of the accumulator, each strip summed from zero over the step's
+// keys (32 floats of partial sums a lane instead of 2 dv / 16 x 4); up to
+// 128 one strip is the whole row.  Every accumulator sees the same
+// products in the same order whatever the strips.
 //
 // Bound: at the model's lengths (s >= 512, d = 64) the QK^T and PV
 // products (4 b h sq sk d flops, about halved when causal) bound it, far
@@ -95,6 +106,10 @@ constexpr int kBK = 64;           // keys per tile
 constexpr int kNT = kBK / 8;      // 8-key groups (score n-tiles) per tile
 constexpr int kNH = 4;            // 8-key groups per compute step
 constexpr int kStages = 2;
+// 16-column pieces of P V summed per strip: the whole row up to a head
+// width of 128, four pieces (8 accumulators in flight) above it
+template <int NC, int NV>
+constexpr int kStrip = NC <= 8 && NV <= 8 ? NV : 4;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -113,30 +128,66 @@ struct Params {
   const T* v;
   T* o;
   float* lse;                     // (b, h, sq) or null
-  int heads, group, sq, sk, d;
+  int heads, group, sq, sk, d;    // d: q's and k's head_dim (dk)
+  int dv;                         // v's and o's
   Strides qs, ks, vs, os;
   float sm_scale;
   float div;                      // bf16(sqrt d): the rounding instance's
   int causal, vec;                // vec: K/V rows copied 16 bytes at a time
 };
 
-template <typename T, int DP>
+template <typename T, int DK, int DV>
 __host__ __device__ constexpr size_t stage_elems() {
-  return size_t(kBK) * (k_stride<T, DP>() + v_stride<T, DP>());
+  return size_t(kBK) * (k_stride<T, DK>() + v_stride<T, DV>());
 }
-template <typename T, int DP>
+template <typename T, int DK, int DV>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(T) * kStages * stage_elems<T, DP>();
+  return sizeof(T) * kStages * stage_elems<T, DK, DV>();
 }
 
-// NC = padded head_dim / 16
-template <typename T, int NC>
+// K's and V's rows [r0, r0 + kBK) of one ring stage (zeros from `limit`
+// on); commits nothing
+template <typename T, int DK, int DV>
+__device__ __forceinline__ void copy_kv(T* sk, const T* kb, const T* vb,
+                                        const Params<T>& P, int r0, int limit,
+                                        int tid) {
+  constexpr int kLK = k_stride<T, DK>(), kLV = v_stride<T, DV>();
+  if (P.d == P.dv) {              // one loop over both operands' rows
+    copy_rows2(sk, kLK, kb, P.ks.s, sk + kBK * kLK, kLV, vb, P.vs.s, r0, kBK,
+               limit, P.d, P.vec, tid, kThreads);
+  } else {
+    copy_rows(sk, kLK, kb, P.ks.s, r0, kBK, limit, P.d, P.vec, tid, kThreads);
+    copy_rows(sk + kBK * kLK, kLV, vb, P.vs.s, r0, kBK, limit, P.dv, P.vec,
+              tid, kThreads);
+  }
+}
+
+// the head_dim padding of both stages' K and V rows: zeroed once, never
+// copied over
+template <typename T, int DK, int DV>
+__device__ __forceinline__ void zero_padding(T* smem, const Params<T>& P,
+                                             int tid) {
+  constexpr int kLK = k_stride<T, DK>(), kLV = v_stride<T, DV>();
+  for (int i = tid; i < kStages * kBK * (DK - P.d); i += kThreads) {
+    const int r = i / (DK - P.d), c = P.d + i % (DK - P.d);
+    smem[(r / kBK) * stage_elems<T, DK, DV>() + (r % kBK) * kLK + c] =
+        zero<T>();
+  }
+  for (int i = tid; i < kStages * kBK * (DV - P.dv); i += kThreads) {
+    const int r = i / (DV - P.dv), c = P.dv + i % (DV - P.dv);
+    smem[(r / kBK) * stage_elems<T, DK, DV>() + kBK * kLK + (r % kBK) * kLV +
+         c] = zero<T>();
+  }
+}
+
+// NC = padded dk / 16, NV = padded dv / 16
+template <typename T, int NC, int NV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC;
-  constexpr int kLK = k_stride<T, kDP>();
-  constexpr int kLV = v_stride<T, kDP>();
-  constexpr int kND = 2 * NC;     // 8-column n-tiles of the accumulator
+  constexpr int kDK = 16 * NC, kDV = 16 * NV;
+  constexpr int kLK = k_stride<T, kDK>();
+  constexpr int kLV = v_stride<T, kDV>();
+  constexpr int kND = 2 * NV;     // 8-column n-tiles of the accumulator
   constexpr bool kExact = sizeof(T) == 2;  // bfloat16: no lo parts
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -161,23 +212,12 @@ flash_attention_kernel(const Params<T> P) {
                                : P.sk;
 
   auto issue = [&](int tile) {    // K/V tile into its ring stage
-    T* sk = smem + (tile % kStages) * stage_elems<T, kDP>();
-    copy_rows2(sk, kLK, kb, P.ks.s, sk + kBK * kLK, kLV, vb, P.vs.s,
-               tile * kBK, kBK, k_end, P.d, P.vec, tid, kThreads);
+    copy_kv<T, kDK, kDV>(smem + (tile % kStages) * stage_elems<T, kDK, kDV>(),
+                         kb, vb, P, tile * kBK, k_end, tid);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
-
-  // head_dim padding of both stages: zero once, never copied over
-  if (kDP > P.d) {
-    const int pad = kDP - P.d;
-    for (int i = tid; i < kStages * kBK * pad; i += kThreads) {
-      const int r = i / pad, c = P.d + i % pad;  // r over both stages
-      T* sk = smem + (r / kBK) * stage_elems<T, kDP>();
-      sk[(r % kBK) * kLK + c] = zero<T>();
-      sk[kBK * kLK + (r % kBK) * kLV + c] = zero<T>();
-    }
-  }
+  zero_padding<T, kDK, kDV>(smem, P, tid);
 
   // Q's A fragments, straight from global memory: row r0 + g (+ 8), dims
   // 16j + 4t .. + 3 (k-step 2j takes the first two, 2j + 1 the last two)
@@ -277,54 +317,65 @@ flash_attention_kernel(const Params<T> P) {
         l[hr] *= corr[hr];
       }
 
-      // P V of this step from zero, one 8-key group (k-step) at a time;
-      // P's A fragment is the score tile's C fragment reordered in the lane
-      float pv[kND][4];
+      // P V of this step from zero, one 8-key group (k-step) at a time,
+      // kStrip 16-column pieces of the accumulator per strip; P's A
+      // fragments (the score tile's C fragments reordered in the lane) are
+      // made in the first strip and kept for the others
+      uint32_t ph[kNH][4], pl[kNH][4];
 #pragma unroll
-      for (int n = 0; n < kND; ++n)
+      for (int i0 = 0; i0 < NV; i0 += kStrip<NC, NV>) {
+        float pv[2 * kStrip<NC, NV>][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+        for (int n = 0; n < 2 * kStrip<NC, NV>; ++n)
 #pragma unroll
-      for (int ks = 0; ks < kNH; ++ks) {
-        if (kEdge && n0 + ks >= ntc) continue;
-        float p[4];
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[e] = exp2f(s[ks][e] - m[e >> 1]);
-          l[e >> 1] += p[e];
-        }
-        const float av[4] = {p[0], p[2], p[1], p[3]};
-        uint32_t ph[4], pl[4];
-        split(av, ph, pl);
-        const T* vk = vrow + 8 * (n0 + ks) * kLV;
+        for (int ks = 0; ks < kNH; ++ks) {
+          if (kEdge && n0 + ks >= ntc) continue;
+          if (i0 == 0) {
+            float p[4];
 #pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const float2 v0 = load2(vk + 16 * i);
-          const float2 v1 = load2(vk + 4 * kLV + 16 * i);
-          const float bv[2][2] = {{v0.x, v1.x}, {v0.y, v1.y}};
+            for (int e = 0; e < 4; ++e) {
+              p[e] = exp2f(s[ks][e] - m[e >> 1]);
+              l[e >> 1] += p[e];
+            }
+            const float av[4] = {p[0], p[2], p[1], p[3]};
+            split(av, ph[ks], pl[ks]);
+          }
+          const T* vk = vrow + 8 * (n0 + ks) * kLV;
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            float (&d)[4] = pv[2 * i + u];
-            if constexpr (kExact) {
-              const uint32_t bh[2] = {__float_as_uint(bv[u][0]),
-                                      __float_as_uint(bv[u][1])};
-              mma_tf32(d, pl, bh);
-              mma_tf32(d, ph, bh);
-            } else {
-              uint32_t bh[2], bl[2];
-              split(bv[u], bh, bl);
-              mma_tf32(d, pl, bh);
-              mma_tf32(d, ph, bl);
-              mma_tf32(d, ph, bh);
+          for (int i = 0; i < kStrip<NC, NV>; ++i) {
+            if (i0 + i >= NV) break;
+            const float2 v0 = load2(vk + 16 * (i0 + i));
+            const float2 v1 = load2(vk + 4 * kLV + 16 * (i0 + i));
+            const float bv[2][2] = {{v0.x, v1.x}, {v0.y, v1.y}};
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float (&d)[4] = pv[2 * i + u];
+              if constexpr (kExact) {
+                const uint32_t bh[2] = {__float_as_uint(bv[u][0]),
+                                        __float_as_uint(bv[u][1])};
+                mma_tf32(d, pl[ks], bh);
+                mma_tf32(d, ph[ks], bh);
+              } else {
+                uint32_t bh[2], bl[2];
+                split(bv[u], bh, bl);
+                mma_tf32(d, pl[ks], bh);
+                mma_tf32(d, ph[ks], bl);
+                mma_tf32(d, ph[ks], bh);
+              }
             }
           }
         }
+#pragma unroll
+        for (int n = 0; n < 2 * kStrip<NC, NV>; ++n) {
+          if (2 * i0 + n >= kND) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[2 * i0 + n][e] = fmaf(acc[2 * i0 + n][e], corr[e >> 1],
+                                      pv[n][e]);
+        }
       }
-#pragma unroll
-      for (int n = 0; n < kND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);
     }
   };
 
@@ -336,7 +387,7 @@ flash_attention_kernel(const Params<T> P) {
     const int keys = min(kBK, w_end - k0);
     if (keys <= 0) continue;      // every key of the tile masked here
     const int ntc = (keys + 7) / 8;
-    const T* sk = smem + (tile % kStages) * stage_elems<T, kDP>();
+    const T* sk = smem + (tile % kStages) * stage_elems<T, kDK, kDV>();
     const T* sv = sk + kBK * kLK;
     const bool edge = ntc < kNT || k0 + kBK > P.sk ||
                       (P.causal && k0 + kBK - 1 > r0);
@@ -359,28 +410,28 @@ flash_attention_kernel(const Params<T> P) {
           (m[hr] + log2f(denom)) * kLn2;
     T* orow = P.o + b * P.os.b + row * P.os.s + h * P.os.h;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    for (int i = 0; i < NV; ++i) {
       const float val[4] = {acc[2 * i][2 * hr], acc[2 * i + 1][2 * hr],
                             acc[2 * i][2 * hr + 1],
                             acc[2 * i + 1][2 * hr + 1]};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 16 * i + 4 * t + e;
-        if (c < P.d) store(orow + c, val[e] / denom);
+        if (c < P.dv) store(orow + c, val[e] / denom);
       }
     }
   }
 }
 
 // the bfloat16 instance: two passes over the key tiles (see the head of
-// this file); NC = padded head_dim / 16
-template <typename T, int NC>
+// this file); NC = padded dk / 16, NV = padded dv / 16
+template <typename T, int NC, int NV>
 __global__ void __launch_bounds__(kThreads)
 rounded_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC;
-  constexpr int kLK = k_stride<T, kDP>();
-  constexpr int kLV = v_stride<T, kDP>();
-  constexpr int kND = 2 * NC;
+  constexpr int kDK = 16 * NC, kDV = 16 * NV;
+  constexpr int kLK = k_stride<T, kDK>();
+  constexpr int kLV = v_stride<T, kDV>();
+  constexpr int kND = 2 * NV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
@@ -400,21 +451,12 @@ rounded_kernel(const Params<T> P) {
                                : P.sk;
 
   auto issue = [&](int it) {      // K/V tile it % n_tiles into its stage
-    T* sk = smem + (it % kStages) * stage_elems<T, kDP>();
-    copy_rows2(sk, kLK, kb, P.ks.s, sk + kBK * kLK, kLV, vb, P.vs.s,
-               (it % n_tiles) * kBK, kBK, k_end, P.d, P.vec, tid, kThreads);
+    copy_kv<T, kDK, kDV>(smem + (it % kStages) * stage_elems<T, kDK, kDV>(),
+                         kb, vb, P, (it % n_tiles) * kBK, k_end, tid);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
-  if (kDP > P.d) {
-    const int pad = kDP - P.d;
-    for (int i = tid; i < kStages * kBK * pad; i += kThreads) {
-      const int r = i / pad, c = P.d + i % pad;
-      T* sk = smem + (r / kBK) * stage_elems<T, kDP>();
-      sk[(r % kBK) * kLK + c] = zero<T>();
-      sk[kBK * kLK + (r % kBK) * kLV + c] = zero<T>();
-    }
-  }
+  zero_padding<T, kDK, kDV>(smem, P, tid);
   float qv[NC][2][4];
   load_frag_rows<T, NC>(qv, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, r0, P.sq,
                         P.d, g, t);
@@ -503,38 +545,53 @@ rounded_kernel(const Params<T> P) {
           for (int e = 0; e < 4; ++e)
             if (s[nt][e] != kNegInf) l[e >> 1] += expf(s[nt][e] - m[e >> 1]);
       } else {
-        float pv[kND][4];
+        // P_b V from zero, kStrip 16-column pieces per strip, P_b's A
+        // fragments made in the first strip
+        uint32_t pa[kNH][4];
 #pragma unroll
-        for (int n = 0; n < kND; ++n)
+        for (int i0 = 0; i0 < NV; i0 += kStrip<NC, NV>) {
+          float pv[2 * kStrip<NC, NV>][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
+          for (int n = 0; n < 2 * kStrip<NC, NV>; ++n)
 #pragma unroll
-        for (int ks = 0; ks < kNH; ++ks) {
-          if (kEdge && n0 + ks >= ntc) continue;
-          float p[4];
+            for (int e = 0; e < 4; ++e) pv[n][e] = 0.0f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            p[e] = s[ks][e] == kNegInf
-                       ? 0.0f
-                       : round_bf16(__fdiv_rn(expf(s[ks][e] - m[e >> 1]),
-                                              l[e >> 1]));
-          const uint32_t pa[4] = {__float_as_uint(p[0]), __float_as_uint(p[2]),
-                                  __float_as_uint(p[1]), __float_as_uint(p[3])};
-          const T* vk = vrow + 8 * (n0 + ks) * kLV;
+          for (int ks = 0; ks < kNH; ++ks) {
+            if (kEdge && n0 + ks >= ntc) continue;
+            if (i0 == 0) {
+              float p[4];
 #pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            const float2 v0 = load2(vk + 16 * i);
-            const float2 v1 = load2(vk + 4 * kLV + 16 * i);
-            const uint32_t b0[2] = {__float_as_uint(v0.x), __float_as_uint(v1.x)};
-            const uint32_t b1[2] = {__float_as_uint(v0.y), __float_as_uint(v1.y)};
-            mma_tf32(pv[2 * i], pa, b0);
-            mma_tf32(pv[2 * i + 1], pa, b1);
+              for (int e = 0; e < 4; ++e)
+                p[e] = s[ks][e] == kNegInf
+                           ? 0.0f
+                           : round_bf16(__fdiv_rn(expf(s[ks][e] - m[e >> 1]),
+                                                  l[e >> 1]));
+              pa[ks][0] = __float_as_uint(p[0]);
+              pa[ks][1] = __float_as_uint(p[2]);
+              pa[ks][2] = __float_as_uint(p[1]);
+              pa[ks][3] = __float_as_uint(p[3]);
+            }
+            const T* vk = vrow + 8 * (n0 + ks) * kLV;
+#pragma unroll
+            for (int i = 0; i < kStrip<NC, NV>; ++i) {
+              if (i0 + i >= NV) break;
+              const float2 v0 = load2(vk + 16 * (i0 + i));
+              const float2 v1 = load2(vk + 4 * kLV + 16 * (i0 + i));
+              const uint32_t b0[2] = {__float_as_uint(v0.x),
+                                      __float_as_uint(v1.x)};
+              const uint32_t b1[2] = {__float_as_uint(v0.y),
+                                      __float_as_uint(v1.y)};
+              mma_tf32(pv[2 * i], pa[ks], b0);
+              mma_tf32(pv[2 * i + 1], pa[ks], b1);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 2 * kStrip<NC, NV>; ++n) {
+            if (2 * i0 + n >= kND) break;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[2 * i0 + n][e] += pv[n][e];
           }
         }
-#pragma unroll
-        for (int n = 0; n < kND; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
       }
     }
   };
@@ -555,7 +612,7 @@ rounded_kernel(const Params<T> P) {
     const int keys = min(kBK, w_end - k0);
     if (keys <= 0) continue;      // every key of the tile masked here
     const int ntc = (keys + 7) / 8;
-    const T* sk = smem + (it % kStages) * stage_elems<T, kDP>();
+    const T* sk = smem + (it % kStages) * stage_elems<T, kDK, kDV>();
     const T* sv = sk + kBK * kLK;
     const bool edge = ntc < kNT || k0 + kBK > P.sk ||
                       (P.causal && k0 + kBK - 1 > r0);
@@ -580,14 +637,14 @@ rounded_kernel(const Params<T> P) {
       P.lse[static_cast<long long>(bh) * P.sq + row] = m[hr] + logf(l[hr]);
     T* orow = P.o + b * P.os.b + row * P.os.s + h * P.os.h;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
+    for (int i = 0; i < NV; ++i) {
       const float val[4] = {acc[2 * i][2 * hr], acc[2 * i + 1][2 * hr],
                             acc[2 * i][2 * hr + 1],
                             acc[2 * i + 1][2 * hr + 1]};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 16 * i + 4 * t + e;
-        if (c < P.d) store(orow + c, val[e]);
+        if (c < P.dv) store(orow + c, val[e]);
       }
     }
   }
@@ -595,13 +652,13 @@ rounded_kernel(const Params<T> P) {
 
 bool aligned16(long long x) { return x % 16 == 0; }
 
-template <typename T, int NC>
+template <typename T, int NC, int NV>
 cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
   auto kern = [] {
-    if constexpr (kRounds<T>) return rounded_kernel<T, NC>;
-    else return flash_attention_kernel<T, NC>;
+    if constexpr (kRounds<T>) return rounded_kernel<T, NC, NV>;
+    else return flash_attention_kernel<T, NC, NV>;
   }();
-  constexpr size_t smem = smem_bytes<T, 16 * NC>();
+  constexpr size_t smem = smem_bytes<T, 16 * NC, 16 * NV>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err == cudaSuccess)         // as many blocks per SM as fit
@@ -618,11 +675,11 @@ cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int batch, int heads, int group, int sq,
-                     int sk, int d,
+                     int sk, int d, int dv,
                      const Strides* st, float sm_scale, float div,
                      int causal, cudaStream_t stream) {
   const long long es = sizeof(T);
-  bool vec = aligned16(d * es) &&
+  bool vec = aligned16(d * es) && aligned16(dv * es) &&
              aligned16(reinterpret_cast<uintptr_t>(k)) &&
              aligned16(reinterpret_cast<uintptr_t>(v));
   for (int i = 1; i < 3; ++i)     // k and v: batch, position, head strides
@@ -630,12 +687,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
           aligned16(st[i].h * es);
   const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), static_cast<T*>(o), lse,
-                    heads, group, sq, sk, d, st[0], st[1], st[2], st[3],
+                    heads, group, sq, sk, d, dv, st[0], st[1], st[2], st[3],
                     sm_scale, div, causal, int(vec)};
-  switch ((d + 15) / 16) {
-#define REPRO_FA_CASE(NC) \
-  case NC:                \
-    return launch<T, NC>(P, batch, stream);
+  const int nc = (d + 15) / 16, nv = (dv + 15) / 16;
+  switch (nc > 8 || nv > 8 ? 0 : nc > nv ? nc : nv) {
+#define REPRO_FA_CASE(N) \
+  case N:                \
+    return launch<T, N, N>(P, batch, stream);
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
     REPRO_FA_CASE(3)
@@ -646,25 +704,31 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     REPRO_FA_CASE(8)
 #undef REPRO_FA_CASE
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  // a head_dim above 128: dk at 192, dv at 128 (MLA) or 192
+  if (nc <= 12 && nv <= 8) return launch<T, 12, 8>(P, batch, stream);
+  if (nc <= 12 && nv <= 12) return launch<T, 12, 12>(P, batch, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 host integers, the
-// (batch, position, head) strides in elements of q, k, v and o.  lse: fp32
-// (b, h, sq) contiguous, or null.  sm_scale: d^-1/2, the float32
-// instance's; div: bf16(sqrt d), the rounding (bfloat16) instance's.
+// dtype: 0 = float32, 1 = bfloat16.  d: q's and k's head_dim (dk), dv:
+// v's and o's, each in [1, 192].  strides: 12 host integers, the (batch,
+// position, head) strides in elements of q, k, v and o.  lse: fp32 (b, h,
+// sq) contiguous, or null.  sm_scale: dk^-1/2, the float32 instance's;
+// div: bf16(sqrt dk), the rounding (bfloat16) instance's.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int dtype,
                                       int batch, int heads, int kv_heads,
-                                      int sq, int sk, int d,
+                                      int sq, int sk, int d, int dv,
                                       const long long* strides,
                                       float sm_scale, float div, int causal,
                                       cudaStream_t stream) {
-  if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || sk < 1)
+  if (d < 1 || d > 192 || dv < 1 || dv > 192 || kv_heads < 1 ||
+      heads % kv_heads != 0 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch * heads == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   Strides st[4];
@@ -674,10 +738,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaError_t err =
       dtype == 0
           ? dispatch<float>(q, k, v, o, lse, batch, heads, group, sq, sk, d,
-                            st, sm_scale, div, causal, stream)
+                            dv, st, sm_scale, div, causal, stream)
       : dtype == 1
           ? dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, heads, group,
-                                    sq, sk, d, st, sm_scale, div, causal,
+                                    sq, sk, d, dv, st, sm_scale, div, causal,
                                     stream)
           : cudaErrorInvalidValue;
   return static_cast<int>(err);

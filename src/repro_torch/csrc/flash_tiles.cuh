@@ -75,6 +75,31 @@ __device__ __forceinline__ void copy_rows2(T* d0, int ld0, const T* s0,
   }
 }
 
+// rows [r0, r0 + n) of one (position, head_dim) operand (row stride st)
+// into a shared tile (row stride ld); rows at or past `limit` are zeros.
+// vec: 16-byte cp.async copies, else element copies.  Commits nothing.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
+                                          long long st, int r0, int n,
+                                          int limit, int d, int vec, int tid,
+                                          int threads) {
+  if (vec) {
+    constexpr int kE = 16 / sizeof(T);
+    const int pieces = d / kE;
+    for (int i = tid; i < n * pieces; i += threads) {
+      const int r = i / pieces, c = (i % pieces) * kE;
+      const bool ok = r0 + r < limit;
+      cp_async16(dst + r * ld + c, src + (ok ? r0 + r : 0) * st + c, ok);
+    }
+  } else {
+    for (int i = tid; i < n * d; i += threads) {
+      const int r = i / d, c = i % d;
+      const bool ok = r0 + r < limit;
+      copy_elem(dst + r * ld + c, src + (ok ? r0 + r : 0) * st + c, ok);
+    }
+  }
+}
+
 // 4 consecutive elements of a shared row (16-byte aligned in fp32, 8 in
 // bfloat16), widened to fp32 exactly
 __device__ __forceinline__ void load4(const float* p, float (&out)[4]) {

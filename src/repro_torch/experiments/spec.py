@@ -21,7 +21,8 @@ with the same :data:`HASH_SCHEMA`, so one spec hashes the same in both
 packages.  The device a spec runs on is NOT a spec field: it is an
 argument of :func:`repro_torch.experiments.run_experiment`.  The model
 axis takes the study models and the model zoo's LM architectures; the MoE
-family (ROADMAP.md queue A6, MoE and MLA) raises ``NotImplementedError``.
+family, which the port serves but does not train (ROADMAP.md queue A6, MoE
+training), raises ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
 """Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``
 and its gradient, ``csrc/flash_attention_bwd.cu``).
 
-The forward wrapper takes q (b, sq, h, d) and k/v (b, sk, m, d) on one
-card, in the model's layout (any batch/position/head strides, head_dim
-contiguous), checks what the kernel takes, allocates o (b, sq, h, d) -- and,
+The forward wrapper takes q (b, sq, h, dk), k (b, sk, m, dk) and v (b, sk,
+m, dv) on one card, in the model's layout (any batch/position/head strides,
+head_dim contiguous; dk and dv up to 192, MLA's 192 / 128 among them),
+checks what the kernel takes, allocates o (b, sq, h, dv) -- and,
 when asked, the rows' log-sum-exp (b, h, sq) -- with ``torch.empty``,
 launches on the current stream, raises if the launch was refused, and adds
 one to :data:`launches`.  It replaces the Pallas TPU kernel of the JAX
 package's ``kernels/flash_attention/kernel.py``.  The backward wrapper
 takes the forward's inputs, its log-sum-exp and the upstream gradient, and
-returns (dq, dk, dv); the JAX package has no backward kernel (its models
-differentiate the jnp attention).
+returns (dq, dk, dv) at head dims up to 128 with k and v alike; the JAX
+package has no backward kernel (its models differentiate the jnp
+attention).
 """
 from __future__ import annotations
 
@@ -25,12 +27,14 @@ from repro_torch.kernels.flash_attention.ref import bf16_divisor
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 128
+#: the forward's widest head dims (dk and dv): MLA's 128 + 64
+FLASH_MAX_HEAD_DIM = 192
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {"flash_attention_launch": [
-    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), _F, _F, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": [
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -49,9 +53,28 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def check_attention_inputs(what: str, q, k, v) -> None:
-    """The checks both attention kernels share: one card, one supported
-    dtype, head_dim contiguous and <= 128, k and v alike, GQA heads."""
+def check_attention_shapes(what: str, q, k, v, *,
+                           max_head_dim: int = MAX_HEAD_DIM,
+                           v_width: bool = False) -> None:
+    """q's and k's head_dim equal, every head_dim in [1,
+    ``max_head_dim``], k and v alike (with ``v_width``: alike but for v's
+    head_dim, dv), one batch."""
+    d = q.shape[-1]
+    alike = (k.shape[:-1] == v.shape[:-1] if v_width
+             else k.shape == v.shape)
+    if not alike or k.shape[-1] != d or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    for dim in {d, v.shape[-1]}:
+        if not 1 <= dim <= max_head_dim:
+            raise ValueError(f"{what}: head_dim {dim} not in "
+                             f"[1, {max_head_dim}]")
+
+
+def check_attention_inputs(what: str, q, k, v, **widths) -> None:
+    """The checks the attention kernels share: one card, one supported
+    dtype, head_dim contiguous, and :func:`check_attention_shapes` (its
+    keywords: the kernel's widths)."""
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors on "
@@ -61,12 +84,7 @@ def check_attention_inputs(what: str, q, k, v) -> None:
                              f"{q.dtype}/{k.dtype}/{v.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{what}: head_dim must be contiguous")
-    d = q.shape[-1]
-    if k.shape != v.shape or k.shape[-1] != d or k.shape[0] != q.shape[0]:
-        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
+    check_attention_shapes(what, q, k, v, **widths)
 
 
 def _strides(*tensors):
@@ -86,22 +104,24 @@ def split_gqa(b: int, h: int, m: int, sk: int, sms: int) -> bool:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, with_lse: bool = False):
-    """q (b, sq, h, d), k/v (b, sk, m, d), h % m == 0 -> o (b, sq, h, d)
-    in q's dtype; causal keeps qpos >= kpos.  fp32: sm_scale = d**-0.5;
-    bf16: the JAX model's rounding (``ref.attention_ref``), the scores
-    divided by bf16(sqrt d).  With ``with_lse`` -> (o, lse): lse (b, h, sq)
-    fp32, each row's natural log-sum-exp of its scaled (bf16: rounded),
-    masked scores (what the backward needs)."""
-    check_attention_inputs("flash_attention", q, k, v)
+    """q (b, sq, h, dk), k (b, sk, m, dk), v (b, sk, m, dv), h % m == 0
+    -> o (b, sq, h, dv) in q's dtype; causal keeps qpos >= kpos.  fp32:
+    sm_scale = dk**-0.5; bf16: the JAX model's rounding
+    (``ref.attention_ref``), the scores divided by bf16(sqrt dk).  With
+    ``with_lse`` -> (o, lse): lse (b, h, sq) fp32, each row's natural
+    log-sum-exp of its scaled (bf16: rounded), masked scores (what the
+    backward needs)."""
+    check_attention_inputs("flash_attention", q, k, v,
+                           max_head_dim=FLASH_MAX_HEAD_DIM, v_width=True)
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("flash_attention: want q (b, sq, h, d) and k/v "
-                         "(b, sk, m, d)")
+        raise ValueError("flash_attention: want q (b, sq, h, dk), k (b, sk, "
+                         "m, dk) and v (b, sk, m, dv)")
     b, sq, h, d = q.shape
-    sk, m = k.shape[1], k.shape[2]
+    sk, m, dv = k.shape[1], k.shape[2], v.shape[-1]
     if h % m or sk < 1:
         raise ValueError(f"flash_attention: {h} query heads over {m} kv "
                          f"heads, {sk} keys")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if o.numel() == 0:
@@ -111,8 +131,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = load("flash_attention", _SIGNATURES).flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            DTYPE_CODES[q.dtype], b, h, m, sq, sk, d, _strides(q, k, v, o),
-            d ** -0.5, bf16_divisor(d ** -0.5), int(causal), stream)
+            DTYPE_CODES[q.dtype], b, h, m, sq, sk, d, dv,
+            _strides(q, k, v, o), d ** -0.5, bf16_divisor(d ** -0.5),
+            int(causal), stream)
     check_launch(rc, "flash_attention")
     launches["flash_attention"] += 1
     return (o, lse) if with_lse else o

@@ -1,7 +1,8 @@
 """Public flash attention on the model's layout, with GQA.
 
-A CUDA tensor goes to the CUDA kernel, which reads q (b, sq, h, d) and
-k/v (b, sk, m, d) in place and maps query head i to kv head i // g.  A CPU
+A CUDA tensor goes to the CUDA kernel, which reads q (b, sq, h, dk), k (b,
+sk, m, dk) and v (b, sk, m, dv) in place and maps query head i to kv head
+i // g (dk and dv may differ: MLA's prefill attends at 192 / 128).  A CPU
 tensor takes the plain version on the folded layout, with the JAX
 wrapper's plumbing: heads flattened into the batch, each kv head repeated
 g times.  The tensor's device decides; nothing falls back.
@@ -9,21 +10,28 @@ g times.  The tensor's device decides; nothing falls back.
 Gradients: on the card, when grad mode is on and q, k or v requires grad,
 the call goes through :class:`FlashAttention`, whose forward is the CUDA
 kernel (keeping each row's log-sum-exp) and whose backward is the CUDA
-backward kernel.  On the CPU autograd differentiates the plain version
-(:func:`flash_attention_bwd_plain` states that gradient).
+backward kernel.  The backward kernel takes k and v alike and head dims up
+to 128: a gradient at dk != dv or dk > 128 on the card raises
+``NotImplementedError`` (:data:`WIDE_BACKWARD_QUEUED`).  On the CPU
+autograd differentiates the plain version (:func:`flash_attention_bwd_plain`
+states that gradient).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_bwd_kernel, flash_attention_kernel,
+    MAX_HEAD_DIM, flash_attention_bwd_kernel, flash_attention_kernel,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
+#: where the backward kernel's widening waits
+WIDE_BACKWARD_QUEUED = "ROADMAP.md queue A6 (MoE training)"
+
 
 def fold_gqa(q, k, v):
-    """(b, sq, h, d), (b, sk, m, d) x2 -> (b*h, sq, d), (b*h, sk, d) x2.
+    """(b, sq, h, dk), (b, sk, m, dk), (b, sk, m, dv) -> (b*h, sq, dk),
+    (b*h, sk, dk), (b*h, sk, dv).
 
     k and v are widened to at least fp32 before the repeat (a no-op in
     fp32 and float64), so that under autograd each kv head's gradient is
@@ -31,23 +39,24 @@ def fold_gqa(q, k, v):
     model's einsum sums over the group; q keeps its dtype, which decides
     ``attention_ref``'s rounding."""
     b, sq, h, d = q.shape
-    sk, m = k.shape[1], k.shape[2]
+    sk, m, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // m
     wide = torch.promote_types(k.dtype, torch.float32)
     qf = q.transpose(1, 2).reshape(b * h, sq, d)
     kf = (k.to(wide).transpose(1, 2).repeat_interleave(g, dim=1)
           .reshape(b * h, sk, d))
     vf = (v.to(wide).transpose(1, 2).repeat_interleave(g, dim=1)
-          .reshape(b * h, sk, d))
+          .reshape(b * h, sk, dv))
     return qf, kf, vf
 
 
 def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
-    """The plain version on any device: fold, ``attention_ref``, unfold.
-    In bf16 it is the JAX model's ``_sdpa`` rounding for rounding."""
+    """The plain version on any device: fold, ``attention_ref``, unfold;
+    -> (b, sq, h, dv).  In bf16 it is the JAX model's ``_sdpa`` rounding
+    for rounding (the divisor bf16(sqrt dk))."""
     b, sq, h, d = q.shape
     o = attention_ref(*fold_gqa(q, k, v), causal=causal, sm_scale=d ** -0.5)
-    return o.reshape(b, h, sq, d).transpose(1, 2)
+    return o.reshape(b, h, sq, v.shape[-1]).transpose(1, 2)
 
 
 def flash_attention_bwd_plain(q, k, v, do, *, causal: bool):
@@ -64,11 +73,22 @@ def flash_attention_bwd_plain(q, k, v, do, *, causal: bool):
         return torch.autograd.grad(o, leaves, do)
 
 
+def check_backward_widths(q, k, v) -> None:
+    """Raise ``NotImplementedError`` unless the backward kernel takes these
+    widths: k and v alike, head_dim <= 128."""
+    if k.shape[-1] != v.shape[-1] or q.shape[-1] > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash attention's gradient on the card at dk {q.shape[-1]}, "
+            f"dv {v.shape[-1]}: the backward kernel takes dk == dv <= "
+            f"{MAX_HEAD_DIM}; its widening is {WIDE_BACKWARD_QUEUED}")
+
+
 class FlashAttention(torch.autograd.Function):
     """The CUDA forward and backward kernels as one differentiable call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
+        check_backward_widths(q, k, v)
         o, lse = flash_attention_kernel(q, k, v, causal=causal,
                                         with_lse=True)
         ctx.save_for_backward(q, k, v, lse)
@@ -87,8 +107,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (b, sq, h, d); k/v (b, sk, m, d) with h % m == 0 (GQA) ->
-    (b, sq, h, d) in q's dtype."""
+    """q (b, sq, h, dk), k (b, sk, m, dk), v (b, sk, m, dv) with h % m == 0
+    (GQA) -> (b, sq, h, dv) in q's dtype."""
     if q.device.type != "cpu":
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):

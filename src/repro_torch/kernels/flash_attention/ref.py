@@ -16,7 +16,7 @@ def bf16_divisor(sm_scale: float) -> float:
     """1 / sm_scale rounded to bfloat16: bf16(sqrt(d)) for sm_scale =
     d**-0.5.  The JAX model divides its bf16 scores by the Python float
     ``dk ** 0.5``, which JAX first rounds to the scores' dtype (8.9375 for
-    d = 80, not 8.944; 4.46875 for d = 20)."""
+    d = 80, not 8.944; 4.46875 for d = 20; 13.875 for MLA's dk = 192)."""
     return float(torch.tensor(1.0 / sm_scale, dtype=torch.float64)
                  .to(torch.bfloat16))
 
@@ -30,8 +30,8 @@ def round_scores(s: torch.Tensor, dtype, divisor: float) -> torch.Tensor:
 
 
 def attention_ref(q, k, v, *, causal: bool, sm_scale: float):
-    """q (bh, sq, d); k/v (bh, sk, d) -> (bh, sq, d) in q's dtype; a causal
-    mask keeps ``qpos >= kpos`` (top-left aligned).
+    """q (bh, sq, dk), k (bh, sk, dk), v (bh, sk, dv) -> (bh, sq, dv) in
+    q's dtype; a causal mask keeps ``qpos >= kpos`` (top-left aligned).
 
     q's dtype decides the function.  float32: the scores times sm_scale,
     an fp32 softmax, P V in fp32.  bfloat16: the JAX model's ``_sdpa``,

@@ -1,11 +1,13 @@
 """Serving launcher: batched generation against a zoo arch of the
-families the port builds (dense, ssm, hybrid).
+families the port builds (dense, moe, ssm, hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --reduced --device cpu --batch 4 --prompt-len 16 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b
 
 The flags are the JAX launcher's plus ``--device`` (default: the card;
 without one it raises and says to pass ``--device cpu``).  The model runs

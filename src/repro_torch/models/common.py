@@ -73,7 +73,9 @@ def init_params(gen: torch.Generator, tree: SpecTree, dtype: str,
             return torch.ones(shape, dtype=dt, device=device)
         w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
-        return (w * scale).to(dt)
+        # in place: a large leaf (deepseek's experts, 19 GB in fp32) is
+        # never held twice
+        return w.mul_(scale).to(dt)
 
     return tree_map(one, tree, is_spec)
 
@@ -89,18 +91,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return x * inv * scale.to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (..., s, heads, d); positions: (s,)."""
-    d = x.shape[-1]
+def rope_tables(positions: torch.Tensor, d: int, theta: float, device):
+    """rope's (cos, sin) at ``positions`` (s,) for head width d: (s, 1,
+    d/2) each, fp32."""
     assert d % 2 == 0, d
-    exps = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
     freqs = 1.0 / (theta ** exps)
     angles = positions.to(torch.float32)[..., None] * freqs        # (s, d/2)
-    cos = torch.cos(angles)[..., None, :]                          # (s, 1, d/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., s, heads, d); positions: (s,)."""
+    return _rotate(x, *rope_tables(positions, x.shape[-1], theta, x.device))
+
+
+class Rotary:
+    """rope at fixed positions for one forward or decode step: each head
+    width's cos/sin tables are built on first use and reused by every
+    later layer (building them is about half of rope's launches, and a
+    decode step ropes q and k in every attention layer)."""
+
+    def __init__(self, positions: torch.Tensor, theta: float):
+        self.positions, self.theta = positions, theta
+        self._tables: dict = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        if d not in self._tables:
+            self._tables[d] = rope_tables(self.positions, d, self.theta,
+                                          x.device)
+        return _rotate(x, *self._tables[d])
+
+
+def rotary(positions, theta: float) -> Rotary:
+    """``positions`` as a :class:`Rotary` (one already made is kept, so a
+    caller shares its tables with every layer)."""
+    return positions if isinstance(positions, Rotary) else Rotary(positions,
+                                                                  theta)
 
 
 def softmax_fp32(x: torch.Tensor, dim: int = -1, where=None) -> torch.Tensor:

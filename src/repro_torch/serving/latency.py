@@ -71,8 +71,8 @@ class LatencyModel:
                   reduced: bool = False) -> "LatencyModel":
         """Build from a zoo arch (accepts ``smollm_360m`` or ``smollm-360m``).
         The parameter count comes from the port's model spec, so the
-        families the port builds (dense, ssm, hybrid) are the ones it can
-        size; the others raise ``NotImplementedError``."""
+        families the port builds (dense, moe, ssm, hybrid) are the ones it
+        can size; the vlm family raises ``NotImplementedError``."""
         from repro_torch.configs import arch_key, get_arch, get_reduced
         from repro_torch.models.common import param_count
         from repro_torch.models.transformer import model_spec

@@ -195,7 +195,8 @@ def test_spec_hash_equals_the_jax_package(case):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"model": "deepseek_v2_lite_16b", "dataset": "tokens"}, "queue A6"),
+    ({"model": "deepseek_v2_lite_16b", "dataset": "tokens"},
+     "queue A6 .MoE training"),
 ])
 def test_unported_axes_raise_not_implemented(over, match):
     with pytest.raises(NotImplementedError, match=match):

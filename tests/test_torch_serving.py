@@ -31,6 +31,7 @@ from repro_torch.serving import Generator, LatencyModel, perplexity
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["smollm-360m", "stablelm-3b", "phi3-medium-14b", "llama3-405b"]
 SSM = ["mamba2-370m", "zamba2-2.7b"]           # the ssm and hybrid families
+MOE = ["grok-1-314b", "deepseek-v2-lite-16b"]
 
 
 def _fp32(arch):
@@ -173,7 +174,7 @@ def test_perplexity_matches_jax_ssm_families(name):
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE + SSM)
+@pytest.mark.parametrize("name", DENSE + MOE + SSM)
 def test_latency_model_fields_equal_jax(name, reduced):
     for key in (name, spec_name(name)):
         kw = dict(flops=2.5e14, mem_bandwidth=1.6e12, reduced=reduced)
@@ -185,7 +186,8 @@ def test_latency_model_refuses_what_the_port_does_not_build():
     with pytest.raises(ValueError, match="encoder"):
         LatencyModel.from_arch("hubert-xlarge", flops=1.0, mem_bandwidth=1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LatencyModel.from_arch("grok_1_314b", flops=1.0, mem_bandwidth=1.0)
+        LatencyModel.from_arch("llama_3_2_vision_90b", flops=1.0,
+                               mem_bandwidth=1.0)
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):

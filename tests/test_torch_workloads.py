@@ -355,5 +355,5 @@ def test_algorithms_keep_the_merged_dtype_as_jax_unravel_does():
 
 
 def test_moe_specs_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A6 .MoE and MLA"):
+    with pytest.raises(NotImplementedError, match="queue A6 .MoE training"):
         ExperimentSpec(model="deepseek_v2_lite_16b", dataset="tokens")
