@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the CUDA kernels from ``src/repro_torch/csrc/`` (one nvcc per source,
    started together), with the planted copies that the bf16 controls run
    (PLANTED) and ptxas's registers and spill bytes of every flash forward
-   instance (PTXAS);
+   and backward instance, read from the build's own output (PTXAS,
+   PTXAS_BWD);
 2. kernels -- each codec kernel against its plain PyTorch version on the
    card, bitwise, at n = 1000, 33*70, 3,000,007 (the MobileNet stand-in's
    update vector) and 22,253,615 (the ResNet50 stand-in's); each attention
@@ -93,10 +94,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    16 / 24; dk = dv = 192; dk 192 beside dv 64) and at phase 3i's shapes
    (FLASH_MOE_PATH), timed at MLA's b 2, s 512 in fp32 and bf16
    (FLASH_MLA_TIMED; SDPA computes the fp32 function), decode attention
-   timed at grok's heads (DECODE_GROK_TIMED), a gradient at dk != dv or dk
-   > 128 refused on the card naming its ROADMAP.md item, and the bf16
-   flash outputs at today's shapes equal to the bits of the kernel before
-   the widening (ATTN_BF16_SHA256_PARENT);
+   timed at grok's heads (DECODE_GROK_TIMED), and the bf16 flash outputs
+   at today's shapes equal to the bits of the kernel before the widening
+   (ATTN_BF16_SHA256_PARENT); the backward widened to the same widths
+   (``phase_flash_bwd_wide``): against autograd of the plain version over
+   FLASH_BWD_WIDE (dk 192 / dv 128, 192 / 192, 24 / 16, causal and full,
+   ragged GQA groups, h 16 / m 4 at 192 / 128) and phase 3j's shapes
+   (FLASH_BWD_MOE_PATH) in fp32 (FLASH_BWD_TOL, within twice the plain
+   version's float64 error) and bf16 (``hold_bf16``), two calls bitwise
+   equal; at each shape above 128 the backward's tie witness's flips read
+   and the unrounded function required to miss it
+   (``wide_witness_controls``); timed at deepseek's b 8, s 64, h 16, dk
+   192, dv 128 in fp32 and
+   bf16 beside SDPA's backward, a gradient at 192 / 128 and 160 / 160
+   taken on the card through ``FlashAttention`` and 200 / 128, 256 / 256
+   refused with ``ValueError`` before any kernel, ptxas's registers and
+   spill bytes of every backward instance (PTXAS_BWD), and its bf16 bits
+   at the old widths equal to those of the kernel before the widening
+   (FLASH_BWD_BF16_SHA256_PARENT);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -121,8 +136,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    64 new greedy tokens, (c) ``Model.prefill`` at batch 4, s 2048 against
    the token-by-token decode loop.  Launch counters are zeroed before each
    run and read after: decode launches must equal layers x decode steps,
-   flash launches layers x forwards.  The card's per-step logits (the same
-   decode steps replayed on a fresh cache with the card's tokens) and
+   flash launches layers x forwards.  The card's per-step logits (those
+   of the run's own decode steps, copied to the host as it makes them) and
    perplexity must match the same model's on the CPU, teacher-forced with
    those tokens, within SERVE_TOL; greedy tokens must be the card logits'
    argmax, and the CPU's wherever its top-two margin exceeds twice
@@ -135,7 +150,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    model's 256-position chunks), then a teacher-forced forward at batch 2
    over 575 positions (one chunk of 575 on the CPU) and a profile of 16
    decode steps; zamba2 (a) one request.  Each run as in 3d, and the
-   card's forward logits held against its own replayed decode steps too;
+   card's forward logits held against its own decode steps' too;
    launches exact: SSD = Mamba2 layers x forwards (none in a decode step),
    flash = shared-block uses x forwards, decode = uses x steps;
 3f. elastic, planner and CLI -- (a) phase 3's full-size int8 spec on an
@@ -174,8 +189,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (a)-(d) are printed;
 3h. train mamba2-370m and zamba2-2.7b -- 3g's checks, at 3g's constants
    except where these models' own rounding noise exceeds them,
-   with the CPU sides in a helper process (``--cpu-side``, 4 threads)
-   started after phase 1: (a) 3g (a)'s 9 trials with each model (reduced,
+   with the CPU sides in two helper processes started after phase 1
+   (``--cpu-side``, 4 threads: 3g (c)'s and (b)'s and (c)'s CPU sides,
+   then (b)'s card gradients; ``--cpu-side-moe``, 1 thread: (a)'s CPU
+   records, then (b)'s op witness at 4 threads once let onto the card):
+   (a) 3g (a)'s 9 trials with each model (reduced,
    bf16) card vs CPU within ARCH_CARD_VS_CPU_RTOL, a control at lr x
    ARCH_CONTROL_LR per model that must miss it; (b) one full-width
    gradient of each (b 8, s 64): fp32 within FULL_LOSS_RTOL and
@@ -190,8 +208,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    planted ddt x1.01 must miss both by SSD_CONTROL_MARGIN), every other
    op of the bf16 gradient held against the same op on the CPU on the
    same inputs (``op_witness``, with two planted ops that must miss), a
-   second card gradient equal bit for bit (the helper makes the card
-   gradients once the main process reaches 3h, beside (a)'s card runs);
+   second card gradient equal bit for bit (the helpers make the card
+   gradients and the witness from 3g on, beside 3g and (a)'s card runs);
    (c) FULL_TRIAL with mamba2-370m at full width in fp32 within
    FULL_TRIAL_RTOL, a control at lr x FULL_TRIAL_CONTROL_LR that must
    miss it.  Launches exact where 3g's are; they join the kernels line;
@@ -218,6 +236,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    miss), and the forwards held against decode steps drop no assignment
    (a capacity factor of 1.0 drops them in a forward of b*s tokens, never
    in deepseek's step of 4); the phase's seconds are printed;
+3j. train the MoE family -- (b) between 3h and 3i: deepseek-v2-lite-16b
+   at full width over its first MOE_CUT_LAYERS layers (1.67 B parameters,
+   seeded on the card), one FULL_BATCH gradient on the card in fp32 and
+   bf16: launches exact, its seconds and peak memory, a second call equal
+   bit for bit with every flash attention of it held in situ against the
+   plain version on its own inputs (bf16: ``hold_bf16``), one profiled
+   call's device time by class; the same gradients on the CPU with the
+   card's experts forced (:class:`Routes`), in a thread beside 3i: fp32
+   loss within FULL_LOSS_RTOL and each leaf within FULL_FP32_GRAD_TOL,
+   bf16 loss within FULL_BF16_LOSS_RTOL (its leaves read), each forced
+   bf16 route within ROUTE_BF16_ULPS of the logit it displaces (a
+   planted wrong route must miss); (a) in the
+   second helper process (``--cpu-side-moe``, after 3h's witness), the 9
+   quick trials of ``faas_vs_pod`` and ``pod_local_sgd`` with deepseek
+   and grok (reduced, MOE_TRIAL_DTYPE) on the card, then, once the first
+   helper is done, on the CPU with the card's experts forced over the
+   whole trial: metered
+   fields equal, losses within ARCH_CARD_VS_CPU_RTOL, a control at lr x
+   ARCH_CONTROL_LR per model that must miss it, every forced gate within
+   ROUTE_GATE_TOL of its token's own K-th and a planted wrong route
+   caught, launches exact (flash forward and backward, quantize8_ef per
+   int8 merge); held after 3i, the phase's seconds printed;
 4. summary -- one JSON line listing every ported kernel and the two
    backward kernels.
 
@@ -233,6 +273,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -339,6 +380,26 @@ FLASH_BWD_SWEEP = ((2, 47, 47, 3, 3, 20, True), (2, 47, 47, 3, 1, 20, False),
                    (2, 200, 200, 4, 1, 80, True),
                    (1, 150, 150, 4, 2, 128, True),
                    (1, 150, 150, 2, 2, 128, False))
+#: the backward widened to the forward's widths (b, s, h, m, dk, dv,
+#: causal), each against autograd of the plain version, within twice the
+#: plain version's float64 error, bitwise on repeat, in fp32 and bf16:
+#: MLA's h 16 at dk 192 / dv 128, dk = dv = 192 and dk 24 / dv 16 (the
+#: reduced deepseek's MLA), causal and full, ragged GQA groups (the dk/dv
+#: launch split over the query heads, its partials at dk + dv), h 16 / m 4
+#: at 192 / 128 over a ragged 130 positions, and phase 3j's training
+#: shapes (FLASH_BWD_MOE_PATH)
+FLASH_BWD_WIDE = tuple(
+    (2, 64, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV, causal)
+    for causal in (True, False)) + tuple(
+    (2, 47, 4, 2, dk, dv, causal) for dk, dv in ((192, 192), (24, 16))
+    for causal in (True, False)) + (
+    (1, 130, MLA_HEADS, 4, MLA_DK, MLA_DV, True),)
+#: phase 3j's attention shapes (b, s, h, m, dk, dv), causal: deepseek's
+#: reduced MLA (3j (a)) and full width (3j (b): the kernels line's rows 5n
+#: and 5o, timed), the reduced grok's GQA (3j (a))
+FLASH_BWD_MOE_PATH = ((8, 64, 4, 4, 24, 16),
+                      (8, 64, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV),
+                      (8, 64, 4, 2, 16, 16))
 #: timed at the path's full-width shape and at the prefill's b 4, s 2048
 #: (the kernels line's row: long enough to be more than launch latency)
 FLASH_BWD_TIMED = ((FLASH_PATH["b"], FLASH_PATH["s"], *_SMOLLM_ATTN),
@@ -382,6 +443,9 @@ ATTN_BF16_GRAD_SHARE_TOL = 1e-2
 #: boundary at long rows and catch nothing
 TIE_SUM_ULPS = (4.0, 2.0)
 TIE_P_ULPS = (16.0, 4.0, 16.0)
+#: the backward's tie witness (``_bf16_bwd_explained``) tries at most
+#: this many near ties per stage, those nearest a bf16 boundary first
+TIE_FLIPS_TRIED = 256
 #: the witness also runs at these multiples of its bands, read only (the
 #: sound kernels' unexplained elements at narrower bands, the planted ones'
 #: at wider): how far the bands are from the readings
@@ -544,8 +608,8 @@ PLANTED = {
     "flash_attention_bwd": (_NO_BF16_ROUNDING,
                             ("run<float>(q, k, v, dout, lse, rows, part, dq, "
                              "dk, dv, batch,\n                       heads, "
-                             "kv_heads, sq, sk, d, st, sm_scale, div, causal,"
-                             "\n                       stream)",
+                             "kv_heads, sq, sk, d, dv_d, st, sm_scale, div,"
+                             "\n                       causal, stream)",
                              "cudaErrorInvalidValue"),
                             *((f"    REPRO_FAB_CASE({nc})\n", "")
                               for nc in (1, 3, 6, 7, 8))),
@@ -601,54 +665,54 @@ def phase_device(planted_copies: bool = True):
           f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build
     t0 = time.time()
-    ptxas = start_ptxas("flash_attention")
     libs = build.build(["quant8", "topk_ef", "flash_attention",
                         "flash_attention_bwd", "decode_attention",
                         "ssd_scan", "ssd_scan_bwd"])
     print(f"build: {time.time() - t0:.2f} s, "
-          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values()))
-    PTXAS.update(read_ptxas(ptxas))
+          + ", ".join(str(p.relative_to(ROOT)) for p in libs.values())
+          + "; nvcc seconds by library (each waited in turn, so a library "
+            "read after a slower one reads its time): "
+          + json.dumps({k: round(v, 1) for k, v in build.SECONDS.items()}))
+    PTXAS.update(read_ptxas(build.build_log("flash_attention")))
+    PTXAS_BWD.update(read_ptxas(build.build_log("flash_attention_bwd")))
     print("flash_attention registers and spills (ptxas -v): "
           + json.dumps(PTXAS))
+    print("flash_attention_bwd registers and spills (ptxas -v): "
+          + json.dumps(PTXAS_BWD))
     if planted_copies:            # built beside phase 2, awaited at first use
         _PLANTED_PROCS.update(start_planted())
     return card
 
 
-#: the flash forward's instances as ``nvcc -Xptxas -v`` reports them
-#: (registers, stack frame and spill bytes), compiled beside phase 1's
-#: build into PTXAS_DIR
-PTXAS_DIR = ROOT / "build" / "ptxas"
+#: the flash forward's and backward's instances as ``nvcc -Xptxas -v``
+#: reports them (registers, stack frame and spill bytes), read from phase
+#: 1's build
 PTXAS: dict = {}
-
-
-def start_ptxas(name: str):
-    """nvcc of ``csrc/<name>.cu`` to a cubin with ptxas's report, at the
-    build's architecture, standard and optimisation."""
-    from repro_torch.kernels import build
-    PTXAS_DIR.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
-        [build.nvcc_path(), *build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
-         "-o", str(PTXAS_DIR / f"{name}.cubin"), str(build.CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def read_ptxas(proc) -> dict:
+PTXAS_BWD: dict = {}
+def read_ptxas(log: str) -> dict:
     """{instance: {registers, stack, spill_stores, spill_loads}} from
-    ptxas's report; an instance is named by its kernel (the fp32 one or
-    the bf16 ``rounded``), its type and its padded dk and dv."""
+    ptxas's report; an instance is named by its kernel (the backward's
+    ``dq``, ``dkdv`` or ``gqa_sum``; the forward's fp32 one or its bf16
+    ``rounded``), its type and its padded dk and dv."""
     import re
-    log, _ = proc.communicate()
-    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{log}")
     out, name = {}, None
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        entry = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([^'\s]+)", line)
         if entry:
             mangled = entry.group(1)
+            if "kernel" not in mangled:   # a device function's own report
+                name = None
+                continue
             widths = re.search(r"Li(\d+)E(?:Li(\d+)E)?", mangled)
             nc = int(widths.group(1)) if widths else 0
             nv = int(widths.group(2) or nc) if widths else 0
-            name = (("rounded bf16" if "rounded" in mangled else "fp32")
+            kind = next((k for k in ("dq_", "dkdv_", "gqa_sum_same_",
+                                     "gqa_sum_")
+                         if f"{k}kernel" in mangled), "")
+            name = (kind.replace("_", " ")
+                    + ("rounded bf16" if "rounded" in mangled
+                       else "bf16" if "bfloat16" in mangled else "fp32")
                     + (f" dk{16 * nc} dv{16 * nv}" if widths else ""))
             continue
         if name is None:
@@ -662,7 +726,7 @@ def read_ptxas(proc) -> dict:
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             out.setdefault(name, {})["registers"] = int(regs.group(1))
-    check(out, f"no ptxas report in nvcc's output:\n{log}")
+    check(out or not log, f"no ptxas report in nvcc's output:\n{log}")
     return out
 
 
@@ -1378,13 +1442,18 @@ def bf16_misses(gaps: dict, grads: bool = False) -> list:
 
 
 def hold_bf16(what: str, outs, refs, worst: dict | None = None,
-              rows=None, grads: bool = False) -> dict:
+              rows=None, grads: bool = False, inputs=None) -> dict:
     """Fails unless bf16 ``outs`` are within their limits of the plain
     version's ``refs`` (:func:`bf16_misses`; ``rows``: the tie witness's
     rows of a forward output, ``grads``: gradients' limits), and unless
     the witness explains every element of the plain version's moved rows
     (a check of the witness itself); keeps the worst readings in
-    ``worst``, and the sums of the counts of rows and elements."""
+    ``worst``, and the sums of the counts of rows and elements.  Where
+    gradients miss and ``inputs`` (q, k, v, dO, causal) are given, they
+    are held to the same limits against the backward's tie witness
+    instead (:func:`_bf16_bwd_explained`: the function in float64 with
+    its near-tie roundings taken the gradients' way), which must also
+    hold the plain version's ``refs``; both readings are kept."""
     import torch
     torch.cuda.synchronize()
     gaps = _bf16_gaps(outs, refs, rows)
@@ -1392,10 +1461,24 @@ def hold_bf16(what: str, outs, refs, worst: dict | None = None,
           f"{what} bf16: the tie witness does not reach the plain version "
           f"({gaps}): its bands are too narrow")
     misses = bf16_misses(gaps, grads)
+    if misses and grads and inputs is not None:
+        ref, flips = _bf16_bwd_explained(*inputs, outs)
+        plain_ref, plain_flips = _bf16_bwd_explained(*inputs, refs)
+        gaps["witness"] = {**_bf16_gaps(outs, ref), "flips": flips}
+        gaps["plain_witness"] = {**_bf16_gaps(refs, plain_ref),
+                                 "flips": plain_flips}
+        check(not bf16_misses(gaps["plain_witness"], grads),
+              f"{what} bf16: the backward's tie witness does not hold the "
+              f"plain version ({gaps})")
+        misses = [f"{m} (against the plain version)" for m in misses] \
+            if bf16_misses(gaps["witness"], grads) else []
     check(not misses, f"{what} bf16 against the plain version: "
                       f"{'; '.join(misses)} ({gaps})")
     if worst is not None:
         for k, v in gaps.items():
+            if isinstance(v, dict):
+                worst.setdefault(k, []).append(v)
+                continue
             worst[k] = (worst.get(k, 0) + v) if isinstance(v, int) \
                 else max(worst.get(k, 0.0), v)
     return gaps
@@ -1548,7 +1631,6 @@ def phase_attention_kernels() -> dict:
           f"flash_attention timed {mla['shape']}: max |kernel - plain| "
           f"{mla['max_abs_err']:.3e}")
     mla_bf16 = flash_bf16_timed_row(gen, *FLASH_MLA_TIMED)
-    refused = wide_gradient_refused(gen)
     vs_fp64 = flash_vs_float64()
     check(vs_fp64["kernel"] <= 2 * FLASH_FP64_PARENT,
           f"flash_attention: {vs_fp64['kernel']:.3e} from float64, over "
@@ -1565,8 +1647,7 @@ def phase_attention_kernels() -> dict:
         "sweep_max_abs_err": errs["flash_attention"]["sweep"],
         "bf16_vs_plain": bf16["flash_attention"],
         "vs_float64": vs_fp64, "shapes": shapes,
-        "mla": {"float32": mla, "bfloat16": mla_bf16},
-        "wide_gradient_refused": refused}
+        "mla": {"float32": mla, "bfloat16": mla_bf16}}
     shapes = []
     for b, S, length in DECODE_TIMED:
         row = decode_timed_row(gen, b, S, length)
@@ -1603,7 +1684,8 @@ def phase_attention_kernels() -> dict:
 
 def _attention_f64_grads(q, k, v, do, causal: bool = True):
     """(dq, dk, dv) of attention computed in float64 end to end (scores,
-    softmax, products and the GQA sums), by autograd."""
+    softmax, products and the GQA sums), by autograd; k at q's width dk,
+    v and do at dv."""
     import torch
     from repro_torch.kernels.flash_attention.ops import fold_gqa
     from repro_torch.kernels.flash_attention.ref import NEG_INF
@@ -1616,8 +1698,122 @@ def _attention_f64_grads(q, k, v, do, causal: bool = True):
                           device=q.device).tril()
         sc = sc.masked_fill(~keep, NEG_INF)
     o = torch.einsum("bqk,bkd->bqd", sc.softmax(dim=-1), vf)
-    o = o.reshape(b, h, s, d).transpose(1, 2)
+    o = o.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
     return torch.autograd.grad(o, leaves, do.double())
+
+
+def _bf16_bwd_explained(q, k, v, do, causal: bool, got) -> tuple:
+    """The tie witness of a bf16 backward: the gradients of the JAX
+    model's bf16 attention as ``jax.vjp`` rounds them
+    (``flash_attention_bwd_plain``'s rounding points: S = bf16(bf16(q k^T)
+    / bf16(sqrt dk)), P = softmax(S), dP_b = bf16(dO v^T), dv = bf16(P_b^T
+    dO), dS = P (dP_b - rowsum(P dP_b)), dS_1 = bf16(bf16(dS) / bf16(sqrt
+    dk)), dq = bf16(dS_1 k), dk = bf16(dS_1^T q), dk and dv summed over the
+    GQA group before their rounding) with every sum in float64, and its
+    near-tie roundings taken the way that brings them nearest ``got`` (dq,
+    dk, dv).  A rounding is a near tie where the
+    value before it lies within its fp32 band (TIE_SUM_ULPS for the sums
+    q k^T and dO v^T over their widths, TIE_P_ULPS for P and dS over the
+    row's keys) of a bf16 boundary, so that two sound fp32 computations
+    can round it either way; a flip of dO v^T or dS feeds dS = P (dP_b -
+    D), whose difference can cancel, and moves a whole row of dq and dk.
+    Greedy: the scores' and dP_b's near ties, nearest the boundary first,
+    each kept flipped if that brings the gradients nearer ``got``; then
+    P_b's and dS_1's on the result.  -> ((dq, dk, dv) in q's dtype, the
+    number of flips taken)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import bf16_divisor
+    u = 2.0 ** -24
+
+    def rb(x):
+        return x.float().bfloat16().double()
+    b, sq, h, d = q.shape
+    sk, m, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // m
+    div = bf16_divisor(d ** -0.5)
+    qd, dod = (t.double().transpose(1, 2) for t in (q, do))
+    kd, vd = (t.double().transpose(1, 2).repeat_interleave(g, dim=1)
+              for t in (k, v))
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = keep.tril()
+    n = keep.sum(-1, keepdim=True).double()
+    p_band = (TIE_P_ULPS[0] + TIE_P_ULPS[1] * n.sqrt()
+              + n / TIE_P_ULPS[2]) * u
+    gd = [t.double() for t in got]
+
+    def near(pre, band, f):
+        lo, hi = f(pre - band), f(pre + band)
+        mid = f(pre)
+        return (lo != hi) & keep, torch.where(lo != mid, lo, hi), \
+            (pre - f(pre)).abs() / band.clamp_min(1e-300)
+
+    def grads(S, dpb, pb_flip=None, ds_flip=None):
+        p = S.masked_fill(~keep, float("-inf")).softmax(-1)
+        pb = rb(p)
+        if pb_flip is not None:
+            pb = torch.where(pb_flip[0], pb_flip[1], pb)
+        ds = p * (dpb - (p * dpb).sum(-1, keepdim=True))
+        ds1 = rb(rb(ds) / div)
+        if ds_flip is not None:
+            ds1 = torch.where(ds_flip[0], ds_flip[1], ds1)
+        dq = rb(ds1 @ kd)
+        dkd = rb((ds1.transpose(-1, -2) @ qd).reshape(b, m, g, sk, -1).sum(2))
+        dvd = rb((pb.transpose(-1, -2) @ dod).reshape(b, m, g, sk, -1).sum(2))
+        return [dq.transpose(1, 2), dkd.transpose(1, 2),
+                dvd.transpose(1, 2)], p, ds
+
+    def nearest(tie, closeness, what):
+        """The near ties of ``tie``, nearest a boundary first."""
+        idx, c = tie.nonzero(), closeness[tie]
+        order = c.argsort()[:TIE_FLIPS_TRIED]
+        return [(v, what, tuple(i)) for v, i in
+                zip(c[order].tolist(), idx[order].tolist())]
+
+    def dist(x):
+        return sum(float((a - c).square().sum() / c.square().sum().clamp_min(
+            1e-300)) for a, c in zip(gd, x))
+
+    tie_s, alt_s, near_s = near(
+        qd @ kd.transpose(-1, -2),
+        (TIE_SUM_ULPS[0] + TIE_SUM_ULPS[1] * d ** 0.5) * u
+        * (qd.abs() @ kd.abs().transpose(-1, -2)),
+        lambda x: rb(rb(x) / div))
+    tie_dp, alt_dp, near_dp = near(
+        dod @ vd.transpose(-1, -2),
+        (TIE_SUM_ULPS[0] + TIE_SUM_ULPS[1] * dv ** 0.5) * u
+        * (dod.abs() @ vd.abs().transpose(-1, -2)), rb)
+    S = rb(rb(qd @ kd.transpose(-1, -2)) / div)
+    dpb = rb(dod @ vd.transpose(-1, -2))
+    cur, p, ds = grads(S, dpb)
+    best, flips = dist(cur), 0
+    cands = nearest(tie_s, near_s, "s") + nearest(tie_dp, near_dp, "dp")
+    for _, kind, i in sorted(cands, key=lambda c: c[0])[:TIE_FLIPS_TRIED]:
+        t_s, t_dp = S.clone(), dpb.clone()
+        if kind == "s":
+            t_s[i] = alt_s[i]
+        else:
+            t_dp[i] = alt_dp[i]
+        trial, t_p, t_ds = grads(t_s, t_dp)
+        if dist(trial) < best:
+            S, dpb, cur, p, ds, best, flips = (t_s, t_dp, trial, t_p, t_ds,
+                                              dist(trial), flips + 1)
+    dpb_abs = (p * dpb.abs()).sum(-1, keepdim=True)
+    tie_pb, alt_pb, near_pb = near(p, p_band * p, rb)
+    tie_ds, alt_ds, near_ds = near(ds, p_band * p * (dpb.abs() + dpb_abs),
+                                   lambda x: rb(rb(x) / div))
+    pb_flip = [torch.zeros_like(tie_pb), alt_pb]
+    ds_flip = [torch.zeros_like(tie_ds), alt_ds]
+    cands = nearest(tie_pb, near_pb, 0) + nearest(tie_ds, near_ds, 1)
+    for _, which, i in sorted(cands, key=lambda c: c[0])[:TIE_FLIPS_TRIED]:
+        flip = (pb_flip, ds_flip)[which]
+        flip[0][i] = True
+        trial = grads(S, dpb, pb_flip, ds_flip)[0]
+        if dist(trial) < best:
+            cur, best, flips = trial, dist(trial), flips + 1
+        else:
+            flip[0][i] = False
+    return tuple(t.to(q.dtype) for t in cur), flips
 
 
 def _bwd_kernel(q, k, v, do, causal: bool = True, with_o: bool = False):
@@ -1663,7 +1859,8 @@ def flash_bwd_sweep(gen) -> float:
                 hold_bf16(f"{what} forward", [o], [flash_attention_plain(
                     q, k, v, causal=causal)], bf16["forward"],
                     flash_rows(q, k, v, causal))
-                hold_bf16(what, got, plain, bf16["backward"], grads=True)
+                hold_bf16(what, got, plain, bf16["backward"], grads=True,
+                          inputs=(q, k, v, do, causal))
     print(f"  flash_attention_bwd sweep: {len(FLASH_BWD_SWEEP)} shapes x "
           f"fp32/bf16 within FLASH_BWD_TOL (fp32 worst {worst:.3e} of the "
           f"largest gradient); bf16 against the plain versions (worst; "
@@ -1698,9 +1895,12 @@ def flash_bwd_vs_float64() -> dict:
 
 
 def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
-                  timed: bool = False) -> dict:
-    """Flash attention's backward kernel, causal, q/dO (b, s, h, d) and k/v
-    (b, s, m, d), against autograd of the plain version (within
+                  timed: bool = False, dv: int | None = None,
+                  causal: bool = True) -> dict:
+    """Flash attention's backward kernel (causal unless ``causal`` is
+    false), q (b, s, h, d), k (b, s, m, d), v (b, s, m, dv) and dO (b, s,
+    h, dv) (dv = d unless given), against autograd of the plain version
+    (within
     FLASH_BWD_TOL of the largest |plain gradient|), two calls compared
     bitwise; in fp32 also against float64 gradients: each of dq, dk, dv
     must err by at most twice what the fp32 plain version errs.  With
@@ -1712,22 +1912,24 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
     (S and dP recomputed, dv, dk, dq) as 3xTF32 on the tensor cores, the
     fastest the card does fp32-accurate products (the kernels line's), the
     same in fp32 on the CUDA cores, and the bytes (q, k, v, dO and the
-    log-sum-exp read once, dq, dk, dv written)."""
+    log-sum-exp read once, dq, dk, dv written).  S, dk and dq are products
+    over dk, dP and dv over dv."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_kernel, flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ops import (
         FlashAttention, flash_attention_bwd_plain, flash_attention_plain)
+    dv = d if dv is None else dv
     q, k, v, do = _attn_inputs(gen, dtype, (b, s, h, d), (b, s, m, d),
-                               (b, s, m, d), (b, s, h, d))
-    _o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+                               (b, s, m, dv), (b, s, h, dv))
+    _o, lse = flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
 
     def kernel_fn():
-        return flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
+        return flash_attention_bwd_kernel(q, k, v, do, lse, causal=causal)
 
     def plain_fn():
-        return flash_attention_bwd_plain(q, k, v, do, causal=True)
+        return flash_attention_bwd_plain(q, k, v, do, causal=causal)
 
     got, again, plain = kernel_fn(), kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -1735,7 +1937,9 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
     scale = max(float(p.float().abs().max()) for p in plain)
     err = max(float((a.float() - p.float()).abs().max())
               for a, p in zip(got, plain))
-    row = {"shape": f"b{b} s{s} h{h} m{m} d{d} causal {key}",
+    widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
+    row = {"shape": f"b{b} s{s} h{h} m{m} {widths} "
+                    f"{'causal' if causal else 'full'} {key}",
            "max_abs_err": err, "max_abs_grad": scale,
            "repeat_bitwise": all(_bits_equal(a, c)
                                  for a, c in zip(got, again))}
@@ -1748,12 +1952,13 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
         row["bf16_vs_plain"] = {
             "forward": hold_bf16(f"flash_attention {row['shape']}", [_o],
                                  [flash_attention_plain(q, k, v,
-                                                        causal=True)],
-                                 rows=flash_rows(q, k, v, True)),
+                                                        causal=causal)],
+                                 rows=flash_rows(q, k, v, causal)),
             "backward": hold_bf16(f"flash_attention_bwd {row['shape']}", got,
-                                  plain, grads=True)}
+                                  plain, grads=True,
+                                  inputs=(q, k, v, do, causal))}
     if dtype == torch.float32:
-        exact = _attention_f64_grads(q, k, v, do)
+        exact = _attention_f64_grads(q, k, v, do, causal)
         row["vs_float64"] = {
             name: {"kernel": float((a.double() - x).abs().max()),
                    "plain": float((p.double() - x).abs().max())}
@@ -1772,13 +1977,13 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
 
         def library_fwd():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         def library_fwd_bwd():
             return torch.autograd.grad(library_fwd(), (qt, kt, vt), dot)
 
         def kernel_fwd_bwd():
-            o = FlashAttention.apply(*leaves, True)
+            o = FlashAttention.apply(*leaves, causal)
             return torch.autograd.grad(o, leaves, do)
 
         lib = [g.transpose(1, 2) for g in library_fwd_bwd()]
@@ -1794,9 +1999,10 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
               "backward kernel's")
         del lib, fused
         es = q.element_size()
-        flop = 5 * 2 * b * h * _causal_pairs(s, s) * d
-        nbytes = es * (2 * b * s * h * d + 2 * b * s * m * d) \
-            + 4 * b * h * s + es * (b * s * h * d + 2 * b * s * m * d)
+        pairs = _causal_pairs(s, s) if causal else s * s
+        flop = 2 * b * h * pairs * (3 * d + 2 * dv)
+        nbytes = es * (b * s * h * (d + dv) + b * s * m * (d + dv)) \
+            + 4 * b * h * s + es * (b * s * h * d + b * s * m * (d + dv))
         b_ms, by = tf32x3_bound_ms(nbytes, flop)
         row.update(ms=time_ms(kernel_fn, reps=10),
                    launch_us=_launch_profile(kernel_fn),
@@ -1804,7 +2010,7 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
                    plain_fwd_bwd_ms=time_ms(plain_fn, reps=5),
                    library_fwd_bwd_ms=time_ms(library_fwd_bwd, reps=10))
         with torch.enable_grad():
-            o_plain = flash_attention_plain(*leaves, causal=True)
+            o_plain = flash_attention_plain(*leaves, causal=causal)
         row["plain_ms"] = time_ms(lambda: torch.autograd.grad(
             o_plain, leaves, do, retain_graph=True), reps=5)
         del o_plain
@@ -1813,8 +2019,8 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
             o_lib, (qt, kt, vt), dot, retain_graph=True), reps=10)
         del o_lib
         row.update(library="F.scaled_dot_product_attention(..., "
-                           "is_causal=True, enable_gqa=True)'s backward "
-                           "(torch.autograd.grad)",
+                           f"is_causal={causal}, enable_gqa=True)'s "
+                           "backward (torch.autograd.grad)",
                    bound_ms=b_ms, bound_by=by,
                    bound_fp32_ms=bound_ms(nbytes, flop)[0],
                    bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1897,38 +2103,15 @@ def _bf16_controls(what: str, out, ctrl, ref, rows) -> dict:
     return res
 
 
-def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
-    """bf16 flash attention at a training-path shape, causal, q/dO (b, s,
-    h, d) and k/v (b, s, m, d): the forward and backward kernels against
-    their plain versions (``hold_bf16``) and their planted copies (the
-    kernels before the bf16 repair), which must miss ATTN_BF16_NORM_TOL
-    and ATTN_BF16_GRAD_NORM_TOL, with the forward's mixed control
-    (:func:`_bf16_controls`);
-    then CUDA-event times of each kernel, its plain version and
-    ``F.scaled_dot_product_attention`` in bf16 -- a yardstick only: SDPA
-    keeps scores and probabilities in fp32, another function than the JAX
-    model's.  Bounds: the forward's two and the backward's five s x s x d
-    products over the causal pairs at the tensor cores' bf16 rate, and the
-    bytes (inputs read once, outputs and the log-sum-exp written once)."""
+def _planted_attention_rows(row, shape, q, k, v, do, o, o_plain, g_plain,
+                            rows) -> None:
+    """The bf16 forward and backward's planted copies (the kernels before
+    the bf16 repair) on attention_bf16_row's inputs: the forward's
+    controls (:func:`_bf16_controls`) and the backward's, which must miss
+    ATTN_BF16_GRAD_NORM_TOL; read into ``row``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_kernel, flash_attention_kernel)
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd_plain, flash_attention_plain)
-    q, k, v, do = _attn_inputs(gen, torch.bfloat16, (b, s, h, d),
-                               (b, s, m, d), (b, s, m, d), (b, s, h, d))
-    o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
-    grads = flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
-    o_plain = flash_attention_plain(q, k, v, causal=True)
-    g_plain = flash_attention_bwd_plain(q, k, v, do, causal=True)
-    shape = f"b{b} s{s} h{h} m{m} d{d} causal bf16"
-    rows = flash_rows(q, k, v, True)
-    row = {"shape": shape,
-           "forward": hold_bf16(f"flash_attention {shape}", [o], [o_plain],
-                                rows=rows),
-           "backward": hold_bf16(f"flash_attention_bwd {shape}", grads,
-                                 g_plain, grads=True)}
     with planted("flash_attention", "flash_attention_bwd"):
         o_c, lse_c = flash_attention_kernel(q, k, v, causal=True,
                                             with_lse=True)
@@ -1944,7 +2127,64 @@ def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
           f"rounding reads {row['planted_backward']} against the plain "
           f"version, within {ATTN_BF16_GRAD_NORM_TOL:g}: the limit does not "
           f"catch it")
-    del o_c, lse_c, g_c
+    ref, flips = _bf16_bwd_explained(q, k, v, do, True, g_c)
+    row["planted_backward_witness"] = {**_bf16_gaps(g_c, ref),
+                                       "flips": flips}
+    check(row["planted_backward_witness"]["norm_rel"]
+          > ATTN_BF16_GRAD_NORM_TOL,
+          f"flash_attention_bwd {shape}: the backward's tie witness explains "
+          f"the kernel without the bf16 rounding "
+          f"({row['planted_backward_witness']}): it would hide a fault")
+
+
+def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int,
+                       dv: int | None = None, controls: bool = True) -> dict:
+    """bf16 flash attention at a training-path shape, causal, q (b, s, h,
+    d), k (b, s, m, d), v (b, s, m, dv) and dO (b, s, h, dv) (dv = d
+    unless given): the forward and backward kernels against their plain
+    versions (``hold_bf16``) and, with ``controls``, their planted copies
+    (the kernels before the bf16 repair, built at head dims 20, 64 and
+    80), which must miss ATTN_BF16_NORM_TOL and ATTN_BF16_GRAD_NORM_TOL,
+    with the forward's mixed control (:func:`_bf16_controls`);
+    then CUDA-event times of each kernel, its plain version and
+    ``F.scaled_dot_product_attention`` in bf16 -- a yardstick only: SDPA
+    keeps scores and probabilities in fp32, another function than the JAX
+    model's.  Bounds: the forward's two and the backward's five s x s x d
+    products over the causal pairs at the tensor cores' bf16 rate, and the
+    bytes (inputs read once, outputs and the log-sum-exp written once:
+    the backward reads q, k, v, dO and the log-sum-exp and writes dq, dk,
+    dv)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    dv = d if dv is None else dv
+    q, k, v, do = _attn_inputs(gen, torch.bfloat16, (b, s, h, d),
+                               (b, s, m, d), (b, s, m, dv), (b, s, h, dv))
+    o, lse = flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+    grads = flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
+    o_plain = flash_attention_plain(q, k, v, causal=True)
+    g_plain = flash_attention_bwd_plain(q, k, v, do, causal=True)
+    widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
+    shape = f"b{b} s{s} h{h} m{m} {widths} causal bf16"
+    rows = flash_rows(q, k, v, True)
+    row = {"shape": shape,
+           "forward": hold_bf16(f"flash_attention {shape}", [o], [o_plain],
+                                rows=rows),
+           "backward": hold_bf16(f"flash_attention_bwd {shape}", grads,
+                                 g_plain, grads=True,
+                                 inputs=(q, k, v, do, True))}
+    grads_again = flash_attention_bwd_kernel(q, k, v, do, lse, causal=True)
+    row["repeat_bitwise"] = all(_bits_equal(a, c)
+                                for a, c in zip(grads, grads_again))
+    check(row["repeat_bitwise"], f"flash_attention_bwd {shape}: two calls "
+                                 f"differ")
+    del grads_again
+    if controls:
+        _planted_attention_rows(row, shape, q, k, v, do, o, o_plain,
+                                g_plain, rows)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -1958,10 +2198,13 @@ def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
         o_graph = flash_attention_plain(*leaves, causal=True)
         o_lib = library_fwd()
     pairs = _causal_pairs(s, s)
-    io = 2 * (2 * b * s * h * d + 2 * b * s * m * d) + 4 * b * h * s
-    fwd_b, fwd_by = bound_ms(io, 4 * b * h * pairs * d, BF16_OPS_PER_S)
-    bwd_b, bwd_by = bound_ms(io + 2 * b * s * h * d,
-                             10 * b * h * pairs * d, BF16_OPS_PER_S)
+    io = 2 * (b * s * h * (d + dv) + b * s * m * (d + dv)) + 4 * b * h * s
+    fwd_b, fwd_by = bound_ms(io, 2 * b * h * pairs * (d + dv),
+                             BF16_OPS_PER_S)
+    bwd_io = 2 * (b * s * h * (2 * d + dv) + 2 * b * s * m * (d + dv)) \
+        + 4 * b * h * s
+    bwd_b, bwd_by = bound_ms(bwd_io, 2 * b * h * pairs * (3 * d + 2 * dv),
+                             BF16_OPS_PER_S)
     with torch.no_grad():
         row["forward"].update(
             ms=time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
@@ -1983,7 +2226,8 @@ def attention_bf16_row(gen, b: int, s: int, h: int, m: int, d: int) -> dict:
                       "rounding)")
     print(f"  flash_attention bf16 {shape}: " + json.dumps(
         {k: row[k] for k in ("forward", "backward", "planted_forward",
-                             "mixed_forward", "planted_backward")}))
+                             "mixed_forward", "planted_backward")
+         if k in row}))
     del q, k, v, do, o, lse, grads, o_plain, g_plain, o_graph, o_lib, leaves
     torch.cuda.empty_cache()
     return row
@@ -2081,32 +2325,180 @@ def flash_bf16_timed_row(gen, b: int, s: int, h: int, m: int, d: int,
     return row
 
 
-def wide_gradient_refused(gen) -> list:
+def wide_gradient_taken(gen) -> dict:
     """A gradient through flash attention on the card at dk != dv or dk >
-    128 (MLA's 192 / 128, and 160 / 160) must raise NotImplementedError
-    naming its ROADMAP.md item before any kernel runs; the same call
-    without a gradient runs the forward."""
+    128 (MLA's 192 / 128, and 160 / 160) runs the forward and backward
+    kernels once each (``FlashAttention``) and matches autograd of the
+    plain version within FLASH_BWD_TOL; wider than the kernels take (200 /
+    128, 256 / 256) is refused with ``ValueError`` before any kernel
+    runs."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ops import WIDE_BACKWARD_QUEUED
-    out = []
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain)
+    out = {"taken": [], "refused": []}
     for dk, dv in ((MLA_DK, MLA_DV), (160, 160)):
+        q, k, v, do = _attn_inputs(gen, torch.float32, (1, 8, 2, dk),
+                                   (1, 8, 2, dk), (1, 8, 2, dv),
+                                   (1, 8, 2, dv))
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        fk.reset_launches()
+        got = torch.autograd.grad(flash_attention(*leaves, causal=True),
+                                  leaves, do)
+        launches = dict(fk.launches)
+        plain = flash_attention_bwd_plain(q, k, v, do, causal=True)
+        scale = max(float(p.abs().max()) for p in plain)
+        err = max(float((a - p).abs().max()) for a, p in zip(got, plain))
+        check(launches == {"flash_attention": 1, "flash_attention_bwd": 1}
+              and err <= FLASH_BWD_TOL["float32"] * scale,
+              f"flash attention's gradient at dk {dk}, dv {dv} on the card: "
+              f"launches {launches}, max |kernel - plain| {err:.3e} of "
+              f"{scale:.3e}")
+        out["taken"].append({"dk": dk, "dv": dv, "max_abs_err": err})
+    for dk, dv in ((200, 128), (256, 256)):
         q, k, v = _attn_inputs(gen, torch.float32, (1, 8, 2, dk),
                                (1, 8, 2, dk), (1, 8, 2, dv))
+        fk.reset_launches()
         try:
             flash_attention(q.requires_grad_(True), k, v, causal=True)
             said = None
-        except NotImplementedError as e:
+        except ValueError as e:
             said = str(e)
-        check(said is not None and WIDE_BACKWARD_QUEUED in said,
-              f"flash attention's gradient at dk {dk}, dv {dv} on the card "
-              f"was not refused naming {WIDE_BACKWARD_QUEUED}: {said!r}")
-        with torch.no_grad():
-            check(flash_attention(q, k, v, causal=True).shape == (1, 8, 2, dv),
-                  f"flash attention's forward at dk {dk}, dv {dv}")
-        out.append({"dk": dk, "dv": dv, "refused": said})
-    print(f"  flash attention's gradient refused on the card at dk != dv "
-          f"or dk > 128: {[(r['dk'], r['dv']) for r in out]}")
+        check(said is not None and not any(fk.launches.values()),
+              f"flash attention at dk {dk}, dv {dv} on the card was not "
+              f"refused before any kernel: {said!r}, {fk.launches}")
+        out["refused"].append({"dk": dk, "dv": dv, "said": said})
+    fk.reset_launches()
+    print(f"  flash attention's gradient on the card: taken at "
+          f"{[(r['dk'], r['dv']) for r in out['taken']]} (max |kernel - "
+          f"plain| {max(r['max_abs_err'] for r in out['taken']):.3e}), "
+          f"refused before any kernel at "
+          f"{[(r['dk'], r['dv']) for r in out['refused']]}")
+    return out
+
+
+def flash_bwd_bf16_sha256() -> str:
+    """sha256 of flash attention's backward in bf16 (dq, dk, dv) on seeded
+    inputs at the old widths (dk = dv <= 128: the training path's b 8, s
+    64 with smollm's and zamba2's heads, a ragged GQA one, causal and
+    full), each from the forward kernel's log-sum-exp.  It runs in a
+    checkout of any commit since the bf16 repair: ``python3 -c 'import
+    chip_smoke as c; c.phase_device(False); print(c.flash_bwd_bf16_sha256())'``."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    h = hashlib.sha256()
+    for b, s, hh, m, d in ((8, 64, *_SMOLLM_ATTN), (8, 64, *_ZAMBA2_ATTN),
+                           (2, 47, 6, 2, 20)):
+        q, k, v, do = _attn_inputs(gen, torch.bfloat16, (b, s, hh, d),
+                                   (b, s, m, d), (b, s, m, d), (b, s, hh, d))
+        for causal in (True, False):
+            _o, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                             with_lse=True)
+            for g in flash_attention_bwd_kernel(q, k, v, do, lse,
+                                                causal=causal):
+                h.update(g.view(torch.int16).cpu().numpy().tobytes())
+    digest = h.hexdigest()
+    print(f"  flash attention backward bf16 sha256: {digest}")
+    return digest
+
+
+def phase_flash_bwd_wide() -> dict:
+    """The backward widened to dk != dv and dk up to 192 (see
+    FLASH_BWD_WIDE): each shape of FLASH_BWD_WIDE and FLASH_BWD_MOE_PATH
+    against autograd of the plain version in fp32 (also within twice the
+    plain version's float64 error) and bf16 (``hold_bf16``), two calls
+    bitwise equal (:func:`flash_bwd_row`); deepseek's full-width training
+    shape timed in fp32 (row 5n: the kernel, the plain version's autograd,
+    SDPA's backward at the same widths) and bf16 (row 5o,
+    :func:`attention_bf16_row` without the planted copies, which are
+    built at the old widths only); and a gradient at those widths taken
+    on the card through ``FlashAttention`` while wider ones are refused
+    (:func:`wide_gradient_taken`)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.time()
+    shapes = [(b, s, h, m, dk, dv, causal)
+              for b, s, h, m, dk, dv, causal in FLASH_BWD_WIDE] + [
+        (*shape, True) for shape in FLASH_BWD_MOE_PATH]
+    rows, worst = [], {}
+    for b, s, h, m, dk, dv, causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = flash_bwd_row(gen, b, s, h, m, dk, dtype, dv=dv,
+                              causal=causal)
+            key = str(dtype).replace("torch.", "")
+            worst[key] = max(worst.get(key, 0.0),
+                             r["max_abs_err"] / r["max_abs_grad"])
+            rows.append({k: r[k] for k in ("shape", "max_abs_err",
+                                           "max_abs_grad", "repeat_bitwise",
+                                           "vs_float64") if k in r})
+    witness = wide_witness_controls(gen, [
+        shape for shape in shapes if shape[4] > MAX_BWD_OLD_WIDTH])
+    b, s, h, m, dk, dv = FLASH_BWD_MOE_PATH[1]
+    fp32 = flash_bwd_row(gen, b, s, h, m, dk, torch.float32, timed=True,
+                         dv=dv)
+    bf16 = attention_bf16_row(gen, b, s, h, m, dk, dv=dv, controls=False)
+    taken = wide_gradient_taken(gen)
+    out = {"rows": rows, "worst_rel": worst, "float32": fp32,
+           "bfloat16": bf16, "gradient": taken, "witness": witness,
+           "seconds": time.time() - t0}
+    print(f"  flash_attention_bwd widened: {len(rows)} rows within "
+          f"FLASH_BWD_TOL (worst relative {json.dumps(worst)}), fp32 "
+          f"within 2x the plain version's float64 error, bitwise on "
+          f"repeat; {out['seconds']:.1f} s")
+    return out
+
+
+#: the backward's widest instances before its widening (dk = dv <= 128)
+MAX_BWD_OLD_WIDTH = 128
+
+
+def wide_witness_controls(gen, shapes) -> list:
+    """The backward's tie witness (:func:`_bf16_bwd_explained`) at the
+    wide widths, where the planted copies (built at head dims 20, 64 and
+    80) do not reach: at each of ``shapes`` (b, s, h, m, dk, dv, causal),
+    on bf16 inputs of its own, the kernel's gradients held by
+    ``hold_bf16`` (the witness's flips read where it is used), and the
+    unrounded function -- the plain version in fp32 on the same inputs,
+    rounded once at its outputs, a kernel without the bf16 rounding points
+    -- held against the witness steered toward it, which must miss
+    ATTN_BF16_GRAD_NORM_TOL (it must not explain a fault)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain)
+    out = []
+    for b, s, h, m, dk, dv, causal in shapes:
+        q, k, v, do = _attn_inputs(gen, torch.bfloat16, (b, s, h, dk),
+                                   (b, s, m, dk), (b, s, m, dv), (b, s, h, dv))
+        shape = (f"b{b} s{s} h{h} m{m} dk{dk} dv{dv} "
+                 f"{'causal' if causal else 'full'} bf16")
+        _, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                        with_lse=True)
+        grads = flash_attention_bwd_kernel(q, k, v, do, lse, causal=causal)
+        plain = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+        gaps = hold_bf16(f"flash_attention_bwd {shape}", grads, plain,
+                         grads=True, inputs=(q, k, v, do, causal))
+        unrounded = [t.to(torch.bfloat16) for t in flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), do.float(), causal=causal)]
+        ref, flips = _bf16_bwd_explained(q, k, v, do, causal, unrounded)
+        control = {**_bf16_gaps(unrounded, ref), "flips": flips}
+        check(control["norm_rel"] > ATTN_BF16_GRAD_NORM_TOL,
+              f"flash_attention_bwd {shape}: the backward's tie witness "
+              f"explains the unrounded function ({control}): it would hide "
+              f"a fault")
+        out.append({"shape": shape, "norm_rel": gaps["norm_rel"],
+                    "witness": gaps.get("witness"),
+                    "unrounded_vs_witness": control})
+    used = {r["shape"]: r["witness"]["flips"] for r in out if r["witness"]}
+    print(f"  flash_attention_bwd bf16 tie witness at the wide widths: used "
+          f"at {len(used)} of {len(out)} shapes (flips {json.dumps(used)}); "
+          f"the unrounded function misses it at every shape (least "
+          f"norm-wise {min(r['unrounded_vs_witness']['norm_rel'] for r in out):.3e}"
+          f" > {ATTN_BF16_GRAD_NORM_TOL:g})")
     return out
 
 
@@ -2153,6 +2545,11 @@ ATTN_FP32_SHA256_PARENT = {
 #: (e6a6006) read this on an H100 80GB HBM3 at 700 W; they must not move
 ATTN_BF16_SHA256_PARENT = (
     "6e0c7e32e78f55706b43cd36fa18ec6cc5959012f25800da656fc3db8447e267")
+#: the backward's bf16 output bits on seeded inputs at the old widths
+#: (``flash_bwd_bf16_sha256``): the backward before its widening to dk !=
+#: dv (a2dbd51) read this on an H100 80GB HBM3 at 700 W; they must not move
+FLASH_BWD_BF16_SHA256_PARENT = (
+    "37ddd2c88aa95454d2dd362e041603d201791835701989c8535eeb8469c71965")
 
 
 def attention_fp32_sha256() -> dict:
@@ -3246,11 +3643,62 @@ def _want_launches(cfg, steps: int, forwards: int) -> dict:
 #: steps) route a token whose K-th and (K+1)-th gates lie within their
 #: rounding either way; an expert further below is a wrong route
 ROUTE_GATE_TOL = 1e-5
+#: in bf16 the router's logits are rounded to bf16 before the fp32
+#: softmax, and its inputs part between two sound runs by the earlier
+#: layers' bf16 roundings: each logit may move by up to two bf16 ulps (at
+#: its token's largest |logit|), one of its own rounding and one of its
+#: inputs', so a forced route is held at its logit no further than the
+#: two logits' four ulps below the largest logit outside the forced set
+#: (:meth:`Routes.hold_bf16`).  One ulp a logit does not hold: deepseek's
+#: cut on an H100 beside the CPU read 2.5 ulps; a planted wrong route
+#: reads hundreds (:func:`_route_control_bf16`)
+ROUTE_BF16_ULPS = 4.0
+
+
+#: the router hooks of :class:`Routes`: installed while any thread holds a
+#: Routes block, each thread's innermost block deciding its own calls
+_ROUTE_LOCK = threading.Lock()
+_ROUTE_STATE: dict = {"users": 0, "kept": None}
+_ROUTE_LOCAL = threading.local()
+
+
+def _route_hook(gates, k):
+    stack = getattr(_ROUTE_LOCAL, "stack", None)
+    if stack:
+        return stack[-1]._route(gates, k)
+    return _ROUTE_STATE["kept"][0](gates, k)
+
+
+def _capacity_hook(tokens, cfg):
+    stack = getattr(_ROUTE_LOCAL, "stack", None)
+    if stack and stack[-1].no_drops:
+        return max(tokens, cfg.experts_per_token)
+    return _ROUTE_STATE["kept"][1](tokens, cfg)
+
+
+def _moe_block_hook(x, p, cfg):
+    """A forced call's router logits, kept for its route: the product
+    ``moe_block`` makes, on the same inputs."""
+    import torch
+    stack = getattr(_ROUTE_LOCAL, "stack", None)
+    if stack and stack[-1].force is not None:
+        with torch.no_grad():
+            stack[-1].logits = (x.reshape(-1, x.shape[-1])
+                                @ p["router"]).float()
+    return _ROUTE_STATE["kept"][2](x, p, cfg)
+
+
+def bf16_ulp(a):
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    import torch
+    a = a.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
 class Routes:
     """A hook local to this script on the MoE router
-    (``repro_torch.models.moe.route``, swapped in for the block): every
+    (``repro_torch.models.moe.route``, swapped in for the block, for the
+    calls of the thread that entered it): every
     call's chosen experts are kept (``records``, on the card, in call
     order).  ``force``: a list of expert choices, one per call, that the
     calls take instead of their own -- so that two runs whose fp32 sums
@@ -3266,24 +3714,34 @@ class Routes:
         self.no_drops = no_drops
         self.records: list = []
         self.slack = float("inf")      # least forced gate - own K-th gate
+        self.ulps = float("inf")       # the same at the logits, in bf16 ulps
         self.moved = 0                 # tokens whose forced set differs
+        self.logits = None
 
     def __enter__(self):
         from repro_torch.models import moe
-        self._kept = moe.route, moe._capacity
-        moe.route = self._route
-        if self.no_drops:
-            moe._capacity = lambda tokens, cfg: max(tokens,
-                                                    cfg.experts_per_token)
+        with _ROUTE_LOCK:
+            if _ROUTE_STATE["users"] == 0:
+                _ROUTE_STATE["kept"] = (moe.route, moe._capacity,
+                                        moe.moe_block)
+                moe.route, moe._capacity, moe.moe_block = (
+                    _route_hook, _capacity_hook, _moe_block_hook)
+            _ROUTE_STATE["users"] += 1
+        _ROUTE_LOCAL.__dict__.setdefault("stack", []).append(self)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
-        moe.route, moe._capacity = self._kept
+        _ROUTE_LOCAL.stack.pop()
+        with _ROUTE_LOCK:
+            _ROUTE_STATE["users"] -= 1
+            if _ROUTE_STATE["users"] == 0:
+                moe.route, moe._capacity, moe.moe_block = \
+                    _ROUTE_STATE["kept"]
 
     def _route(self, gates, k):
         import torch
-        g, idx = self._kept[0](gates, k)
+        g, idx = _ROUTE_STATE["kept"][0](gates, k)
         if self.force is not None:
             check(bool(self.force), "Routes: more router calls than forced "
                                     "choices")
@@ -3292,7 +3750,13 @@ class Routes:
                                            f"the call routes {idx.shape}")
             forced = gates.gather(-1, want)
             self.slack = min(self.slack,
-                             float((forced - g[:, -1:]).min()))
+                             float((forced - g[:, -1:]).min().detach()))
+            if self.logits is not None:
+                lg, self.logits = self.logits, None
+                rest = lg.scatter(-1, want, float("-inf")).amax(-1)
+                gap = lg.gather(-1, want).amin(-1) - rest
+                self.ulps = min(self.ulps, float(
+                    (gap / bf16_ulp(lg.abs().amax(-1))).min()))
             self.moved += int((torch.sort(want, -1).values
                                != torch.sort(idx, -1).values).any(-1).sum())
             g, idx = forced, want
@@ -3301,7 +3765,21 @@ class Routes:
 
     def reading(self) -> dict:
         return {"calls": len(self.records), "moved_tokens": self.moved,
-                "least_slack": self.slack}
+                "least_slack": self.slack, "least_bf16_ulps": self.ulps}
+
+    def hold_bf16(self, what: str) -> None:
+        """Fails unless every forced choice was used and every forced
+        expert's logit lies at most ROUTE_BF16_ULPS bf16 ulps (at its
+        token's largest |logit|) below the largest logit outside the
+        forced set: the routes of a bf16 run that the logits' rounding
+        alone can explain."""
+        check(not self.force, f"{what}: {len(self.force)} forced routes "
+                              f"left unused")
+        check(self.ulps >= -ROUTE_BF16_ULPS,
+              f"{what}: a forced expert's logit lies {-self.ulps:.2f} bf16 "
+              f"ulps below the largest outside its token's forced set (> "
+              f"ROUTE_BF16_ULPS {ROUTE_BF16_ULPS:g}): a wrong route, not a "
+              f"rounding")
 
     def hold(self, what: str) -> None:
         """Fails unless every forced choice was used and none lies further
@@ -3354,6 +3832,41 @@ def _card_step_logits(model, out, max_seq: int):
     return torch.stack(steps, dim=1).cpu()                      # (b, s-1, V)
 
 
+class _StepLogits:
+    """The logits of every decode step of a Generator's next run, kept as
+    the run makes them: each step's are copied into pinned host memory on
+    the card's stream (asynchronously, so the run's device memory and its
+    timing are its own), in step order.  Step t's logits predict token t +
+    1.  :meth:`stop` gives the Generator back its own step."""
+
+    def __init__(self, gen, b: int, steps: int):
+        import torch
+        self.gen, self.n = gen, 0
+        self.buf = torch.empty((steps, b, gen.model.cfg.vocab_size),
+                               dtype=torch.float32, pin_memory=True)
+        step = gen._decode
+
+        def decode(cache, token, pos):
+            logits, cache = step(cache, token, pos)
+            self.buf[self.n].copy_(logits, non_blocking=True)
+            self.n += 1
+            return logits, cache
+        gen._decode = decode
+
+    def stop(self) -> None:
+        del self.gen._decode                 # the class's own again
+
+    def logits(self, steps: int):
+        """(b, steps, V): the first ``steps`` steps' logits."""
+        import torch
+        torch.cuda.synchronize()
+        check(self.n >= steps, f"{self.n} decode steps recorded, want "
+                               f"{steps}")
+        out = self.buf[:steps].transpose(0, 1).contiguous()
+        del self.buf
+        return out
+
+
 def _vs_cpu(cpu_model, out, card, what: str, routes=None) -> dict:
     """The card's per-step logits ``card`` against the same model on the
     CPU, teacher-forced with the card's tokens ``out`` (b, s), within
@@ -3390,29 +3903,35 @@ def _vs_cpu(cpu_model, out, card, what: str, routes=None) -> dict:
 def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
                seed, what: str) -> dict:
     """One generate() + perplexity on the card, launches counted; then the
-    card's teacher-forced forward against its replayed decode steps, and
-    the CPU comparison (none when ``cpu_model`` is None).  MoE: the
-    forward held against the steps drops nothing and takes the steps'
-    experts, and the replayed steps drop nothing either (a step of b
-    tokens drops an assignment only where more than C of them pick one
-    expert: grok at batch 4, C = 2; deepseek's C = 6 never drops at 4)
-    (:class:`Routes`)."""
+    card's teacher-forced forward against the logits of the decode steps
+    that made the tokens (:class:`_StepLogits`), and the CPU comparison
+    (none when ``cpu_model`` is None).  MoE: the forward held against the
+    steps drops nothing and takes the steps' experts, so the steps are
+    replayed with no drops either (a step of b tokens drops an assignment
+    only where more than C of them pick one expert: grok at batch 4, C =
+    2; deepseek's C = 6 never drops at 4) (:class:`Routes`)."""
     import torch
     from repro_torch.serving import perplexity
+    moe = model.cfg.family == "moe"
     gen.decode_steps = 0
+    b, s = prompts.shape
+    recorded = None if moe else _StepLogits(gen, b, s + new_tokens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_path_launches()
     t0 = time.perf_counter()
-    out = gen.generate(prompts, max_new_tokens=new_tokens,
-                       temperature=temperature, seed=seed)
+    try:
+        out = gen.generate(prompts, max_new_tokens=new_tokens,
+                           temperature=temperature, seed=seed)
+    finally:
+        if recorded is not None:
+            recorded.stop()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with Routes() as ppl_routes:
         ppl = perplexity(model, out)
     launches = _path_launches()
     peak = torch.cuda.max_memory_allocated()
-    b, s = prompts.shape
     check(gen.decode_steps == s + new_tokens,
           f"{what}: {gen.decode_steps} decode steps, want {s + new_tokens}")
     want = _want_launches(model.cfg, gen.decode_steps, 1)
@@ -3423,9 +3942,9 @@ def _serve_run(gen, model, cpu_model, prompts, new_tokens, temperature,
           f"{what}: tokens out of range or of shape {out.shape}")
     check(ppl == ppl and ppl > 1.0, f"{what}: perplexity {ppl!r}")
     out_t = torch.from_numpy(out).long()
-    moe = model.cfg.family == "moe"
     with Routes(no_drops=moe) as step_routes:
-        card = _card_step_logits(model, out_t, gen.max_seq)
+        card = (_card_step_logits(model, out_t, gen.max_seq) if moe
+                else recorded.logits(s + new_tokens - 1))
     routes = {"perplexity": ppl_routes.records,
               "steps_as_forward": steps_as_forward(
                   step_routes.records, moe_layers(model.cfg), *out_t.shape)}
@@ -4026,9 +4545,9 @@ def _want_train_launches(cfg, grads: int, evals: int, syncs: int = 0) -> dict:
     Mamba2 layer per forward, their backward kernels per gradient, and
     quantize8_ef per int8 merge of a worker's update."""
     layers = cfg.num_layers
-    attn = {"dense": layers, "ssm": 0,
+    attn = {"dense": layers, "moe": layers, "ssm": 0,
             "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
-    mamba = 0 if cfg.family == "dense" else layers
+    mamba = layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn * (grads + evals),
             "flash_attention_bwd": attn * grads,
             "ssd_scan": mamba * (grads + evals), "ssd_scan_bwd": mamba * grads,
@@ -4237,16 +4756,17 @@ def _cpu_grad(name: str, dtype: str, params32, ssd_float64=False) -> dict:
     return {"loss": float(loss_h), "grad": g_h, "cpu_s": time.time() - t0}
 
 
-def _leaf_gaps(wl, a, ref, norm: bool = False) -> tuple:
+def _leaf_gaps(wl, a, ref, norm: bool = False,
+               device: str = "cuda") -> tuple:
     """max |a - ref| over each leaf of two flat gradients (CPU tensors,
-    compared on the card), relative to the leaf's largest |ref| (by layer
+    compared on ``device``), relative to the leaf's largest |ref| (by layer
     too), or with ``norm`` ||a - ref|| / ||ref|| over the leaf (by layer:
     over the layer's slice) -> (by leaf, by layer of each stacked leaf)."""
     import torch
-    a, ref = a.cuda().float(), ref.cuda().float()
     leaves, layers = {}, {}
     for (path, _), c, h in zip(wl.layout, wl._views(a)[1],
                                wl._views(ref)[1]):
+        c, h = c.to(device).float(), h.to(device).float()   # leaf by leaf
         leaf = "/".join(path)
         if norm:
             c, h = c.double(), h.double()
@@ -4261,16 +4781,16 @@ def _leaf_gaps(wl, a, ref, norm: bool = False) -> tuple:
                          else (d.abs().amax(1), [big] * len(d)))
             layers[leaf] = [float(v) / float(w) if float(w) else 0.0
                             for v, w in zip(per, bigs)]
-    del a, ref
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return leaves, layers
 
 
-def _norm_spread(wl, a, ref) -> dict:
+def _norm_spread(wl, a, ref, device: str = "cuda") -> dict:
     """||a - ref|| / ||ref|| over each leaf of two flat gradients: the
     smallest and largest over the leaves, and over the stacked leaves'
     last layer."""
-    leaves, layers = _leaf_gaps(wl, a, ref, norm=True)
+    leaves, layers = _leaf_gaps(wl, a, ref, norm=True, device=device)
     last = [v[-1] for v in layers.values()]
     return {"leaf_min": min(leaves.values()), "leaf_max": max(leaves.values()),
             "last_layer_min": min(last), "last_layer_max": max(last)}
@@ -4284,7 +4804,8 @@ def _spread_text(d: dict) -> str:
 
 def _vs_cpu_grad(card: dict, cpu: dict, nonzero=(),
                  grad_tol: float | None = None,
-                 hold_leaves: bool = True) -> dict:
+                 hold_leaves: bool = True, wl=None,
+                 device: str = "cuda") -> dict:
     """The card's gradient held against the CPU's: the loss within
     FULL_LOSS_RTOL (fp32) or FULL_BF16_LOSS_RTOL, each leaf within
     ``grad_tol`` (default FULL_FP32_GRAD_TOL or FULL_BF16_GRAD_TOL) of
@@ -4299,18 +4820,19 @@ def _vs_cpu_grad(card: dict, cpu: dict, nonzero=(),
     SSD scan in float64 (which side is nearer the exact one), and
     ``"plain"``, the card's gradient through the chunked plain SSD (how
     far two correct implementations part).  Every reading is printed
-    before any check."""
+    before any check.  ``wl``: the gradients' workload (default the
+    full-width arch); ``device``: where the leaves are compared."""
     import torch
     name, dtype = card["name"], card["dtype"]
-    wl = _arch_full(name, dtype)
+    wl = wl or _arch_full(name, dtype)
     loss_c, loss_h = card["loss"], cpu["loss"]
     loss_tol = FULL_LOSS_RTOL if dtype == "float32" else FULL_BF16_LOSS_RTOL
     if grad_tol is None:
         grad_tol = FULL_FP32_GRAD_TOL if dtype == "float32" else \
             FULL_BF16_GRAD_TOL
     rel_loss = abs(loss_c - loss_h) / abs(loss_h)
-    leaves, layers = _leaf_gaps(wl, card["grad"], cpu["grad"])
-    spread = _norm_spread(wl, card["grad"], cpu["grad"])
+    leaves, layers = _leaf_gaps(wl, card["grad"], cpu["grad"], device=device)
+    spread = _norm_spread(wl, card["grad"], cpu["grad"], device)
     worst = max(leaves, key=leaves.get)
     over = sorted(k for k, v in leaves.items() if v > grad_tol)
     out = {"name": name, "dtype": dtype, "n_params": wl.n_params,
@@ -4662,41 +5184,41 @@ SSD_CONTROL_MARGIN = 5
 FULL_SSM_FP32_GRAD_TOL = 1e-4
 
 
-def _ssm_trials():
+def _zoo_trials(models):
     """3g (a)'s trials (the two presets that train a zoo model), each
-    training each of SSM_TRAIN_MODELS."""
+    training each of ``models``."""
     from repro_torch.core.workloads import is_arch_workload
     from repro_torch.experiments import PRESETS
     base = [spec for preset in PRESETS.values()
             for spec in preset.build(True) if is_arch_workload(spec.model)]
-    return [spec.with_(model=m) for m in SSM_TRAIN_MODELS for spec in base]
+    return [spec.with_(model=m) for m in models for spec in base]
+
+
+def _ssm_trials():
+    return _zoo_trials(SSM_TRAIN_MODELS)
 
 
 def cpu_side(out: Path) -> None:
     """3h's CPU sides, in a helper process (``python3 chip_smoke.py
     --cpu-side PATH``) that runs beside phases 2-3g: first 3g (c)'s CPU
     run (``PATH.3g``), then (b)'s full-width CPU gradients (both models,
-    fp32 and bf16; mamba2's fp32 also with the SSD in float64), the CPU
-    runs of (c)'s full-width fp32 trial and of (a)'s trials; then, once
-    the main process has reached 3g (``PATH.go``: phases 2-3f time
-    kernels and serving loops and must have the card alone), (b)'s card
-    gradients, each
-    with a second call read in situ, held against the CPU's
-    (:func:`_vs_cpu_grad`), mamba2's planted controls
-    (:func:`_planted_ddt_control`) and the op witness of both models
-    (:func:`op_witness`).  Writes PATH as JSON; a failed check exits
-    non-zero, as in the main process."""
+    fp32 and bf16; mamba2's fp32 also with the SSD in float64) and the CPU
+    run of (c)'s full-width fp32 trial; then, once the main process has
+    reached 3g (``PATH.go``: phases 2-3f time kernels and serving loops
+    and must have the card alone), (b)'s card gradients, each with a
+    second call read in situ, held against the CPU's
+    (:func:`_vs_cpu_grad`), and mamba2's planted controls
+    (:func:`_planted_ddt_control`).  (a)'s CPU records and the op witness
+    are the other helper's (:func:`cpu_side_moe`).  Writes PATH as JSON; a
+    failed check exits non-zero, as in the main process."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(CPU_SIDE_THREADS)
-    from repro_torch.experiments import run_experiment
     seconds = {}
     t0 = time.time()
     smollm = _trial_run(_trial_spec(), "cpu")
     del smollm["cfg"]
-    tmp = out.with_suffix(".3g.tmp")
-    tmp.write_text(json.dumps(smollm))
-    os.replace(tmp, out.with_suffix(".3g"))      # readers never see half
+    _write_part(out, ".3g", smollm)
     seconds["3g_c"] = time.time() - t0
     t0 = time.time()
     inits = {name: _arch_full(name, "float32").init(
@@ -4712,10 +5234,6 @@ def cpu_side(out: Path) -> None:
     trial = _trial_run(_trial_spec(SSM_TRAIN_MODELS[0]), "cpu", "float32")
     del trial["cfg"]
     seconds["c"] = time.time() - t0
-    t0 = time.time()
-    records = {f"{spec.model}/{spec.name}": run_experiment(
-        spec, device="cpu").result for spec in _ssm_trials()}
-    seconds["a"] = time.time() - t0
     t0 = time.time()
     while not out.with_suffix(".go").exists():
         time.sleep(0.5)
@@ -4737,12 +5255,8 @@ def cpu_side(out: Path) -> None:
         cpu.clear()
         card.clear()
     seconds["b_card"] = time.time() - t0
-    t0 = time.time()
-    witness = {name: op_witness(name) for name in SSM_TRAIN_MODELS}
-    seconds["b_witness"] = time.time() - t0
     out.write_text(json.dumps({"full": rows, "controls": controls,
-                               "witness": witness, "trial": trial,
-                               "records": records, "seconds": seconds}))
+                               "trial": trial, "seconds": seconds}))
 
 
 def grad_witnesses(name: str = "mamba2_370m",
@@ -5044,36 +5558,54 @@ def _planted_ddt_control(name: str, dtype: str, params32, cpu: dict,
     return out
 
 
-class CpuSide:
-    """The helper process of :func:`cpu_side`: started after phase 1, let
-    onto the card at 3g (:meth:`go`: its card work runs beside 3g and
-    3h), waited for at 3h (:meth:`result`), stopped by :meth:`stop`
-    whatever happens."""
+def _write_part(out: Path, suffix: str, part) -> None:
+    """A helper's part ``part`` as JSON beside its output ``out`` (``out``
+    with ``suffix``), whole or not at all."""
+    tmp = out.with_suffix(suffix + ".tmp")
+    tmp.write_text(json.dumps(part))
+    os.replace(tmp, out.with_suffix(suffix))     # readers never see half
 
-    def __init__(self):
+
+class CpuSide:
+    """A helper process, started after phase 1 and let onto the card at 3g
+    (:meth:`go`): :func:`cpu_side` (``--cpu-side``), its card work beside
+    3g and 3h, waited for at 3h (:meth:`result`); or :func:`cpu_side_moe`
+    (``--cpu-side-moe``, given the first helper's output, ``after``),
+    whose parts 3h reads (:meth:`part`) and which is waited for after 3i.
+    Stopped by :meth:`stop` whatever happens."""
+
+    PARTS = (".go", ".3g", ".3h", ".witness")
+
+    def __init__(self, flag: str = "--cpu-side", name: str = "cpu_side",
+                 after: "CpuSide | None" = None):
         CPU_SIDE_DIR.mkdir(parents=True, exist_ok=True)
-        self.out = CPU_SIDE_DIR / f"cpu_side.{os.getpid()}.json"
-        for f in (self.out, self.out.with_suffix(".go"),
-                  self.out.with_suffix(".3g")):
-            f.unlink(missing_ok=True)
+        self.name = name
+        self.out = CPU_SIDE_DIR / f"{name}.{os.getpid()}.json"
+        for suffix in (".json", *self.PARTS):
+            self.out.with_suffix(suffix).unlink(missing_ok=True)
         self.log = open(self.out.with_suffix(".log"), "w")
         self.proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--cpu-side",
-             str(self.out)], cwd=ROOT, stdout=self.log,
-            stderr=subprocess.STDOUT)
+            [sys.executable, str(Path(__file__).resolve()), flag,
+             str(self.out), *((str(after.out),) if after else ())],
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT)
 
     def _failed(self) -> str:
         self.log.flush()
         return self.out.with_suffix(".log").read_text()[-4000:]
 
-    def smollm_trial(self) -> dict:
-        """3g (c)'s CPU run, once the helper has written it."""
-        path = self.out.with_suffix(".3g")
+    def part(self, suffix: str):
+        """The part the helper writes beside its output (``suffix``), once
+        it has written it."""
+        path = self.out.with_suffix(suffix)
         while not path.exists():
             check(self.proc.poll() is None,
-                  "3h's helper failed:\n" + self._failed())
+                  f"{self.name} failed:\n" + self._failed())
             time.sleep(0.5)
         return json.loads(path.read_text())
+
+    def smollm_trial(self) -> dict:
+        """3g (c)'s CPU run, once the helper has written it."""
+        return self.part(".3g")
 
     def go(self) -> None:
         """The card is the helper's to share from here on."""
@@ -5082,7 +5614,7 @@ class CpuSide:
     def result(self) -> dict:
         t0 = time.time()
         rc = self.proc.wait()
-        check(rc == 0, f"3h's helper exited {rc}:\n" + self._failed())
+        check(rc == 0, f"{self.name} exited {rc}:\n" + self._failed())
         out = json.loads(self.out.read_text())
         out["waited_s"] = time.time() - t0
         self.log.flush()
@@ -5096,7 +5628,7 @@ class CpuSide:
         self.log.close()
 
 
-def phase_train_ssm(helper: CpuSide) -> dict:
+def phase_train_ssm(helper: CpuSide, moe_helper: CpuSide) -> dict:
     """3h: (a) 3g (a)'s 9 trials with mamba2-370m and with zamba2-2.7b
     (reduced, bf16) on the card against the helper's CPU records within
     ARCH_CARD_VS_CPU_RTOL, and per model a control at learning rate x
@@ -5105,7 +5637,7 @@ def phase_train_ssm(helper: CpuSide) -> dict:
     FULL_SSM_FP32_GRAD_TOL and :func:`_vs_cpu_grad`), a second card
     gradient equal bit for bit, launches exact, its SSD backwards held in
     situ, mamba2's planted ddt controls and both models' op witness (the
-    helper holds them); (c) FULL_TRIAL with mamba2-370m at full width in
+    helpers hold them); (c) FULL_TRIAL with mamba2-370m at full width in
     fp32 against the helper's CPU run, within FULL_TRIAL_RTOL, a control
     at learning rate x FULL_TRIAL_CONTROL_LR that must miss it, launches
     exact.  Returns the training launches (they join the kernels line)
@@ -5127,17 +5659,20 @@ def phase_train_ssm(helper: CpuSide) -> dict:
     ctrls = {m: [l for _, l in run_experiment(first.with_(algo_args={
         **first.algo_args, "lr": first.algo_args["lr"] * ARCH_CONTROL_LR}),
         device="cuda").result["history"]] for m, first in firsts.items()}
+    t1 = time.time()
+    records = moe_helper.part(".3h")["records"]
     cpu = helper.result()
+    witness = moe_helper.part(".witness")
     out["seconds"]["helper"] = cpu["seconds"]
-    out["seconds"]["waited"] = cpu["waited_s"]
+    out["seconds"]["waited"] = time.time() - t1
     worst, controls = {}, {}
     for spec, card in zip(trials, cards):
         gap = _records_agree(spec, ARCH_CARD_VS_CPU_RTOL, card,
-                             cpu["records"][f"{spec.model}/{spec.name}"])
+                             records[f"{spec.model}/{spec.name}"])
         worst[spec.model] = max(worst.get(spec.model, 0.0), gap)
     for model, first in firsts.items():
         cpu_l = [l for _, l in
-                 cpu["records"][f"{model}/{first.name}"]["history"]]
+                 records[f"{model}/{first.name}"]["history"]]
         controls[model] = max(abs(a - b) / abs(b)
                               for a, b in zip(ctrls[model], cpu_l))
         check(controls[model] > ARCH_CARD_VS_CPU_RTOL,
@@ -5152,7 +5687,7 @@ def phase_train_ssm(helper: CpuSide) -> dict:
                       "control_rel_loss": controls}
     out["seconds"]["a"] = time.time() - t0
     out["controls"] = cpu["controls"]
-    out["witness"] = cpu["witness"]
+    out["witness"] = witness
     for row in cpu["full"]:
         check(row["card_repeat"]["grad_bitwise"]
               and row["card_repeat"]["loss_bitwise"],
@@ -5170,6 +5705,493 @@ def phase_train_ssm(helper: CpuSide) -> dict:
         check(totals.get(name, 0) > 0,
               f"{name} never launched on 3h's training path")
     print("  3h seconds: " + json.dumps(
+        {k: v if isinstance(v, dict) else round(v, 1)
+         for k, v in out["seconds"].items()}))
+    return out
+
+
+# ------------------------------------------------- 3j. train the MoE family ---
+
+#: 3j: the MoE family trained through 3g's checks: deepseek-v2-lite-16b
+#: (MLA at dk 192 / dv 128, 64 experts top 6 + 2 shared, a dense first
+#: layer) and grok-1-314b (GQA, 8 experts top 2)
+MOE_TRAIN_MODELS = ("deepseek_v2_lite_16b", "grok_1_314b")
+#: 3j (a)'s trials run the reduced configs in fp32, as their CPU tests do
+#: (``tests/test_torch_preset_*_{deepseek,grok}.py``): in bf16 a router's
+#: gates differ between two sound runs by the logits' bf16 rounding (2.7e-4
+#: read on an H100 beside the CPU), far beyond ROUTE_GATE_TOL, so a forced
+#: route could not be told from a wrong one
+MOE_TRIAL_DTYPE = "float32"
+
+
+class _flash_in_situ:
+    """Inside the block every call of the models' ``sdpa`` keeps its
+    inputs and, once autograd reaches it, its output's gradient;
+    :meth:`hold` then runs the flash kernels (forward and backward) on
+    each call's own inputs against the plain versions: fp32 within
+    FLASH_BWD_TOL of the largest plain gradient (ATTN_TOL for the
+    output), bf16 by ``hold_bf16`` (the output with the tie witness, the
+    gradients by the gradient rules).  Its launches are not the path's."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as attn
+        self._kept, self.calls = attn.sdpa, []
+
+        def sdpa(q, k, v, *, causal):
+            out = self._kept(q, k, v, causal=causal)
+            call = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
+                    "causal": causal}
+            self.calls.append(call)
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g, call=call: call.__setitem__("do", g.detach()))
+            return out
+        attn.sdpa = sdpa
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as attn
+        attn.sdpa = self._kept
+
+    def hold(self, what: str) -> dict:
+        import torch
+        from repro_torch.kernels.flash_attention.kernel import (
+            flash_attention_bwd_kernel, flash_attention_kernel)
+        from repro_torch.kernels.flash_attention.ops import (
+            flash_attention_bwd_plain, flash_attention_plain)
+        worst: dict = {}
+        for i, call in enumerate(self.calls):
+            q, k, v, causal = call["q"], call["k"], call["v"], call["causal"]
+            check("do" in call, f"{what}: attention call {i} got no gradient")
+            do = call["do"].contiguous()
+            o, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                            with_lse=True)
+            grads = flash_attention_bwd_kernel(q, k, v, do, lse,
+                                               causal=causal)
+            o_plain = flash_attention_plain(q, k, v, causal=causal)
+            plain = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+            at = f"{what} attention {i} {tuple(q.shape)} / {v.shape[-1]}"
+            if q.dtype == torch.bfloat16:
+                hold_bf16(f"{at} forward", [o], [o_plain],
+                          worst.setdefault("forward", {}),
+                          flash_rows(q, k, v, causal))
+                hold_bf16(at, grads, plain, worst.setdefault("backward", {}),
+                          grads=True, inputs=(q, k, v, do, causal))
+                continue
+            err_o = float((o - o_plain).abs().max())
+            scale = max(float(p.abs().max()) for p in plain)
+            err = max(float((a - p).abs().max())
+                      for a, p in zip(grads, plain))
+            check(err_o <= ATTN_TOL["flash_attention"]["float32"]
+                  and err <= FLASH_BWD_TOL["float32"] * scale,
+                  f"{at}: output {err_o:.3e}, gradient {err:.3e} of "
+                  f"{scale:.3e} from the plain version")
+            worst["max_abs_err_output"] = max(
+                worst.get("max_abs_err_output", 0.0), err_o)
+            worst["max_rel_err_grad"] = max(
+                worst.get("max_rel_err_grad", 0.0), err / scale)
+        worst["calls"] = len(self.calls)
+        return worst
+
+
+def _moe_cut_params():
+    """deepseek-v2-lite-16b's first MOE_CUT_LAYERS layers at full width as
+    ``_arch_cut``'s flat fp32 parameters, drawn on the card from seed 0
+    (``build_model``'s init), and the workload."""
+    import torch
+    from repro_torch.models import build_model
+    wl = _arch_cut(MOE_TRAIN_MODELS[0], "float32", MOE_CUT_LAYERS)
+    model = build_model(wl.arch, device="cuda", seed=0)
+    flat = wl.flatten(model.params)
+    del model
+    torch.cuda.empty_cache()
+    return wl, flat
+
+
+def _moe_card_grad(dtype: str, params32) -> dict:
+    """One FULL_BATCH gradient of the deepseek cut on the card in
+    ``dtype``: seconds, peak device memory, launches exact (flash forward
+    and backward once per layer), the routes its routers chose, a second
+    call compared bit for bit with every flash attention of it held in
+    situ (:class:`_flash_in_situ`).  The gradient comes back on the
+    CPU."""
+    import torch
+    wl = _arch_cut(MOE_TRAIN_MODELS[0], dtype, MOE_CUT_LAYERS)
+    batch = {k: v.cuda() for k, v in _full_batch(wl).items()}
+    params = params32.to(wl.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    t0 = time.time()
+    with Routes() as routes:
+        loss, g = wl.grad(params, batch)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _train_launches()
+    want = _want_train_launches(wl.cfg, grads=1, evals=0)
+    check(launches == want, f"3j (b) {dtype}: launches {launches}, want "
+                            f"{want}")
+    with _flash_in_situ() as situ:
+        loss_r, g_r = wl.grad(params, batch)
+    in_situ = situ.hold(f"3j (b) {dtype}")
+    repeat = {"loss_bitwise": _bits_equal(loss, loss_r),
+              "grad_bitwise": _bits_equal(g, g_r)}
+    check(repeat["loss_bitwise"] and repeat["grad_bitwise"],
+          f"3j (b) {dtype}: a second card gradient differs")
+    out = {"name": MOE_TRAIN_MODELS[0], "dtype": dtype, "loss": float(loss),
+           "grad": g.cpu(), "card_s": card_s,
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "card_repeat": repeat, "in_situ": {}, "in_situ_calls": 0,
+           "flash_in_situ": in_situ,
+           "routes": [r.cpu() for r in routes.records]}
+    del params, g, g_r, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_grad_profile(wl, params, batch) -> dict:
+    """torch.profiler over one card gradient: the device time by class
+    (GEMM, flash, flash backward, scatter and gather, other), busy and
+    idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    wl.grad(params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wl.grad(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"wall_s": wall, "device_busy_s": "not measured"}
+
+    def cls(name):
+        low = name.lower()
+        for keys, c in ((("dq_kernel", "dkdv_kernel", "gqa_sum"),
+                         "flash_backward"),
+                        (("flash_attention", "rounded_kernel"), "flash"),
+                        (("gemm", "gemv", "cutlass", "xmma"), "gemm"),
+                        (("index", "scatter", "gather"),
+                         "scatter_and_gather")):
+            if any(k in low for k in keys):
+                return c
+        return "other"
+    busy, lo_, hi_ = 0.0, spans[0][0], spans[0][1]
+    by_class: dict[str, float] = {}
+    for lo, hi, name in spans:
+        c = cls(name)
+        by_class[c] = by_class.get(c, 0.0) + (hi - lo) / 1e6
+        if lo > hi_:
+            busy += (hi_ - lo_) / 1e6
+            lo_, hi_ = lo, hi
+        else:
+            hi_ = max(hi_, hi)
+    busy += (hi_ - lo_) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, "kernels": len(spans),
+            "device_s_by_class": dict(sorted(by_class.items(),
+                                             key=lambda kv: -kv[1]))}
+
+
+def _moe_trial(spec, device: str, routes=None) -> dict:
+    """:func:`_trial_run` of a quick trial, its routers recorded (or, with
+    ``routes``, taking those experts) and its int8 codec calls counted
+    (each must launch quantize8_ef once on the card)."""
+    from repro_torch.core import sync
+    calls = {"int8": 0}
+    encode = sync.int8_encode_decode
+
+    def counted(*a, **k):
+        calls["int8"] += 1
+        return encode(*a, **k)
+    sync.int8_encode_decode = counted
+    try:
+        with Routes(force=routes) as held:
+            run = _trial_run(spec, device, MOE_TRIAL_DTYPE)
+    finally:
+        sync.int8_encode_decode = encode
+    run.update(routes=held, int8_calls=calls["int8"])
+    return run
+
+
+def _moe_held_grads(params32, cards: dict, wls: dict, out: dict) -> None:
+    """3j (b)'s CPU sides, in a thread beside 3i: each dtype's gradient of
+    the cut on the CPU from the same parameters with the card's experts
+    forced (:class:`Routes`, whose hook is per thread; in fp32 every forced
+    gate held within ROUTE_GATE_TOL, in bf16 every forced logit within
+    ROUTE_BF16_ULPS of the logit it displaces, with a planted wrong route
+    that must miss it: :func:`_route_control_bf16`), held against the
+    card's (:func:`_vs_cpu_grad`, the leaves compared on the CPU).  Fills
+    ``out[dtype]`` with the readings, or ``out["error"]``."""
+    try:
+        for dtype, card in cards.items():
+            wl = wls[dtype]
+            with Routes(force=card["routes"]) as routes:
+                t0 = time.time()
+                loss, g = wl.grad(params32.to(wl.dtype), _full_batch(wl))
+                cpu = {"loss": float(loss), "grad": g,
+                       "cpu_s": time.time() - t0}
+            control = None
+            if dtype == "float32":
+                routes.hold(f"3j (b) {dtype}")
+            else:
+                routes.hold_bf16(f"3j (b) {dtype}")
+                control = _route_control_bf16(wl, params32, card["routes"])
+            row = _vs_cpu_grad(card, cpu, nonzero=("wq", "w_kv_down",
+                                                   "router", "w_gate"),
+                               hold_leaves=dtype == "float32", wl=wl,
+                               device="cpu")
+            row.pop("leaf_rel")
+            row.update(peak_gib=card["peak_gib"], routes=routes.reading(),
+                       route_control=control,
+                       flash_in_situ=card["flash_in_situ"])
+            out[dtype] = row
+            del card["grad"], cpu, g
+    except BaseException as e:           # noqa: BLE001 -- the caller fails
+        out["error"] = repr(e)
+
+
+def _route_control_bf16(wl, params32, card_routes) -> dict:
+    """The bf16 routing hold's control: the cut's forward on the CPU in
+    bf16 with the card's experts, every token's K-th expert of the first
+    MoE layer moved half the experts on: the hold must read it as a wrong
+    route (:meth:`Routes.hold_bf16`)."""
+    e = wl.cfg.num_experts
+    wrong = [r.clone() for r in card_routes]
+    wrong[0][:, -1] = (wrong[0][:, -1] + e // 2) % e
+    with Routes(force=wrong) as planted_run:
+        wl.eval_loss(params32.to(wl.dtype), _full_batch(wl))
+    out = planted_run.reading()
+    check(out["least_bf16_ulps"] < -ROUTE_BF16_ULPS,
+          f"3j (b) bf16 routing control: a planted wrong route reads {out}, "
+          f"within ROUTE_BF16_ULPS: the hold does not catch it")
+    return out
+
+
+def _moe_card_trials() -> dict:
+    """3j (a)'s card runs: the 9 quick trials of ``faas_vs_pod`` and
+    ``pod_local_sgd`` with each of MOE_TRAIN_MODELS (reduced, in
+    MOE_TRIAL_DTYPE), their routers recorded, launches exact (flash forward
+    per layer per gradient and evaluation, its backward per layer per
+    gradient, quantize8_ef per int8 merge), per model a control at lr x
+    ARCH_CONTROL_LR, and the routing hold's control
+    (:func:`_route_control`) on the reduced deepseek."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.common import tree_map
+    totals: dict = {}
+    out = {"card": {}, "controls": {}, "routes": {}}
+    trials = _zoo_trials(MOE_TRAIN_MODELS)
+    check(len(trials) == 9 * len(MOE_TRAIN_MODELS),
+          f"3j (a): {len(trials)} trials")
+    for spec in trials:
+        key = f"{spec.model}/{spec.name}"
+        card = _moe_trial(spec, "cuda")
+        n = card["counts"]
+        want = _want_train_launches(card["cfg"], grads=n["grad"],
+                                    evals=n["eval"], syncs=card["int8_calls"])
+        check(card["launches"] == want,
+              f"3j (a) {key}: launches {card['launches']}, want {want}")
+        check(("c8" in spec.sync) == (card["int8_calls"] > 0),
+              f"3j (a) {key}: {card['int8_calls']} int8 merges")
+        _add(totals, card["launches"])
+        out["routes"][key] = [r.cpu() for r in card["routes"].records]
+        out["card"][key] = {"metered": card["metered"],
+                            "losses": card["losses"],
+                            "seconds": card["seconds"]}
+        if spec.model not in out["controls"]:    # each model's first trial
+            ctrl = spec.with_(algo_args={
+                **spec.algo_args,
+                "lr": spec.algo_args["lr"] * ARCH_CONTROL_LR})
+            out["controls"][spec.model] = {
+                "spec": key,
+                "losses": _trial_run(ctrl, "cuda", MOE_TRIAL_DTYPE)["losses"]}
+    arch = get_reduced("deepseek-v2-lite-16b")
+    arch = arch.replace(model=arch.model.replace(dtype="float32"))
+    card_model = build_model(arch, device="cuda", seed=0)
+    cpu_model = Model(arch.model, tree_map(lambda t: t.detach().cpu(),
+                                           card_model.params))
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, arch.model.vocab_size, (FULL_BATCH["b"], FULL_BATCH["s"])))
+    out["route_control"] = _route_control(card_model, cpu_model, toks)
+    out["launches"] = totals
+    return out
+
+
+def cpu_side_moe(out: Path, side: Path) -> None:
+    """The second helper process (``python3 chip_smoke.py --cpu-side-moe
+    PATH SIDE``, SIDE the first helper's output): started after phase 1,
+    it runs 3h (a)'s CPU records (``PATH.3h``) beside phases 2-3f, waits
+    for the card (``PATH.go``, given at 3g: phases 2-3f time kernels and
+    serving loops and must have the card alone), runs 3h (b)'s op witness
+    of both models (:func:`op_witness`, ``PATH.witness``) and 3j (a)'s
+    quick trials on the card (:func:`_moe_card_trials`) beside 3g and 3h,
+    then, once the first helper is done (SIDE written), 3j (a)'s trials on
+    the CPU, each taking the card's experts over the whole trial (every
+    forced gate held within ROUTE_GATE_TOL).  Writes PATH as JSON; a
+    failed check exits non-zero."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.experiments import run_experiment
+    # the reduced models' ops are tiny: more threads would only spin
+    # against the first helper and the main process
+    torch.set_num_threads(1)
+    seconds = {}
+    t0 = time.time()
+    _write_part(out, ".3h", {"records": {
+        f"{spec.model}/{spec.name}": run_experiment(spec, device="cpu").result
+        for spec in _ssm_trials()}})
+    seconds["3h_a"] = time.time() - t0
+    t0 = time.time()
+    while not out.with_suffix(".go").exists():
+        time.sleep(0.5)
+    seconds["waited"] = time.time() - t0
+    t0 = time.time()
+    torch.set_num_threads(CPU_SIDE_THREADS)     # full-width ops, each on
+    _write_part(out, ".witness",                # the CPU too
+                {name: op_witness(name) for name in SSM_TRAIN_MODELS})
+    torch.set_num_threads(1)
+    seconds["3h_witness"] = time.time() - t0
+    t0 = time.time()
+    trials = _moe_card_trials()
+    routes = trials.pop("routes")
+    seconds["a_card"] = time.time() - t0
+    t0 = time.time()
+    while not side.exists():            # the CPU trials after its CPU work
+        time.sleep(0.5)
+    seconds["waited_side"] = time.time() - t0
+    t0 = time.time()
+    records = {}
+    for spec in _zoo_trials(MOE_TRAIN_MODELS):
+        key = f"{spec.model}/{spec.name}"
+        run = _moe_trial(spec, "cpu", routes[key])
+        run["routes"].hold(f"3j (a) {key}")
+        records[key] = {"metered": run["metered"], "losses": run["losses"],
+                        "routes": run["routes"].reading(),
+                        "seconds": run["seconds"]}
+    seconds["a_cpu"] = time.time() - t0
+    out.write_text(json.dumps({"records": records, **trials,
+                               "seconds": seconds}))
+
+
+def phase_train_moe_card() -> dict:
+    """3j (b)'s card side, between 3h and 3i (the card's memory is free
+    then): the deepseek cut's gradients on the card in fp32 and bf16
+    (:func:`_moe_card_grad`) and one profiled call; their CPU sides start
+    in a thread (:func:`_moe_held_grads`) that runs beside 3i.  Returns
+    the thread's handle and the card's readings."""
+    import torch
+    t0 = time.time()
+    wl, params32 = _moe_cut_params()
+    cards = {dtype: _moe_card_grad(dtype, params32)
+             for dtype in ("float32", "bfloat16")}
+    batch = {k: v.cuda() for k, v in _full_batch(wl).items()}
+    profile = _moe_grad_profile(wl, params32, batch)
+    params32 = params32.cpu()
+    del batch
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    for card in cards.values():
+        _add(launches, card["launches"])
+    wls = {dtype: _arch_cut(MOE_TRAIN_MODELS[0], dtype, MOE_CUT_LAYERS)
+           for dtype in cards}
+    full: dict = {}
+    thread = threading.Thread(target=_moe_held_grads,
+                              args=(params32, cards, wls, full), daemon=True)
+    thread.start()
+    seconds = time.time() - t0
+    print(f"  (b) the deepseek cut's gradients on the card: {seconds:.1f} s; "
+          f"their CPU sides run beside 3i")
+    return {"thread": thread, "full": full, "profile": profile,
+            "launches": launches, "seconds": seconds}
+
+
+def phase_train_moe(helper: "CpuSide", b: dict) -> dict:
+    """3j, after 3i: the helper's runs (:func:`cpu_side_moe`) held: (a)
+    each trial's card record against its CPU run with the card's experts
+    forced, metered fields equal, losses within ARCH_CARD_VS_CPU_RTOL, the
+    controls missing it, a planted wrong route caught; (b) the deepseek
+    cut's gradients (fp32 loss within FULL_LOSS_RTOL and each leaf within
+    FULL_FP32_GRAD_TOL, bf16 loss within FULL_BF16_LOSS_RTOL, every flash
+    attention held in situ, held in the helper), their launches exact,
+    seconds, peak memory and (c) one profiled call's device time by class.
+    Returns the training launches (they join the kernels line), each
+    part's numbers and seconds."""
+    t0 = time.time()
+    b["thread"].join()
+    check("error" not in b["full"], f"3j (b): {b['full'].get('error')}")
+    waited_b = time.time() - t0
+    cpu = helper.result()
+    out = {"seconds": {"b_card": b["seconds"], "b_waited": waited_b,
+                       "helper": cpu["seconds"], "waited": cpu["waited_s"]},
+           "route_control": cpu["route_control"],
+           "profile": b["profile"],
+           "full": [b["full"][d] for d in ("float32", "bfloat16")],
+           "launches": dict(cpu["launches"])}
+    _add(out["launches"], b["launches"])
+    check(cpu["route_control"]["least_slack"] < -ROUTE_GATE_TOL,
+          f"3j routing control: {cpu['route_control']}")
+    worst, slack, moved = {}, float("inf"), 0
+    for key, c in cpu["card"].items():
+        h = cpu["records"][key]
+        check(c["metered"] == h["metered"],
+              f"3j (a) {key}: metered fields differ between the card and "
+              f"the CPU")
+        gap = max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                      h["losses"]))
+        check(gap <= ARCH_CARD_VS_CPU_RTOL,
+              f"3j (a) {key}: card losses {c['losses']} vs cpu "
+              f"{h['losses']}")
+        model = key.split("/")[0]
+        worst[model] = max(worst.get(model, 0.0), gap)
+        slack = min(slack, h["routes"]["least_slack"])
+        moved += h["routes"]["moved_tokens"]
+    controls = {}
+    for model, ctrl in cpu["controls"].items():
+        ref = cpu["records"][ctrl["spec"]]["losses"]
+        controls[model] = max(abs(a - b) / abs(b)
+                              for a, b in zip(ctrl["losses"], ref))
+        check(controls[model] > ARCH_CARD_VS_CPU_RTOL,
+              f"3j control {model} (lr x{ARCH_CONTROL_LR}) within "
+              f"{ARCH_CARD_VS_CPU_RTOL:g} of the CPU: the tolerance would "
+              f"not catch it")
+    out["presets"] = {"trials": len(cpu["card"]), "worst_rel_loss": worst,
+                      "control_rel_loss": controls, "least_slack": slack,
+                      "moved_tokens": moved}
+    print(f"  (a) {len(cpu['card'])} trials ({MOE_TRIAL_DTYPE}): card "
+          f"records equal the CPU's with the card's experts forced (losses "
+          f"within {ARCH_CARD_VS_CPU_RTOL:g}; largest gap "
+          f"{json.dumps(worst)}; least forced-gate slack {slack:.3e}, "
+          f"{moved} tokens moved); controls lr x{ARCH_CONTROL_LR}: "
+          f"{json.dumps(controls)}; a planted wrong route reads "
+          f"{cpu['route_control']}")
+    for row in out["full"]:
+        check(row["launches"] == _want_train_launches(
+            _arch_cut(MOE_TRAIN_MODELS[0], row["dtype"],
+                      MOE_CUT_LAYERS).cfg, grads=1, evals=0),
+              f"3j (b) {row['dtype']}: launches {row['launches']}")
+        print(f"  (b) deepseek cut {row['dtype']}: loss card "
+              f"{row['loss_card']!r} cpu {row['loss_cpu']!r} (rel "
+              f"{row['rel_loss']:.3e}), worst leaf {row['worst_leaf']} "
+              f"{row['worst_leaf_rel']:.3e}; card {row['card_s']:.2f} s, "
+              f"cpu {row['cpu_s']:.2f} s, peak {row['peak_gib']:.2f} GiB; "
+              f"forced routes {row['routes']}"
+              + (f", a planted wrong route {row['route_control']}"
+                 if row["route_control"] else "") + "; flash in situ "
+              + json.dumps(row["flash_in_situ"]))
+    print("  (c) one fp32 gradient profiled: " + json.dumps(b["profile"]))
+    for name in ("flash_attention", "flash_attention_bwd", "quantize8_ef"):
+        check(out["launches"].get(name, 0) > 0,
+              f"{name} never launched on 3j's training path")
+    out["seconds"]["total"] = b["seconds"] + time.time() - t0
+    print("  3j seconds: " + json.dumps(
         {k: v if isinstance(v, dict) else round(v, 1)
          for k, v in out["seconds"].items()}))
     return out
@@ -5217,18 +6239,21 @@ def main() -> int:
     card = phase_device()
     import torch
     helper = CpuSide()
+    moe_helper = CpuSide("--cpu-side-moe", "cpu_side_moe", after=helper)
     try:
-        return _phases(t0, phase, card, helper)
+        return _phases(t0, phase, card, helper, moe_helper)
     finally:
         helper.stop()
+        moe_helper.stop()
 
 
-def _phases(t0, phase, card, helper) -> int:
+def _phases(t0, phase, card, helper, moe_helper) -> int:
     import torch
     phase("2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
     bwd = phase_flash_bwd()
+    bwd_wide = phase_flash_bwd_wide()
     attn_bf16 = phase_attention_bf16()
     fp32_bits = attention_fp32_sha256()
     check(fp32_bits == ATTN_FP32_SHA256_PARENT,
@@ -5238,6 +6263,10 @@ def _phases(t0, phase, card, helper) -> int:
     check(bf16_bits == ATTN_BF16_SHA256_PARENT,
           "flash attention's bf16 outputs differ from the bits of the kernel "
           "before the widening (ATTN_BF16_SHA256_PARENT)")
+    bwd_bf16_bits = flash_bwd_bf16_sha256()
+    check(bwd_bf16_bits == FLASH_BWD_BF16_SHA256_PARENT,
+          "flash attention's backward bf16 outputs differ from the bits of "
+          "the kernel before its widening (FLASH_BWD_BF16_SHA256_PARENT)")
     ssd = phase_ssd_kernel()
     ssd_bwd = phase_ssd_bwd()
     phase("3: path")
@@ -5260,17 +6289,25 @@ def _phases(t0, phase, card, helper) -> int:
     elastic = phase_elastic(preset)
     print(json.dumps({"elastic": elastic}))
     phase("3g: train smollm-360m")
+    moe_helper.go()                # its card work beside 3g and 3h
     train = phase_train(helper)
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "full"}}))
     phase("3h: train mamba2-370m and zamba2-2.7b")
-    train_ssm = phase_train_ssm(helper)
+    train_ssm = phase_train_ssm(helper, moe_helper)
     print(json.dumps({"train_ssm": {k: v for k, v in train_ssm.items()
                                     if k != "full"}}))
+    phase("3j: train the MoE family (the card's gradients; their CPU sides "
+          "beside 3i)")
+    moe_b = phase_train_moe_card()
     phase("3i: serve the MoE family")
     serve_moe = phase_serve_moe()
     print(json.dumps({"serve_moe": serve_moe}))
+    phase("3j: train the MoE family (held)")
+    train_moe = phase_train_moe(moe_helper, moe_b)
+    print(json.dumps({"train_moe": train_moe}))
     trained = {k: train["launches"].get(k, 0) + train_ssm["launches"].get(k, 0)
+               + train_moe["launches"].get(k, 0)
                for k in train_ssm["launches"]}
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
         + elastic["launches"] + trained["quantize8_ef"]
@@ -5343,7 +6380,21 @@ def _phases(t0, phase, card, helper) -> int:
                  "shapes")},
              "bf16_rows": [r["backward"] | {"shape": r["shape"]}
                            for r in attn_bf16["flash"]],
-             "fp32_sha256": fp32_bits[name],
+             "fp32_sha256": fp32_bits[name], "bf16_sha256": bwd_bf16_bits,
+             "wide": {"shape": bwd_wide["float32"]["shape"],
+                      **{k: bwd_wide["float32"][k] for k in (
+                          "ms", "plain_ms", "bound_ms", "bound_by",
+                          "bound_fp32_ms", "bytes_bound_ms", "library_ms",
+                          "library", "max_abs_err", "vs_float64",
+                          "fwd_bwd_ms", "plain_fwd_bwd_ms",
+                          "library_fwd_bwd_ms", "launch_us")},
+                      "bfloat16": bwd_wide["bfloat16"]["backward"]
+                      | {"shape": bwd_wide["bfloat16"]["shape"]},
+                      "rows": bwd_wide["rows"],
+                      "witness": bwd_wide["witness"],
+                      "worst_rel": bwd_wide["worst_rel"],
+                      "gradient": bwd_wide["gradient"]},
+             "ptxas": PTXAS_BWD,
              "held_against_plain": True}
     summary.append(entry)
     print(f"  {name:16s} held within {FLASH_BWD_TOL} of its plain version; "
@@ -5399,4 +6450,6 @@ def _phases(t0, phase, card, helper) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-side"]:
         raise SystemExit(cpu_side(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--cpu-side-moe"]:
+        raise SystemExit(cpu_side_moe(Path(sys.argv[2]), Path(sys.argv[3])))
     raise SystemExit(main())

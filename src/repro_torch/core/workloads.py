@@ -19,11 +19,11 @@ the JAX package's ``ravel_pytree`` order (dict keys sorted at every level,
 each stacked ``(L, ...)`` leaf raveled row-major), so the engine, the
 algorithms, the comm stack and the codecs take it as they take a study
 model's, and the int8 codec's 256-element blocks cover the same elements
-as the reference's.  The MoE family serves but does not train yet
-(ROADMAP.md queue A6, MoE training); encoder and VLM archs need non-token
-inputs and raise as in the JAX package.  On the card, the gradients of attention and of the SSD
-scan come from their CUDA backward kernels, so the dense, ssm and hybrid
-families all train there.
+as the reference's.  Encoder and VLM archs need non-token inputs and
+raise as in the JAX package.  On the card, the gradients of attention
+(MLA's dk 192 / dv 128 included) and of the SSD scan come from their CUDA
+backward kernels, so the dense, moe, ssm and hybrid families all train
+there.
 
 This module also gives the two analytic sizes the §5.3 cost model and
 spec-time validation need.
@@ -62,18 +62,6 @@ EVAL_ROWS = 512
 ARCH_NAMES = tuple(spec_name(a) for a in ARCH_IDS)
 
 
-#: where training the MoE family waits (its flash backward at MLA's dk 192
-#: / dv 128)
-MOE_TRAINING_QUEUED = "ROADMAP.md queue A6 (MoE training)"
-
-
-def _check_trains(name: str, cfg) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{name}: the port serves the MoE family but does not train it; "
-            f"that is {MOE_TRAINING_QUEUED}")
-
-
 def is_arch_workload(name: str) -> bool:
     return name in ARCH_NAMES
 
@@ -85,12 +73,10 @@ def _lm_arch(name: str) -> bool:
 
 def check_pairing(name: str, dataset: str) -> None:
     """Raise unless model ``name`` can train on ``dataset``: architectures
-    on the LM corpus, study stand-ins on a feature dataset.  An
-    architecture the port cannot train yet raises ``NotImplementedError``
-    too (the MoE family: :data:`MOE_TRAINING_QUEUED`; it serves, but its
-    flash backward at MLA's widths is not written), so a sweep rejects it
-    at expansion; encoder/VLM names raise ``ValueError`` at construction,
-    as in the JAX package."""
+    on the LM corpus, study stand-ins on a feature dataset.  A family the
+    port does not build raises ``NotImplementedError`` naming its
+    ROADMAP.md item, so a sweep rejects it at expansion; encoder/VLM names
+    raise ``ValueError`` at construction, as in the JAX package."""
     if is_arch_workload(name):
         if dataset != TOKEN_DATASET:
             raise ValueError(
@@ -98,9 +84,7 @@ def check_pairing(name: str, dataset: str) -> None:
                 f"LM corpus; set dataset={TOKEN_DATASET!r} "
                 f"(got {dataset!r})")
         if _lm_arch(name):
-            cfg = get_arch(arch_key(name)).model
-            tfm.check_family(cfg)
-            _check_trains(name, cfg)
+            tfm.check_family(get_arch(arch_key(name)).model)
     elif dataset == TOKEN_DATASET:
         raise ValueError(
             f"dataset={TOKEN_DATASET!r} is the architecture workloads' "
@@ -175,7 +159,10 @@ def _put(tree: dict, path: tuple, value) -> None:
 
 def _stack_depth(path: tuple, cfg) -> int:
     """How many leading layer dims a leaf at ``path`` carries: 1 under
-    ``blocks``, 2 under a hybrid group's ``ssm``, else 0."""
+    ``blocks`` and under the moe family's dense ``first`` layers, 2 under
+    a hybrid group's ``ssm``, else 0."""
+    if path[0] == "first":
+        return 1
     if path[0] != "blocks":
         return 0
     return 2 if cfg.family == "hybrid" and path[1] == "ssm" else 1
@@ -221,7 +208,6 @@ class ArchWorkload:
             raise ValueError(
                 f"arch workload {name!r}: encoder/VLM batches need "
                 "frames/images; only LM-style archs run through the engine")
-        _check_trains(name, cfg)
         self.spec = tfm.model_spec(cfg)
         self.layout = ravel_layout(self.spec)
         self.n_params = param_count(self.spec)
@@ -280,20 +266,20 @@ class ArchWorkload:
     def grad(self, params: torch.Tensor, batch: dict):
         """-> (loss, flat gradient in the params' dtype).  Each per-layer
         slice of the flat tensor is its own autograd leaf, so the backward
-        never materialises a full-size zero tensor per layer; the leaves'
-        gradients are copied into one flat gradient."""
+        never materialises a full-size zero tensor per layer, and each
+        leaf's ``.grad`` is preset to its zeroed slice of the flat gradient,
+        into which autograd accumulates in place: at its peak the call
+        holds the parameters, one gradient and the activations."""
         flat = params.detach()
         tree, leaves = self._views(flat, split=True)
-        leaves = _flatten(leaves)
-        for t in leaves:
+        g = torch.zeros_like(flat)
+        _, g_leaves = self._views(g, split=True)
+        for t, dst in zip(_flatten(leaves), _flatten(g_leaves)):
             t.requires_grad_(True)
+            t.grad = dst
         with torch.enable_grad():
             loss = self._loss(tree, batch)
-            grads = torch.autograd.grad(loss, leaves)
-        g = torch.empty_like(flat)
-        _, g_leaves = self._views(g, split=True)
-        for dst, src in zip(_flatten(g_leaves), grads):
-            dst.copy_(src)
+            loss.backward()
         return loss.detach(), g
 
     @torch.no_grad()

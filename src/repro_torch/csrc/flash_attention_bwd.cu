@@ -23,12 +23,28 @@
 // GQA: query head h reads kv head h / g; dk and dv sum over the g query
 // heads of the group.
 //
-// Layout and types: q, dO (b, sq, h, d) and k, v (b, sk, m, d) read in
-// place through their batch/position/head strides (head_dim contiguous),
-// float32 or bfloat16; dq (b, sq, h, d) and dk, dv (b, sk, m, d) are
-// written contiguous in the input type; every sum is fp32.  Any head_dim
-// <= 128 (padded with zeros to a multiple of 16 on chip), any sq and sk
-// (ragged tiles masked).
+// Layout and types: q, dO (b, sq, h, dk / dv) and k, v (b, sk, m, dk /
+// dv) read in place through their batch/position/head strides (head_dim
+// contiguous), float32 or bfloat16; dq (b, sq, h, dk) and dk, dv (b, sk,
+// m, dk / dv) are written contiguous in the input type; every sum is
+// fp32.  Any sq and sk (ragged tiles masked).
+//
+// Head widths, as the forward's: the score side (dk: Q, K, dq, dk) and
+// the value side (dv: V, dO, dv) are separate template widths, each padded
+// with zeros to a multiple of 16 on chip (the padding is exact).  dk and
+// dv up to 128 run one width for both, the larger (the instances and bits
+// of the kernel before the widening); dk up to 192 (MLA's 128 + 64) runs
+// at 192 beside dv padded to 128 (MLA's 128) or 192.  Q, dO (launch 1)
+// and K, V (launch 2) stay in registers as A fragments at every width; at
+// the wide instances the dq, dk and dv products are summed in strips of
+// four 16-column pieces of the accumulator (add_az), which keeps the
+// step's partial sums to 32 floats a lane, with the same products in the
+// same order as one whole-row strip, a tile's steps run as a loop, not
+// unrolled, and every tile takes the masked (edge) path,
+// whose unmasked elements compute what the unmasked path does: the wide
+// instances' code, and their build, a fraction of the size.  Registers
+// spill there (ptxas -v:
+// chip_smoke.py reports every instance's).
 //
 // Bound: five s x s x d products (S, dP, dv, dk, dq), about halved when
 // causal, far above the bytes of the tensors.  This design does nine (S
@@ -73,7 +89,7 @@
 //
 // bfloat16 (kRounds) is the gradient of the forward's bfloat16 instance,
 // the JAX model's _sdpa, rounded where jax.vjp rounds: S = bf16(bf16(q.k)
-// / div) with div = bf16(sqrt d), P~ = exp(S - lse) in natural base (the
+// / div) with div = bf16(sqrt dk), P~ = exp(S - lse) in natural base (the
 // forward's lse of the rounded scores), P = P~ / l, dP_b = bf16(dO v^T),
 // D = rowsum(P~ dP_b) / l, dS = P (dP_b - D), dS_1 = bf16(bf16(dS) /
 // div), dv = P_b^T dO with P_b = bf16(P), dq = dS_1 k, dk = dS_1^T q -- no
@@ -131,14 +147,14 @@ struct Params {
   const T* dout;
   const float* lse;               // (b, h, sq) from the forward
   float* rows;                    // (b, h, sq, 2): l and D, by launch 1
-  float* part;                    // (b, h, sk, 2, d) or null: see launch 3
+  float* part;                    // (b, h, sk, dk + dv) or null: launch 3
   T* dq;
   T* dk;
   T* dv;
-  int heads, kv_heads, group, sq, sk, d;
+  int heads, kv_heads, group, sq, sk, d, dv_d;   // d: dk, dv_d: dv
   Strides qs, ks, vs, dos;
   float sm_scale;
-  float div;                      // bf16(sqrt d): the rounding instance's
+  float div;                      // bf16(sqrt dk): the rounding instance's
   int causal, vec_kv, vec_qdo;    // 16-byte copies of K/V and of Q/dO rows
 };
 
@@ -210,8 +226,9 @@ __device__ __forceinline__ void xyt(const float (&x)[NC][2][4],
   }
 }
 
-// acc[2i + u] += A Z over kNH k-steps: k-step ks's A is the C fragment
-// a[ks] of a product above (columns 2t, 2t + 1: the group's rows t, t + 4)
+// acc[2i + u] += A Z over kNH k-steps, for the strip of kS 16-column
+// pieces from piece I0: k-step ks's A is the C fragment a[ks] of a
+// product above (columns 2t, 2t + 1: the group's rows t, t + 4)
 // reordered {c0, c2, c1, c3}; Z is rows t, t + 4 of group n0 + ks of a
 // shared tile in natural order, columns 16 i + 2 g, + 1 (zrow points at
 // row t, dim 2 g), so the lane ends up with output dims 16 i + 4 t .. + 3
@@ -220,24 +237,26 @@ __device__ __forceinline__ void xyt(const float (&x)[NC][2][4],
 // the small ones -- and added to acc after every k-step (kPerKStep) or
 // after all kNH.  kEdge: k-steps from ntc on are skipped.  kAExact: A
 // holds bf16 values (the rounding instance's P_b and dS_1), no lo part.
-template <typename T, int NC, int kNH, bool kEdge, bool kPerKStep,
-          bool kAExact = false>
-__device__ __forceinline__ void add_az(const float (&a)[kNH][4],
-                                       const T* zrow, int ld, int n0,
-                                       int ntc, float (&acc)[2 * NC][4]) {
+template <typename T, int NW, int I0, int kS, int kNH, bool kEdge,
+          bool kPerKStep, bool kAExact>
+__device__ __forceinline__ void add_az_strip(const float (&a)[kNH][4],
+                                             const T* zrow, int ld, int n0,
+                                             int ntc,
+                                             float (&acc)[2 * NW][4]) {
   constexpr bool kExact = sizeof(T) == 2;
-  float st[2 * NC][4], sl[2 * NC][4];
+  float st[2 * kS][4], sl[2 * kS][4];
   auto clear = [&]() {
 #pragma unroll
-    for (int n = 0; n < 2 * NC; ++n)
+    for (int n = 0; n < 2 * kS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = sl[n][e] = 0.0f;
   };
   auto flush = [&]() {
 #pragma unroll
-    for (int n = 0; n < 2 * NC; ++n)
+    for (int n = 0; n < 2 * kS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += st[n][e] + sl[n][e];
+      for (int e = 0; e < 4; ++e)
+        acc[2 * I0 + n][e] += st[n][e] + sl[n][e];
   };
   clear();
 #pragma unroll
@@ -248,9 +267,9 @@ __device__ __forceinline__ void add_az(const float (&a)[kNH][4],
     split(av, ph, pl);
     const T* zk = zrow + 8 * (n0 + ks) * ld;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const float2 z0 = load2(zk + 16 * i);
-      const float2 z1 = load2(zk + 4 * ld + 16 * i);
+    for (int i = 0; i < kS; ++i) {
+      const float2 z0 = load2(zk + 16 * (I0 + i));
+      const float2 z1 = load2(zk + 4 * ld + 16 * (I0 + i));
       const float bv[2][2] = {{z0.x, z1.x}, {z0.y, z1.y}};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -280,6 +299,30 @@ __device__ __forceinline__ void add_az(const float (&a)[kNH][4],
   if constexpr (!kPerKStep) flush();
 }
 
+// add_az_strip over the NW pieces of acc in strips of kS from piece I0
+// (one strip, the whole row, up to head_dim 128): each accumulator sees
+// the same products in the same order whatever the strips
+template <typename T, int NW, int kS, int kNH, bool kEdge, bool kPerKStep,
+          bool kAExact = false, int I0 = 0>
+__device__ __forceinline__ void add_az(const float (&a)[kNH][4],
+                                       const T* zrow, int ld, int n0,
+                                       int ntc, float (&acc)[2 * NW][4]) {
+  static_assert(NW % kS == 0, "strips of kS pieces tile the row");
+  add_az_strip<T, NW, I0, kS, kNH, kEdge, kPerKStep, kAExact>(a, zrow, ld,
+                                                              n0, ntc, acc);
+  if constexpr (I0 + kS < NW)
+    add_az<T, NW, kS, kNH, kEdge, kPerKStep, kAExact, I0 + kS>(a, zrow, ld,
+                                                              n0, ntc, acc);
+}
+
+// 16-column pieces of an accumulator a strip of add_az walks: the whole
+// row up to head_dim 128 (the kernel before the widening), four above;
+// above 128 (kWide) a tile's steps also run as a loop, not unrolled, and
+// every tile takes the masked (edge) path
+template <int NC, int NV, int NW>
+constexpr int kStrip = NC <= 8 && NV <= 8 ? NW : 4;
+
+
 // a warp's accumulator (rows r + g, r + 8 + g; dims 16 i + 4 t .. + 3)
 // times `scale` into a contiguous (row, d) output with row stride `ld`,
 // rows below `limit`
@@ -307,34 +350,72 @@ __device__ __forceinline__ void store_acc(const float (&acc)[2 * NC][4],
   }
 }
 
-// a ring stage: two 64-row tiles, then (launch 2) lse, l and D of 64 rows
-template <typename T, int DP>
+// a ring stage: a 64-row tile at dk (K, or Q) and one at dv (V, or dO),
+// then (launch 2) lse, l and D of 64 rows
+template <typename T, int DK, int DV>
 __host__ __device__ constexpr size_t stage_bytes(bool rows) {
-  return sizeof(T) * 2 * kBN * k_stride<T, DP>() +
+  return sizeof(T) * kBN * (k_stride<T, DK>() + k_stride<T, DV>()) +
          (rows ? sizeof(float) * 3 * kBN : 0);
 }
 
 // head_dim padding of both tiles of every stage: zero once, never copied
-// over (the tiles' rows are 16 * NC wide, d of them copied)
-template <typename T, int DP>
+// over (the tiles' rows are DK and DV wide, d and dv of them copied); one
+// loop over both tiles where the widths are alike, as before the widening
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void zero_pad(unsigned char* smem, size_t stage,
-                                         int d, int tid) {
-  if (DP == d) return;
-  constexpr int kL = k_stride<T, DP>();
-  const int pad = DP - d;
-  for (int i = tid; i < kStages * 2 * kBN * pad; i += kThreads) {
-    const int r = i / pad, c = d + i % pad;   // r over both tiles, stages
-    T* tile = reinterpret_cast<T*>(smem + (r / (2 * kBN)) * stage);
-    tile[(r % (2 * kBN)) * kL + c] = zero<T>();
+                                         int d, int dv, int tid) {
+  constexpr int kLK = k_stride<T, DK>(), kLV = k_stride<T, DV>();
+  if constexpr (DK == DV) {
+    if (d == dv) {
+      if (DK == d) return;
+      const int pad = DK - d;
+      for (int i = tid; i < kStages * 2 * kBN * pad; i += kThreads) {
+        const int r = i / pad, c = d + i % pad;   // r over both tiles, stages
+        T* tile = reinterpret_cast<T*>(smem + (r / (2 * kBN)) * stage);
+        tile[(r % (2 * kBN)) * kLK + c] = zero<T>();
+      }
+      return;
+    }
+  }
+  const int pk = DK - d, pv = DV - dv;
+  for (int i = tid; i < kStages * kBN * pk; i += kThreads) {
+    const int r = i / pk, c = d + i % pk;     // r over the stages' tiles
+    T* tile = reinterpret_cast<T*>(smem + (r / kBN) * stage);
+    tile[(r % kBN) * kLK + c] = zero<T>();
+  }
+  for (int i = tid; i < kStages * kBN * pv; i += kThreads) {
+    const int r = i / pv, c = dv + i % pv;
+    T* tile = reinterpret_cast<T*>(smem + (r / kBN) * stage) + kBN * kLK;
+    tile[(r % kBN) * kLV + c] = zero<T>();
   }
 }
 
-// l, D and dq of one (b, query head, 64-row tile); NC = padded head_dim / 16
-template <typename T, int NC>
+// rows [r0, r0 + kBN) of the dk-wide operand (a) and the dv-wide one (b)
+// into a stage's two tiles: one loop where the widths are alike
+template <typename T>
+__device__ __forceinline__ void copy_pair(T* ta, int lda, const T* a,
+                                          long long sa, T* tb, int ldb,
+                                          const T* b, long long sb, int r0,
+                                          int limit, int d, int dv, int vec,
+                                          int tid) {
+  if (d == dv) {
+    copy_rows2(ta, lda, a, sa, tb, ldb, b, sb, r0, kBN, limit, d, vec, tid,
+               kThreads);
+  } else {
+    copy_rows(ta, lda, a, sa, r0, kBN, limit, d, vec, tid, kThreads);
+    copy_rows(tb, ldb, b, sb, r0, kBN, limit, dv, vec, tid, kThreads);
+  }
+}
+
+// l, D and dq of one (b, query head, 64-row tile); NC = padded dk / 16,
+// NV = padded dv / 16
+template <typename T, int NC, int NV>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC, kL = k_stride<T, kDP>();
-  constexpr int kNH = NC <= 4 ? 4 : 2;   // 8-key groups a step
-  constexpr size_t kStage = stage_bytes<T, kDP>(false);
+  constexpr int kDK = 16 * NC, kDV = 16 * NV;
+  constexpr int kLK = k_stride<T, kDK>(), kLV = k_stride<T, kDV>();
+  constexpr int kNH = NC <= 4 && NV <= 4 ? 4 : 2;   // 8-key groups a step
+  constexpr bool kWide = !(NC <= 8 && NV <= 8);   // see kStrip
+  constexpr size_t kStage = stage_bytes<T, kDK, kDV>(false);
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -355,19 +436,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
   // the ring walks the key tiles twice: pass 1 (l and D), pass 2 (dq)
   auto issue = [&](int it) {      // K/V tile it % n_tiles into its stage
     T* sk = reinterpret_cast<T*>(smem + (it % kStages) * kStage);
-    copy_rows2(sk, kL, kb, P.ks.s, sk + kBN * kL, kL, vb, P.vs.s,
-               (it % n_tiles) * kBN, kBN, k_end, P.d, P.vec_kv, tid,
-               kThreads);
+    copy_pair(sk, kLK, kb, P.ks.s, sk + kBN * kLK, kLV, vb, P.vs.s,
+              (it % n_tiles) * kBN, k_end, P.d, P.dv_d, P.vec_kv, tid);
     cp_async_commit();
   };
   if (n_tiles > 0) issue(0);
-  zero_pad<T, kDP>(smem, kStage, P.d, tid);
+  zero_pad<T, kDK, kDV>(smem, kStage, P.d, P.dv_d, tid);
 
-  float qv[NC][2][4], dov[NC][2][4];
+  float qv[NC][2][4], dov[NV][2][4];
   load_frag_rows<T, NC>(qv, P.q + b * P.qs.b + h * P.qs.h, P.qs.s, r0, P.sq,
                         P.d, g, t);
-  load_frag_rows<T, NC>(dov, P.dout + b * P.dos.b + h * P.dos.h, P.dos.s,
-                        r0, P.sq, P.d, g, t);
+  load_frag_rows<T, NV>(dov, P.dout + b * P.dos.b + h * P.dos.h, P.dos.s,
+                        r0, P.sq, P.dv_d, g, t);
   const long long row0 = static_cast<long long>(bh) * P.sq;
   float m2[2], l[2] = {0.0f, 0.0f}, D[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -394,18 +474,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
                     auto grad) {
     constexpr bool kEdge = decltype(edge)::value;
     constexpr bool kGrad = decltype(grad)::value;
-#pragma unroll
-    for (int n0 = 0; n0 < kNT; n0 += kNH) {
-      if (kEdge && n0 >= ntc) break;
+    auto step = [&](int n0) {       // the keys of 8-key groups n0 ..
       float s[kNH][4], s_lo[kNH][4], dp[kNH][4], dp_lo[kNH][4];
 #pragma unroll
       for (int nt = 0; nt < kNH; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           s[nt][e] = s_lo[nt][e] = dp[nt][e] = dp_lo[nt][e] = 0.0f;
-      xyt<T, NC, kNH, false, kEdge>(qv, sk + prow * kL + 4 * t, kL, n0, ntc,
-                                    s, s_lo);
-      xyt<T, NC, kNH, false, kEdge>(dov, sv + prow * kL + 4 * t, kL, n0,
+      xyt<T, NC, kNH, false, kEdge>(qv, sk + prow * kLK + 4 * t, kLK, n0,
+                                    ntc, s, s_lo);
+      xyt<T, NV, kNH, false, kEdge>(dov, sv + prow * kLV + 4 * t, kLV, n0,
                                     ntc, dp, dp_lo);
       // c0, c1 are row g's keys t and t + 4 of each group, c2, c3 row
       // g + 8's
@@ -439,8 +517,21 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
           }
         }
       if constexpr (kGrad)
-        add_az<T, NC, kNH, kEdge, true, kRounds<T>>(dp, sk + t * kL + 2 * g,
-                                                    kL, n0, ntc, acc);
+        add_az<T, NC, kStrip<NC, NV, NC>, kNH, kEdge, true, kRounds<T>>(
+            dp, sk + t * kLK + 2 * g, kLK, n0, ntc, acc);
+    };
+    if constexpr (kWide) {
+#pragma unroll 1
+      for (int n0 = 0; n0 < kNT; n0 += kNH) {
+        if (kEdge && n0 >= ntc) break;
+        step(n0);
+      }
+    } else {
+#pragma unroll
+      for (int n0 = 0; n0 < kNT; n0 += kNH) {
+        if (kEdge && n0 >= ntc) break;
+        step(n0);
+      }
     }
   };
 
@@ -470,19 +561,19 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
     if (keys <= 0) continue;      // every key of the tile masked here
     const int ntc = (keys + 7) / 8;
     const T* sk = reinterpret_cast<const T*>(smem + (it % kStages) * kStage);
-    const T* sv = sk + kBN * kL;
+    const T* sv = sk + kBN * kLK;
     const bool edge = ntc < kNT || k0 + kBN > P.sk ||
                       (P.causal && k0 + kBN - 1 > r0);
     if (grad) {
-      if (edge)
+      if (edge || kWide)
         attend(sk, sv, k0, ntc, std::true_type{}, std::true_type{});
-      else
+      else if constexpr (!kWide)
         attend(sk, sv, k0, kNT, std::false_type{}, std::true_type{});
     } else {                      // each tile's sums from zero, then added
       tl[0] = tl[1] = td[0] = td[1] = 0.0f;
-      if (edge)
+      if (edge || kWide)
         attend(sk, sv, k0, ntc, std::true_type{}, std::false_type{});
-      else
+      else if constexpr (!kWide)
         attend(sk, sv, k0, kNT, std::false_type{}, std::false_type{});
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -500,11 +591,13 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params<T> P) {
 
 // dk and dv of one (b, kv head, 64-key tile) -- or, with P.part, one
 // query head's share of them, (b, query head, 64-key tile), as fp32
-template <typename T, int NC>
+template <typename T, int NC, int NV>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
-  constexpr int kDP = 16 * NC, kL = k_stride<T, kDP>();
-  constexpr int kNH = NC <= 4 ? 4 : 2;   // 8-row query groups a step
-  constexpr size_t kStage = stage_bytes<T, kDP>(true);
+  constexpr int kDK = 16 * NC, kDV = 16 * NV;
+  constexpr int kLK = k_stride<T, kDK>(), kLV = k_stride<T, kDV>();
+  constexpr int kNH = NC <= 4 && NV <= 4 ? 4 : 2;   // 8-row groups a step
+  constexpr bool kWide = !(NC <= 8 && NV <= 8);   // see kStrip
+  constexpr size_t kStage = stage_bytes<T, kDK, kDV>(true);
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -528,10 +621,11 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
     T* sq_ = reinterpret_cast<T*>(st);
     const int h = h_first + step / n_qt;
     const int q0 = q_first + (step % n_qt) * kBN;
-    copy_rows2(sq_, kL, P.q + b * P.qs.b + h * P.qs.h, P.qs.s,
-               sq_ + kBN * kL, kL, P.dout + b * P.dos.b + h * P.dos.h,
-               P.dos.s, q0, kBN, P.sq, P.d, P.vec_qdo, tid, kThreads);
-    float* rows = reinterpret_cast<float*>(st + stage_bytes<T, kDP>(false));
+    copy_pair(sq_, kLK, P.q + b * P.qs.b + h * P.qs.h, P.qs.s,
+              sq_ + kBN * kLK, kLV, P.dout + b * P.dos.b + h * P.dos.h,
+              P.dos.s, q0, P.sq, P.d, P.dv_d, P.vec_qdo, tid);
+    float* rows =
+        reinterpret_cast<float*>(st + stage_bytes<T, kDK, kDV>(false));
     const long long row0 = (static_cast<long long>(b) * P.heads + h) * P.sq;
     for (int i = tid; i < 3 * kBN; i += kThreads) {
       const int r = i % kBN, what = i / kBN;     // 0: lse, 1: l, 2: D
@@ -543,18 +637,22 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
     cp_async_commit();
   };
   if (n_steps > 0) issue(0);
-  zero_pad<T, kDP>(smem, kStage, P.d, tid);
+  zero_pad<T, kDK, kDV>(smem, kStage, P.d, P.dv_d, tid);
 
-  float kf[NC][2][4], vf[NC][2][4];
+  float kf[NC][2][4], vf[NV][2][4];
   load_frag_rows<T, NC>(kf, P.k + b * P.ks.b + kvh * P.ks.h, P.ks.s, kw,
                         P.sk, P.d, g, t);
-  load_frag_rows<T, NC>(vf, P.v + b * P.vs.b + kvh * P.vs.h, P.vs.s, kw,
-                        P.sk, P.d, g, t);
-  float dk[2 * NC][4], dv[2 * NC][4];
+  load_frag_rows<T, NV>(vf, P.v + b * P.vs.b + kvh * P.vs.h, P.vs.s, kw,
+                        P.sk, P.dv_d, g, t);
+  float dk[2 * NC][4], dv[2 * NV][4];
 #pragma unroll
   for (int n = 0; n < 2 * NC; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 2 * NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.0f;
   const float scale = P.sm_scale * kLog2e;
   const int prow = (g >> 1) + 4 * (g & 1);
 
@@ -569,10 +667,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[nt][e] = s_lo[nt][e] = dp[nt][e] = dp_lo[nt][e] = 0.0f;
-    xyt<T, NC, kNH, true, false>(kf, sq_ + prow * kL + 4 * t, kL, n0, kNT,
-                                 s, s_lo);
-    xyt<T, NC, kNH, false, false>(vf, sdo + prow * kL + 4 * t, kL, n0, kNT,
-                                  dp, dp_lo);
+    xyt<T, NC, kNH, true, false>(kf, sq_ + prow * kLK + 4 * t, kLK, n0,
+                                 kNT, s, s_lo);
+    xyt<T, NV, kNH, false, false>(vf, sdo + prow * kLV + 4 * t, kLV, n0,
+                                  kNT, dp, dp_lo);
     // P^T and dS^T in place of s and dp: c0, c1 are key g's query rows t
     // and t + 4 of each group, c2, c3 key g + 8's
 #pragma unroll
@@ -603,10 +701,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
           dp[nt][e] = p * ((dp[nt][e] + dp_lo[nt][e]) - rows[2 * kBN + qi]);
         }
       }
-    add_az<T, NC, kNH, false, false, kRounds<T>>(s, sdo + t * kL + 2 * g, kL,
-                                                 n0, kNT, dv);
-    add_az<T, NC, kNH, false, false, kRounds<T>>(dp, sq_ + t * kL + 2 * g,
-                                                 kL, n0, kNT, dk);
+    add_az<T, NV, kStrip<NC, NV, NV>, kNH, false, false, kRounds<T>>(
+        s, sdo + t * kLV + 2 * g, kLV, n0, kNT, dv);
+    add_az<T, NC, kStrip<NC, NV, NC>, kNH, false, false, kRounds<T>>(
+        dp, sq_ + t * kLK + 2 * g, kLK, n0, kNT, dk);
   };
 
   for (int step = 0; step < n_steps; ++step) {
@@ -615,43 +713,50 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params<T> P) {
     if (step + 1 < n_steps) issue(step + 1);
     const unsigned char* st = smem + (step % kStages) * kStage;
     const T* sq_ = reinterpret_cast<const T*>(st);
-    const T* sdo = sq_ + kBN * kL;
+    const T* sdo = sq_ + kBN * kLK;
     const float* rows =
-        reinterpret_cast<const float*>(st + stage_bytes<T, kDP>(false));
+        reinterpret_cast<const float*>(st + stage_bytes<T, kDK, kDV>(false));
     const int q0 = q_first + (step % n_qt) * kBN;
-#pragma unroll
-    for (int n0 = 0; n0 < kNT; n0 += kNH) {
+    auto group = [&](int n0) {      // the query rows of groups n0 ..
       const int first = q0 + 8 * n0, last = first + 8 * kNH - 1;
-      if (P.causal && last < kw) continue;    // every row before the keys
-      if ((P.causal && first < kw + 15) || last >= P.sq)
+      if (P.causal && last < kw) return;      // every row before the keys
+      if (kWide || (P.causal && first < kw + 15) || last >= P.sq)
         attend(sq_, sdo, rows, q0, n0, std::true_type{});
-      else
+      else if constexpr (!kWide)
         attend(sq_, sdo, rows, q0, n0, std::false_type{});
+    };
+    if constexpr (kWide) {
+#pragma unroll 1
+      for (int n0 = 0; n0 < kNT; n0 += kNH) group(n0);
+    } else {
+#pragma unroll
+      for (int n0 = 0; n0 < kNT; n0 += kNH) group(n0);
     }
   }
 
   if (split) {
-    // (b, h, sk, 2, d): this head's dk (unscaled) and dv rows, fp32
-    float* base = P.part + (static_cast<long long>(blockIdx.x) * P.sk) * 2 *
-                               P.d;
-    store_acc<float, NC>(dk, 1.0f, base, 2LL * P.d, kw, P.sk, P.d, g, t);
-    store_acc<float, NC>(dv, 1.0f, base + P.d, 2LL * P.d, kw, P.sk, P.d, g,
-                         t);
+    // (b, h, sk, dk + dv): this head's dk (unscaled) and dv rows, fp32
+    const long long w = P.d + P.dv_d;
+    float* base = P.part + static_cast<long long>(blockIdx.x) * P.sk * w;
+    store_acc<float, NC>(dk, 1.0f, base, w, kw, P.sk, P.d, g, t);
+    store_acc<float, NV>(dv, 1.0f, base + P.d, w, kw, P.sk, P.dv_d, g, t);
   } else {
-    const long long at =
-        (static_cast<long long>(b) * P.sk * P.kv_heads + kvh) * P.d;
-    const long long ld = static_cast<long long>(P.kv_heads) * P.d;
-    store_acc<T, NC>(dk, kRounds<T> ? 1.0f : P.sm_scale, P.dk + at, ld, kw,
-                     P.sk, P.d, g, t);
-    store_acc<T, NC>(dv, 1.0f, P.dv + at, ld, kw, P.sk, P.d, g, t);
+    const long long row = static_cast<long long>(b) * P.sk * P.kv_heads + kvh;
+    store_acc<T, NC>(dk, kRounds<T> ? 1.0f : P.sm_scale, P.dk + row * P.d,
+                     static_cast<long long>(P.kv_heads) * P.d, kw, P.sk,
+                     P.d, g, t);
+    store_acc<T, NV>(dv, 1.0f, P.dv + row * P.dv_d,
+                     static_cast<long long>(P.kv_heads) * P.dv_d, kw, P.sk,
+                     P.dv_d, g, t);
   }
 }
 
-// dk and dv from the g query heads' fp32 partials, summed in head order;
-// one thread per output element of (b, sk, m, d)
+// dk and dv from the g query heads' fp32 partials, summed in head order,
+// where dk and dv are alike (the kernel before the widening); one thread
+// per output element of (b, sk, m, d)
 template <typename T>
-__global__ void __launch_bounds__(256) gqa_sum_kernel(const Params<T> P,
-                                                      long long n) {
+__global__ void __launch_bounds__(256) gqa_sum_same_kernel(const Params<T> P,
+                                                           long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   if (i >= n) return;
   const int c = static_cast<int>(i % P.d);
@@ -672,6 +777,32 @@ __global__ void __launch_bounds__(256) gqa_sum_kernel(const Params<T> P,
   store(P.dv + i, dv);
 }
 
+// the same where dk and dv differ: one thread per (b, key, kv head) and
+// column up to the wider of dk and dv
+template <typename T>
+__global__ void __launch_bounds__(256) gqa_sum_kernel(const Params<T> P,
+                                                      long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n) return;
+  const int w = max(P.d, P.dv_d);
+  const int c = static_cast<int>(i % w);
+  const long long row = i / w;      // (b, key, kv head)
+  const int kvh = static_cast<int>(row % P.kv_heads);
+  const int key = static_cast<int>((row / P.kv_heads) % P.sk);
+  const long long b = row / P.kv_heads / P.sk;
+  const float* src = P.part + ((b * P.heads + kvh * P.group) * P.sk + key) *
+                                  (P.d + P.dv_d);
+  const long long head = static_cast<long long>(P.sk) * (P.d + P.dv_d);
+  float dk = 0.0f, dv = 0.0f;
+  for (int gi = 0; gi < P.group; ++gi) {
+    if (c < P.d) dk += src[gi * head + c];
+    if (c < P.dv_d) dv += src[gi * head + P.d + c];
+  }
+  if (c < P.d)
+    store(P.dk + row * P.d + c, kRounds<T> ? dk : dk * P.sm_scale);
+  if (c < P.dv_d) store(P.dv + row * P.dv_d + c, dv);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -683,43 +814,49 @@ cudaError_t allow_smem(K kern, size_t bytes) {
   return err;
 }
 
-template <typename T, int NC>
+template <typename T, int NC, int NV>
 cudaError_t launch(const Params<T>& P, int batch, cudaStream_t stream) {
-  constexpr int kDP = 16 * NC;
-  const size_t dq_bytes = kStages * stage_bytes<T, kDP>(false);
-  cudaError_t err = allow_smem(dq_kernel<T, NC>, dq_bytes);
+  constexpr int kDK = 16 * NC, kDV = 16 * NV;
+  const size_t dq_bytes = kStages * stage_bytes<T, kDK, kDV>(false);
+  cudaError_t err = allow_smem(dq_kernel<T, NC, NV>, dq_bytes);
   if (err != cudaSuccess) return err;
   const dim3 dq_grid(unsigned(batch) * unsigned(P.heads),
                      unsigned((P.sq + kBM - 1) / kBM));
-  dq_kernel<T, NC><<<dq_grid, kThreads, dq_bytes, stream>>>(P);
+  dq_kernel<T, NC, NV><<<dq_grid, kThreads, dq_bytes, stream>>>(P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dkdv_bytes = kStages * stage_bytes<T, kDP>(true);
-  err = allow_smem(dkdv_kernel<T, NC>, dkdv_bytes);
+  const size_t dkdv_bytes = kStages * stage_bytes<T, kDK, kDV>(true);
+  err = allow_smem(dkdv_kernel<T, NC, NV>, dkdv_bytes);
   if (err != cudaSuccess) return err;
   const unsigned units = P.part != nullptr ? P.heads : P.kv_heads;
   const dim3 dkdv_grid(unsigned(batch) * units,
                        unsigned((P.sk + kBM - 1) / kBM));
-  dkdv_kernel<T, NC><<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(P);
+  dkdv_kernel<T, NC, NV><<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(P);
   err = cudaGetLastError();
   if (err != cudaSuccess || P.part == nullptr) return err;
 
-  const long long n =
-      static_cast<long long>(batch) * P.sk * P.kv_heads * P.d;
-  gqa_sum_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(P, n);
+  const long long n = static_cast<long long>(batch) * P.sk * P.kv_heads *
+                      (P.d > P.dv_d ? P.d : P.dv_d);
+  if (P.d == P.dv_d)
+    gqa_sum_same_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(P,
+                                                                          n);
+  else
+    gqa_sum_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(P, n);
   return cudaGetLastError();
 }
 
 bool aligned16(long long x) { return x % 16 == 0; }
 
-// 16-byte copies of two operands' rows: d, both pointers and their batch,
-// position and head strides all multiples of 16 bytes
+// 16-byte copies of two operands' rows: both widths (da, db), both
+// pointers and their batch, position and head strides all multiples of 16
+// bytes
 template <typename T>
-bool vec_rows(int d, const void* a, const Strides& sa, const void* b,
-              const Strides& sb) {
+bool vec_rows(int da, const void* a, const Strides& sa, int db,
+              const void* b, const Strides& sb) {
   const long long es = sizeof(T);
-  return aligned16(d * es) && aligned16(reinterpret_cast<uintptr_t>(a)) &&
+  return aligned16(da * es) && aligned16(db * es) &&
+         aligned16(reinterpret_cast<uintptr_t>(a)) &&
          aligned16(reinterpret_cast<uintptr_t>(b)) && aligned16(sa.b * es) &&
          aligned16(sa.s * es) && aligned16(sa.h * es) &&
          aligned16(sb.b * es) && aligned16(sb.s * es) && aligned16(sb.h * es);
@@ -729,20 +866,22 @@ template <typename T>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, float* rows, float* part,
                 void* dq, void* dk, void* dv, int batch, int heads,
-                int kv_heads, int sq, int sk, int d, const Strides* st,
-                float sm_scale, float div, int causal, cudaStream_t stream) {
+                int kv_heads, int sq, int sk, int d, int dv_d,
+                const Strides* st, float sm_scale, float div, int causal,
+                cudaStream_t stream) {
   const Params<T> P{static_cast<const T*>(q), static_cast<const T*>(k),
                     static_cast<const T*>(v), static_cast<const T*>(dout),
                     lse, rows, part, static_cast<T*>(dq),
                     static_cast<T*>(dk), static_cast<T*>(dv), heads,
-                    kv_heads, heads / kv_heads, sq, sk, d, st[0], st[1],
-                    st[2], st[3], sm_scale, div, causal,
-                    int(vec_rows<T>(d, k, st[1], v, st[2])),
-                    int(vec_rows<T>(d, q, st[0], dout, st[3]))};
-  switch ((d + 15) / 16) {
-#define REPRO_FAB_CASE(NC) \
-  case NC:                 \
-    return launch<T, NC>(P, batch, stream);
+                    kv_heads, heads / kv_heads, sq, sk, d, dv_d, st[0],
+                    st[1], st[2], st[3], sm_scale, div, causal,
+                    int(vec_rows<T>(d, k, st[1], dv_d, v, st[2])),
+                    int(vec_rows<T>(d, q, st[0], dv_d, dout, st[3]))};
+  const int nc = (d + 15) / 16, nv = (dv_d + 15) / 16;
+  switch (nc > 8 || nv > 8 ? 0 : nc > nv ? nc : nv) {
+#define REPRO_FAB_CASE(N) \
+  case N:                 \
+    return launch<T, N, N>(P, batch, stream);
     REPRO_FAB_CASE(1)
     REPRO_FAB_CASE(2)
     REPRO_FAB_CASE(3)
@@ -753,27 +892,33 @@ cudaError_t run(const void* q, const void* k, const void* v,
     REPRO_FAB_CASE(8)
 #undef REPRO_FAB_CASE
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  // a head_dim above 128: dk at 192, dv at 128 (MLA) or 192
+  if (nc <= 12 && nv <= 8) return launch<T, 12, 8>(P, batch, stream);
+  if (nc <= 12 && nv <= 12) return launch<T, 12, 12>(P, batch, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 host integers, the
+// dtype: 0 = float32, 1 = bfloat16.  d: q's and k's head_dim (dk), dv:
+// v's and dout's, each in [1, 192].  strides: 12 host integers, the
 // (batch, position, head) strides in elements of q, k, v and dout.  lse:
 // fp32 (b, h, sq) from the forward; rows: fp32 (b, h, sq, 2) scratch;
-// part: fp32 (b, h, sk, 2, d) scratch, or null -- with it the dk/dv launch
-// runs one block per query head and a third launch sums the group's
-// partials; dq (b, sq, h, d), dk and dv (b, sk, m, d) contiguous.
-// sm_scale: d^-1/2, the float32 instance's; div: bf16(sqrt d), the
-// rounding (bfloat16) instance's.
+// part: fp32 (b, h, sk, dk + dv) scratch, or null -- with it the dk/dv
+// launch runs one block per query head and a third launch sums the
+// group's partials; dq (b, sq, h, dk), dk (b, sk, m, dk) and dv (b, sk, m,
+// dv) contiguous.  sm_scale: dk^-1/2, the float32 instance's; div:
+// bf16(sqrt dk), the rounding (bfloat16) instance's.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, float* rows, float* part, void* dq, void* dk,
     void* dv, int dtype, int batch, int heads, int kv_heads, int sq, int sk,
-    int d, const long long* strides, float sm_scale, float div, int causal,
-    cudaStream_t stream) {
-  if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || sk < 1)
+    int d, int dv_d, const long long* strides, float sm_scale, float div,
+    int causal, cudaStream_t stream) {
+  if (d < 1 || d > 192 || dv_d < 1 || dv_d > 192 || kv_heads < 1 ||
+      heads % kv_heads != 0 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch * heads == 0 || sq == 0)
     return static_cast<int>(cudaGetLastError());
@@ -783,11 +928,11 @@ extern "C" int flash_attention_bwd_launch(
   const cudaError_t err =
       dtype == 0
           ? run<float>(q, k, v, dout, lse, rows, part, dq, dk, dv, batch,
-                       heads, kv_heads, sq, sk, d, st, sm_scale, div, causal,
-                       stream)
+                       heads, kv_heads, sq, sk, d, dv_d, st, sm_scale, div,
+                       causal, stream)
       : dtype == 1
           ? run<__nv_bfloat16>(q, k, v, dout, lse, rows, part, dq, dk, dv,
-                               batch, heads, kv_heads, sq, sk, d, st,
+                               batch, heads, kv_heads, sq, sk, d, dv_d, st,
                                sm_scale, div, causal, stream)
           : cudaErrorInvalidValue;
   return static_cast<int>(err);

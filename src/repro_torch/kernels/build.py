@@ -6,7 +6,9 @@ root, named by a hash of the source, the shared headers and the flags, so
 an edited source or header rebuilds and an unchanged one is reused.  The
 library is loaded with :mod:`ctypes`.  Nothing here runs at import time:
 the first launch builds, and :func:`build` builds several sources at
-once, one ``nvcc`` process per source, all started together.
+once, one ``nvcc`` process per source, all started together.  Each
+library's compiler output (ptxas's registers, stack and spill bytes of
+every kernel) is kept beside it (:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -23,11 +26,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: no --use_fast_math: the kernels must round exactly like the plain
 #: versions; --split-compile=0 compiles a source's kernels on every core
-#: (the same code, built in less than half the time)
+#: (the same code, built in less than half the time); -Xptxas -v reports
+#: each kernel's registers and spills (the code does not change)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: each library's nvcc wall seconds, from the build that made it
+SECONDS: dict[str, float] = {}
 _SMS: dict[int, int] = {}
 #: one build-and-load at a time: the threads of a sweep share the card, and
 #: two threads building one source would write the same temporary file
@@ -67,6 +74,7 @@ def build(names) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
     procs = {}
+    t0 = time.time()
     for n, lib in out.items():
         if lib.exists():
             continue
@@ -78,13 +86,22 @@ def build(names) -> dict[str, Path]:
     errors = []
     for n, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
+        SECONDS[n] = time.time() - t0
         if proc.returncode != 0:
             errors.append(f"nvcc failed for csrc/{n}.cu:\n{log}")
             continue
+        out[n].with_suffix(".log").write_text(log)
         os.replace(tmp, out[n])          # atomic: readers never see half
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of ``csrc/<name>.cu``'s library (empty if it
+    was built before the log was kept)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

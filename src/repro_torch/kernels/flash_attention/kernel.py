@@ -9,9 +9,9 @@ when asked, the rows' log-sum-exp (b, h, sq) -- with ``torch.empty``,
 launches on the current stream, raises if the launch was refused, and adds
 one to :data:`launches`.  It replaces the Pallas TPU kernel of the JAX
 package's ``kernels/flash_attention/kernel.py``.  The backward wrapper
-takes the forward's inputs, its log-sum-exp and the upstream gradient, and
-returns (dq, dk, dv) at head dims up to 128 with k and v alike; the JAX
-package has no backward kernel (its models differentiate the jnp
+takes the forward's inputs, its log-sum-exp and the upstream gradient (b,
+sq, h, dv), and returns (dq, dk, dv) at every width the forward takes;
+the JAX package has no backward kernel (its models differentiate the jnp
 attention).
 """
 from __future__ import annotations
@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_attention.ref import bf16_divisor
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 128
-#: the forward's widest head dims (dk and dv): MLA's 128 + 64
+#: flash attention's widest head dims (dk and dv), forward and backward:
+#: MLA's 128 + 64
 FLASH_MAX_HEAD_DIM = 192
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,7 +38,7 @@ _SIGNATURES = {"flash_attention_launch": [
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), _F, _F, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
     ctypes.POINTER(ctypes.c_longlong), _F, _F, _I, _P]}
 
 #: rows of the backward's blocks (query rows of a dq block, keys of a dk/dv
@@ -140,18 +141,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
-    """The gradient of :func:`flash_attention_kernel`: q, do (b, sq, h, d),
-    k/v (b, sk, m, d), lse (b, h, sq) fp32 from the forward ->
-    (dq, dk, dv), contiguous, in q's dtype (bf16: rounded where
-    ``jax.vjp`` of the JAX model's ``_sdpa`` rounds)."""
-    check_attention_inputs("flash_attention_bwd", q, k, v)
-    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
-            or do.stride(-1) != 1):
-        raise ValueError(f"flash_attention_bwd: do must be like q "
-                         f"{tuple(q.shape)} {q.dtype} with head_dim "
-                         f"contiguous, got {tuple(do.shape)} {do.dtype}")
+    """The gradient of :func:`flash_attention_kernel`: q (b, sq, h, dk), k
+    (b, sk, m, dk), v (b, sk, m, dv), do (b, sq, h, dv), lse (b, h, sq)
+    fp32 from the forward -> (dq, dk, dv), contiguous, in q's dtype (bf16:
+    rounded where ``jax.vjp`` of the JAX model's ``_sdpa`` rounds)."""
+    check_attention_inputs("flash_attention_bwd", q, k, v,
+                           max_head_dim=FLASH_MAX_HEAD_DIM, v_width=True)
     b, sq, h, d = q.shape
-    sk, m = k.shape[1], k.shape[2]
+    sk, m, dv_d = k.shape[1], k.shape[2], v.shape[-1]
+    if (do.shape != (b, sq, h, dv_d) or do.dtype != q.dtype
+            or do.device != q.device or do.stride(-1) != 1):
+        raise ValueError(f"flash_attention_bwd: do must be "
+                         f"{(b, sq, h, dv_d)} {q.dtype} with head_dim "
+                         f"contiguous, got {tuple(do.shape)} {do.dtype}")
     if h % m or sk < 1:
         raise ValueError(f"flash_attention_bwd: {h} query heads over {m} kv "
                          f"heads, {sk} keys")
@@ -162,11 +164,11 @@ def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
                          f"{lse.dtype}")
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, m, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, sk, m, dv_d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     rows = torch.empty((b, h, sq, 2), dtype=torch.float32, device=q.device)
-    part = (torch.empty((b, h, sk, 2, d), dtype=torch.float32,
+    part = (torch.empty((b, h, sk, d + dv_d), dtype=torch.float32,
                         device=q.device)
             if split_gqa(b, h, m, sk, sm_count(q.device)) else None)
     with torch.cuda.device(q.device):
@@ -177,8 +179,8 @@ def flash_attention_bwd_kernel(q, k, v, do, lse, *, causal: bool):
             lse.data_ptr(), rows.data_ptr(),
             None if part is None else part.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPE_CODES[q.dtype], b, h, m, sq,
-            sk, d, _strides(q, k, v, do), d ** -0.5, bf16_divisor(d ** -0.5),
-            int(causal), stream)
+            sk, d, dv_d, _strides(q, k, v, do), d ** -0.5,
+            bf16_divisor(d ** -0.5), int(causal), stream)
     check_launch(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv

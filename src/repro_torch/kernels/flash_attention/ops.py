@@ -10,9 +10,8 @@ g times.  The tensor's device decides; nothing falls back.
 Gradients: on the card, when grad mode is on and q, k or v requires grad,
 the call goes through :class:`FlashAttention`, whose forward is the CUDA
 kernel (keeping each row's log-sum-exp) and whose backward is the CUDA
-backward kernel.  The backward kernel takes k and v alike and head dims up
-to 128: a gradient at dk != dv or dk > 128 on the card raises
-``NotImplementedError`` (:data:`WIDE_BACKWARD_QUEUED`).  On the CPU
+backward kernel, at every width the forward takes (dk and dv up to 192;
+wider is refused with ``ValueError`` before any kernel runs).  On the CPU
 autograd differentiates the plain version (:func:`flash_attention_bwd_plain`
 states that gradient).
 """
@@ -21,12 +20,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
-    MAX_HEAD_DIM, flash_attention_bwd_kernel, flash_attention_kernel,
+    FLASH_MAX_HEAD_DIM, check_attention_shapes, flash_attention_bwd_kernel,
+    flash_attention_kernel,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
-
-#: where the backward kernel's widening waits
-WIDE_BACKWARD_QUEUED = "ROADMAP.md queue A6 (MoE training)"
 
 
 def fold_gqa(q, k, v):
@@ -65,22 +62,13 @@ def flash_attention_bwd_plain(q, k, v, do, *, causal: bool):
     In bf16 that is ``jax.vjp`` of the JAX model's ``_sdpa``: dP_b =
     bf16(dO V^T), dV = bf16(P_b^T dO), D = rowsum(P dP_b) in fp32, dS = P
     (dP_b - D) (zero under the mask), dS_1 = bf16(bf16(dS) / bf16(sqrt
-    d)), dQ = bf16(dS_1 K), dK = bf16(dS_1^T Q), dk and dv summed over the
-    GQA group in fp32 and rounded once."""
+    dk)), dQ = bf16(dS_1 K), dK = bf16(dS_1^T Q), dk and dv summed over the
+    GQA group in fp32 and rounded once.  dk and dv may differ: dq and dk
+    come at dk, dv at dv."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = flash_attention_plain(*leaves, causal=causal)
         return torch.autograd.grad(o, leaves, do)
-
-
-def check_backward_widths(q, k, v) -> None:
-    """Raise ``NotImplementedError`` unless the backward kernel takes these
-    widths: k and v alike, head_dim <= 128."""
-    if k.shape[-1] != v.shape[-1] or q.shape[-1] > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash attention's gradient on the card at dk {q.shape[-1]}, "
-            f"dv {v.shape[-1]}: the backward kernel takes dk == dv <= "
-            f"{MAX_HEAD_DIM}; its widening is {WIDE_BACKWARD_QUEUED}")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -88,7 +76,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        check_backward_widths(q, k, v)
         o, lse = flash_attention_kernel(q, k, v, causal=causal,
                                         with_lse=True)
         ctx.save_for_backward(q, k, v, lse)
@@ -108,8 +95,12 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (b, sq, h, dk), k (b, sk, m, dk), v (b, sk, m, dv) with h % m == 0
-    (GQA) -> (b, sq, h, dv) in q's dtype."""
+    (GQA) -> (b, sq, h, dv) in q's dtype.  Off the CPU the widths are
+    checked first (dk and dv up to ``FLASH_MAX_HEAD_DIM``, ``ValueError``
+    before any kernel)."""
     if q.device.type != "cpu":
+        check_attention_shapes("flash_attention", q, k, v,
+                               max_head_dim=FLASH_MAX_HEAD_DIM, v_width=True)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
             return FlashAttention.apply(q, k, v, causal)

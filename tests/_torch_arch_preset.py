@@ -26,7 +26,14 @@ two frameworks over the 9 trials, above ``ARCH_LOSS_RTOL``, while lr
 x1.01 controls read 8.4e-4 to 2.05e-3 (``main("zamba2_2_7b",
 "bfloat16")``, with the port's attention rounding where the JAX
 ``_sdpa`` rounds; before that repair the gaps reached 5.6e-4 against a
-7.4e-4 control), so its presets stay fp32.  No layer computes another
+7.4e-4 control), so its presets stay fp32.  The MoE family runs fp32 too
+(``test_torch_preset_*_{deepseek,grok}.py``): in bf16 the reduced
+deepseek-v2-lite-16b parts from JAX by up to 1.36e-3 (lr x1.01 controls
+5.6e-4 to 4.35e-3) and grok-1-314b by up to 1.52e-4 (controls 6.3e-4 to
+1.24e-3), a router's near-tie gates going the other way on a bf16
+rounding; in fp32 they read at most 7.04e-7 (deepseek; controls 5.5e-4 to
+5.96e-3) and 5.96e-7 (grok; controls 5.1e-4 to 1.13e-3), held at
+``ARCH_LOSS_RTOL`` (``main(model, dtype)``).  No layer computes another
 function (``_torch_bf16_witness.py``): given the same inputs, the two
 frameworks' norms, GEMMs, convolutions and attention agree to the last
 bit or one ulp, and their blocks part by rounding.  XLA on the CPU

@@ -432,3 +432,44 @@ def test_tie_witness_reaches_the_decode_evaluations(h, m, d):
     bad = torch.einsum("bgk,bkd->bgd", sc.softmax(-1), vf).to(BF16)
     got = _witness(bad.reshape(q.shape), ref, rows)
     assert got["unexplained"] > 0.2 * ref.numel(), got
+
+
+# ------------------------------------------- the backward's tie witness ----
+#
+# chip_smoke.py holds a bf16 backward's gradients, where they miss the
+# gradient limits against the plain version, against the backward's tie
+# witness instead: ``jax.vjp``'s function in float64 with its near-tie
+# roundings (of q k^T, dO v^T, P and dS) taken the kernel's way.  Here the
+# witness must hold two sound evaluations of that function (JAX's own and
+# the plain version's) within the gradient limits, and the function
+# without the rounding points must stay beyond them however its near ties
+# are taken.
+
+WIDE = [(4, 2, 24, 16, 2, 13), (2, 2, 192, 128, 1, 17), (3, 1, 16, 16, 2, 9)]
+
+
+@pytest.mark.parametrize("h,m,dk,dv,b,s", WIDE, ids=lambda v: str(v))
+def test_backward_tie_witness_holds_sound_evaluations(h, m, dk, dv, b, s):
+    """jax.vjp's gradients of ``_sdpa`` and the plain version's (causal, dk
+    != dv where given) within the gradient limits of the witness; the
+    unrounded function's gradients (fp32 autograd, rounded once) beyond
+    the norm-wise limit after the witness has taken every near tie their
+    way."""
+    rng = np.random.default_rng(dk + dv + 1)
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (
+        _pair(rng, b, s, h, dk), _pair(rng, b, s, m, dk),
+        _pair(rng, b, s, m, dv), _pair(rng, b, s, h, dv))
+    _, vjp = jax.vjp(lambda q_, k_, v_: jattn._sdpa(q_, k_, v_, causal=True),
+                     jq, jk, jv)
+    jax_g = [torch.from_numpy(np.array(g, np.float32)).to(BF16)
+             for g in vjp(jdo)]
+    plain = list(flash_attention_bwd_plain(q, k, v, do, causal=True))
+    for got in (jax_g, plain):
+        ref, _ = chip_smoke._bf16_bwd_explained(q, k, v, do, True, got)
+        gaps = chip_smoke._bf16_gaps(got, list(ref))
+        assert not chip_smoke.bf16_misses(gaps, grads=True), gaps
+    bad = [g.to(BF16) for g in flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), do.float(), causal=True)]
+    ref, _ = chip_smoke._bf16_bwd_explained(q, k, v, do, True, bad)
+    gaps = chip_smoke._bf16_gaps(bad, list(ref))
+    assert gaps["norm_rel"] > chip_smoke.ATTN_BF16_GRAD_NORM_TOL, gaps

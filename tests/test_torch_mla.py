@@ -3,9 +3,9 @@ port against the JAX package on the CPU: ``mla_attention`` (the prefill,
 per-head K/V materialised from the latent, attended at dk = nope + rope
 and dv) and ``mla_decode`` (absorbed projections against the cached
 latent), the widened plain flash version against ``_sdpa``, and the
-card's refusal of a gradient the backward kernel does not take, checked
-on ``device="meta"`` (no card needed: the refusal comes before any
-kernel).
+card's width check, which takes a gradient at every width the forward
+takes and refuses wider ones, checked on ``device="meta"`` (no card
+needed: the check comes before any kernel).
 
 Tolerances: fp32 ``rtol=atol=1e-5`` (the zoo's); bf16: MLA and the plain
 flash version round where the JAX model rounds (the scores' divisor is
@@ -25,9 +25,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.kernel import (
     FLASH_MAX_HEAD_DIM, check_attention_shapes,
 )
-from repro_torch.kernels.flash_attention.ops import (
-    WIDE_BACKWARD_QUEUED, flash_attention_plain,
-)
+from repro_torch.kernels.flash_attention.ops import flash_attention_plain
 from repro_torch.kernels.flash_attention.ref import bf16_divisor
 from repro_torch.models import attention as tattn
 from repro_torch.models.common import Rotary, is_spec
@@ -203,26 +201,29 @@ def test_flash_gradient_at_dk_ne_dv_on_the_cpu_is_autograd_of_plain():
                for t in (q, k, v))
 
 
-@pytest.mark.parametrize("dk,dv", [(192, 128), (24, 16), (160, 160)])
+@pytest.mark.parametrize("dk,dv", [(200, 128), (256, 256), (192, 200)])
 def test_card_gradient_beyond_the_backward_kernel_is_refused(dk, dv):
-    """A gradient on the card at dk != dv or dk > 128 raises naming the
-    ROADMAP item (checked on meta tensors: the refusal precedes any
-    kernel), never handed to the plain version."""
+    """A gradient on the card wider than the kernels take (dk or dv above
+    192) raises ``ValueError`` naming the head dim (checked on meta
+    tensors: the refusal precedes any kernel), never handed to the plain
+    version."""
     q = torch.empty(1, 4, 2, dk, device="meta", requires_grad=True)
     k = torch.empty(1, 4, 2, dk, device="meta")
     v = torch.empty(1, 4, 2, dv, device="meta")
-    with pytest.raises(NotImplementedError, match="queue A6 .MoE training"):
+    with pytest.raises(ValueError, match=f"head_dim {max(dk, dv)} not in "
+                                         f"\\[1, {FLASH_MAX_HEAD_DIM}\\]"):
         flash_attention(q, k, v, causal=True)
-    assert "ROADMAP.md queue A6 (MoE training)" == WIDE_BACKWARD_QUEUED
 
 
 def test_card_gradient_within_the_backward_kernel_is_not_refused():
-    """dk == dv <= 128 passes the width check and reaches the kernel's own
-    checks (which want CUDA tensors)."""
-    q = torch.empty(1, 4, 2, 128, device="meta", requires_grad=True)
-    k = torch.empty(1, 4, 2, 128, device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention(q, k, k, causal=True)
+    """dk == dv <= 128 and MLA's dk 192 / dv 128 pass the width check and
+    reach the kernel's own checks (which want CUDA tensors)."""
+    for dk, dv in ((128, 128), (192, 128)):
+        q = torch.empty(1, 4, 2, dk, device="meta", requires_grad=True)
+        k = torch.empty(1, 4, 2, dk, device="meta")
+        v = torch.empty(1, 4, 2, dv, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_attention(q, k, v, causal=True)
 
 
 @pytest.mark.parametrize("widths,ok", [
@@ -230,9 +231,9 @@ def test_card_gradient_within_the_backward_kernel_is_not_refused():
     ((200, 200, 128), False), ((192, 192, 200), False),
     ((192, 128, 128), False)])
 def test_card_forward_widths_are_checked(widths, ok):
-    """The flash forward takes dk (q, k) and dv up to 192, k and v alike but
-    for their head dim; the decode and backward kernels keep k and v alike
-    at up to 128."""
+    """The flash kernels (forward and backward) take dk (q, k) and dv up to
+    192, k and v alike but for their head dim; the decode kernel keeps k
+    and v alike at up to 128."""
     dq, dk, dv = widths
     q, k, v = (torch.empty(1, 4, 2, w) for w in widths)
     wide = dict(max_head_dim=FLASH_MAX_HEAD_DIM, v_width=True)
@@ -244,3 +245,4 @@ def test_card_forward_widths_are_checked(widths, ok):
     if dq != dv or dq > 128:
         with pytest.raises(ValueError, match="decode_attention"):
             check_attention_shapes("decode_attention", q, k, v)
+

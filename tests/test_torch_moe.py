@@ -331,12 +331,15 @@ def test_serve_launcher_serves_the_moe_family_on_the_cpu(name, capsys):
 
 @pytest.mark.parametrize("name", MOE)
 def test_moe_training_is_refused_naming_its_roadmap_item(name):
+    """No longer refused: the MoE family trains.  Its spec builds (the
+    same hash as the JAX package's) and its workload has the JAX
+    package's size."""
+    from repro.core.workloads import ArchWorkload as JArchWorkload
+    from repro.experiments import ExperimentSpec as JExperimentSpec
     from repro_torch.core.workloads import ArchWorkload
     from repro_torch.experiments import ExperimentSpec
     model = tconfigs.spec_name(name)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A6 .MoE training"):
-        ExperimentSpec(model=model, dataset="tokens")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A6 .MoE training"):
-        ArchWorkload(model)
+    spec = ExperimentSpec(model=model, dataset="tokens")
+    assert spec.spec_hash() == JExperimentSpec(
+        model=model, dataset="tokens").spec_hash()
+    assert ArchWorkload(model).n_params == JArchWorkload(model).n_params

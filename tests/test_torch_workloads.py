@@ -355,5 +355,28 @@ def test_algorithms_keep_the_merged_dtype_as_jax_unravel_does():
 
 
 def test_moe_specs_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A6 .MoE training"):
-        ExperimentSpec(model="deepseek_v2_lite_16b", dataset="tokens")
+    """No longer refused: the MoE family trains.  Its specs build and hash
+    as the JAX package's, in every zoo preset that trains a model, and its
+    sizes (update bytes, parameters, FLOPs per row) are the JAX package's,
+    published and reduced."""
+    from repro.experiments import get_preset as jget
+    from repro_torch.experiments import get_preset
+    for name in ("deepseek_v2_lite_16b", "grok_1_314b"):
+        spec = ExperimentSpec(model=name, dataset="tokens")
+        assert spec.spec_hash() == JExperimentSpec(
+            model=name, dataset="tokens").spec_hash()
+        for preset in ("faas_vs_pod", "pod_local_sgd"):
+            got = [s.with_(model=name).spec_hash()
+                   for s in get_preset(preset).build(True)]
+            want = [s.with_(model=name).spec_hash()
+                    for s in jget(preset).build(True)]
+            assert got == want and len(got) > 1
+        for reduced in (True, False):
+            args = {"reduced": reduced}
+            assert (tworkloads.estimate_update_bytes(name, "tokens", args)
+                    == jworkloads.estimate_update_bytes(name, "tokens", args))
+        jw, tw = jworkloads.ArchWorkload(name), ArchWorkload(name)
+        assert (tw.n_params, tw.flops_per_row) == (jw.n_params,
+                                                   jw.flops_per_row)
+    assert {"deepseek_v2_lite_16b", "grok_1_314b"} <= set(
+        tworkloads.list_workloads())
