@@ -111,7 +111,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    refused with ``ValueError`` before any kernel, ptxas's registers and
    spill bytes of every backward instance (PTXAS_BWD), and its bf16 bits
    at the old widths equal to those of the kernel before the widening
-   (FLASH_BWD_BF16_SHA256_PARENT);
+   (FLASH_BWD_BF16_SHA256_PARENT); and at phases 3k's and 3l's shapes
+   (``phase_vlm_encoder_kernels``): the flash forward at the vlm's h 64 /
+   m 8, d 128 (self causal, cross full: sq 32 or 64 against the 1024
+   image keys) and hubert's h 16, d 80 full (fp32, hubert's bf16 too),
+   the decode kernel at the vlm's caches and its 1024 image keys, the
+   backward at 3k (f)'s and 3l's gradient shapes and over
+   FLASH_BWD_SWEEP_VLM_ENC (a full d 80 and a sq 64 / sk 1024 d 128
+   shape), each against its plain version, then timed beside its bound and SDPA's time
+   (FLASH_VLM_ENC_TIMED, FLASH_BWD_VLM_ENC_TIMED, DECODE_VLM_TIMED);
 3. path -- the simulator's training path on ``device="cuda"`` through the
    platforms' ``train()``: the ``comm_axis`` preset's int8 and top-k specs
    at full size (MobileNet stand-in on cifar10, 20,000 rows, 8 workers,
@@ -190,7 +198,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3h. train mamba2-370m and zamba2-2.7b -- 3g's checks, at 3g's constants
    except where these models' own rounding noise exceeds them,
    with the CPU sides in two helper processes started after phase 1
-   (``--cpu-side``, 4 threads: 3g (c)'s and (b)'s and (c)'s CPU sides,
+   (``--cpu-side``, 4 threads: 3g (c)'s, (c)'s and (b)'s CPU sides,
    then (b)'s card gradients; ``--cpu-side-moe``, 1 thread: (a)'s CPU
    records, then (b)'s op witness at 4 threads once let onto the card):
    (a) 3g (a)'s 9 trials with each model (reduced,
@@ -258,6 +266,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ROUTE_GATE_TOL of its token's own K-th and a planted wrong route
    caught, launches exact (flash forward and backward, quantize8_ef per
    int8 merge); held after 3i, the phase's seconds printed;
+3k, 3l. the vlm and encoder families -- their card-vs-CPU work is a third
+   helper process's (``--cpu-side-vlm``), started before phase 1's build
+   at the lowest CPU priority, which makes the CPU sides beside phases
+   1-3c while the host's memory is free, then takes the card between 3c
+   and 3d (the slot: the main process waits) and last holds on the CPU,
+   beside 3d on, what needs the card's results.  Both sides build their
+   parameters by ``_counter_params``: the same bits on the card and the
+   CPU (a sample held equal), with no copy between them.
+   3l: hubert-xlarge at full width and depth (48 layers, 944,487,680
+   parameters, fp32): in the slot a forward at b 8 over 512 frames, two
+   steps of its own TrainConfig (AdamW, lr 3e-4, clip 1.0) at b 2 over
+   128 frames in fp32 and in bf16, an AdamW, an 8-bit AdamW and an SGD
+   step from the first fp32 gradient (clip off, over ``_layer0``), the
+   AdamW update alone timed with the port's card arithmetic, through
+   float64 (held equal bit for bit) and in plain fp32, launches exact; then on the CPU: the fp32 loss within FULL_LOSS_RTOL
+   and each gradient leaf within FULL_FP32_GRAD_TOL, the bf16 losses at
+   the card's own parameters within FULL_BF16_LOSS_RTOL, the three steps'
+   parameters within OPT_CARD_VS_CPU_ULPS with AdamW's moments and the
+   8-bit codes and scales equal, the first clipped step (the global norm,
+   the moments and the parameters) within OPT_CLIP_ULPS, and a planted
+   wrong clip (each leaf by its own norm) that must miss it;
+   3k: llama-3.2-vision-90b at full width.  In the slot its first group
+   (5 layers, 6,379,626,496 parameters): (e) a forward at b 1 over 32
+   positions and 8 decode steps card vs CPU (SERVE_TOL), (f) its fp32
+   gradient at b 4, s 64 with every flash attention held in situ, card vs
+   CPU (FULL_LOSS_RTOL, each leaf FULL_FP32_GRAD_TOL) when the host had
+   VLM_GRAD_HOST_GIB free for it, and always the reduced config's
+   gradient card vs CPU.  After 3j, in the main process with no CPU side
+   running, its first VLM_GROUPS of 20 groups (10 layers,
+   10,657,898,496 parameters, seeded on the card): (a) a forward at b 2
+   over 32 positions with seeded image embeddings (1024 tokens) against
+   32 teacher-forced decode steps after ``prime_cross_cache``
+   (SERVE_TOL), (b) zeroed image embeddings must move the logits by 10x
+   that, (c) ``Generator.generate`` (no image primed, as in the JAX
+   package) held against the forward on zero image embeddings, (d) a
+   profile of the decode steps.  Launches exact (the cross attention's
+   decode through the decode kernel at length 1024);
 4. summary -- one JSON line listing every ported kernel and the two
    backward kernels.
 
@@ -645,16 +690,22 @@ def check(cond: bool, msg: str) -> None:
 
 # ------------------------------------------------------------ 1. device ----
 
-def phase_device(planted_copies: bool = True):
-    """The card, and the kernels built (with the planted copies unless
-    ``planted_copies`` is false: a checkout of another commit, whose
-    sources the PLANTED texts need not match)."""
+def require_card() -> None:
+    """Fails without CUDA or without the repository around the script."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch/ beside {Path(__file__).name}: run it "
              f"from a checkout of the repository")
+
+
+def phase_device(planted_copies: bool = True):
+    """The card, and the kernels built (with the planted copies unless
+    ``planted_copies`` is false: a checkout of another commit, whose
+    sources the PLANTED texts need not match)."""
+    import torch
+    require_card()
     sys.path.insert(0, str(ROOT / "src"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1019,9 +1070,11 @@ def _causal_pairs(sq: int, sk: int) -> int:
 
 
 def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int,
-                    dv: int | None = None) -> dict:
-    """Flash attention, causal fp32, q (b, s, h, d), k (b, s, m, d) and v
-    (b, s, m, dv) (dv: d unless given):
+                    dv: int | None = None, sk: int | None = None,
+                    causal: bool = True) -> dict:
+    """Flash attention, causal fp32 (full where ``causal`` is false), q (b,
+    s, h, d), k (b, sk, m, d) and v (b, sk, m, dv) (dv: d, sk: s unless
+    given):
     the kernel against its plain version, two kernel calls compared
     bitwise, then CUDA-event times of the kernel, the plain version and
     ``F.scaled_dot_product_attention``, and the kernel's device time by
@@ -1035,35 +1088,38 @@ def flash_timed_row(gen, b: int, s: int, h: int, m: int, d: int,
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ops import flash_attention_plain
-    dv = dv or d
-    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, s, m, d),
-                           (b, s, m, dv))
+    dv, sk = dv or d, sk or s
+    q, k, v = _attn_inputs(gen, torch.float32, (b, s, h, d), (b, sk, m, d),
+                           (b, sk, m, dv))
 
     def kernel_fn():
-        return flash_attention_kernel(q, k, v, causal=True)
+        return flash_attention_kernel(q, k, v, causal=causal)
 
     def plain_fn():
-        return flash_attention_plain(q, k, v, causal=True)
+        return flash_attention_plain(q, k, v, causal=causal)
 
     def library_fn():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
 
     out, again, ref, lib = kernel_fn(), kernel_fn(), plain_fn(), library_fn()
     torch.cuda.synchronize()
-    flop = 2 * b * h * _causal_pairs(s, s) * (d + dv)
-    nbytes = 4 * (b * s * h * (d + dv) + b * s * m * (d + dv))
+    pairs = _causal_pairs(s, sk) if causal else s * sk
+    flop = 2 * b * h * pairs * (d + dv)
+    nbytes = 4 * (b * s * h * (d + dv) + b * sk * m * (d + dv))
     b_ms, by = tf32x3_bound_ms(nbytes, flop)
     widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
-    row = {"shape": f"b{b} s{s} h{h} m{m} {widths} causal fp32",
+    seqs = f"s{s}" if sk == s else f"sq{s} sk{sk}"
+    row = {"shape": f"b{b} {seqs} h{h} m{m} {widths} "
+                    f"{'causal' if causal else 'full'} fp32",
            "max_abs_err": float((out - ref).abs().max()),
            "repeat_bitwise": _bits_equal(out, again),
            "library_max_abs_err": float((lib - ref).abs().max()),
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn),
-           "library": "F.scaled_dot_product_attention(..., is_causal=True, "
-                      "enable_gqa=True)",
+           "library": f"F.scaled_dot_product_attention(..., "
+                      f"is_causal={causal}, enable_gqa=True)",
            "bound_ms": b_ms, "bound_by": by,
            "bound_fp32_ms": bound_ms(nbytes, flop)[0],
            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1826,17 +1882,18 @@ def _bwd_kernel(q, k, v, do, causal: bool = True, with_o: bool = False):
     return (o, grads) if with_o else grads
 
 
-def flash_bwd_sweep(gen) -> float:
+def flash_bwd_sweep(gen, shapes=FLASH_BWD_SWEEP) -> float:
     """The backward kernel against autograd of the plain version at every
-    FLASH_BWD_SWEEP shape in fp32 and bf16 (within FLASH_BWD_TOL of the
-    largest |plain gradient|; bf16 also ``hold_bf16``, its forward with
-    the tie witness); returns the largest fp32 error relative to that."""
+    shape of ``shapes`` (FLASH_BWD_SWEEP's form) in fp32 and bf16 (within
+    FLASH_BWD_TOL of the largest |plain gradient|; bf16 also
+    ``hold_bf16``, its forward with the tie witness); returns the largest
+    fp32 error relative to that."""
     import torch
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_plain, flash_attention_plain)
     worst = 0.0
     bf16 = {"forward": {}, "backward": {}}
-    for b, sq, sk, h, m, d, causal in FLASH_BWD_SWEEP:
+    for b, sq, sk, h, m, d, causal in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = _attn_inputs(gen, dtype, (b, sq, h, d),
                                        (b, sk, m, d), (b, sk, m, d),
@@ -1861,7 +1918,7 @@ def flash_bwd_sweep(gen) -> float:
                     flash_rows(q, k, v, causal))
                 hold_bf16(what, got, plain, bf16["backward"], grads=True,
                           inputs=(q, k, v, do, causal))
-    print(f"  flash_attention_bwd sweep: {len(FLASH_BWD_SWEEP)} shapes x "
+    print(f"  flash_attention_bwd sweep: {len(shapes)} shapes x "
           f"fp32/bf16 within FLASH_BWD_TOL (fp32 worst {worst:.3e} of the "
           f"largest gradient); bf16 against the plain versions (worst; "
           f"counts summed): {json.dumps(bf16)}")
@@ -1896,10 +1953,11 @@ def flash_bwd_vs_float64() -> dict:
 
 def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
                   timed: bool = False, dv: int | None = None,
-                  causal: bool = True) -> dict:
+                  causal: bool = True, sk: int | None = None) -> dict:
     """Flash attention's backward kernel (causal unless ``causal`` is
-    false), q (b, s, h, d), k (b, s, m, d), v (b, s, m, dv) and dO (b, s,
-    h, dv) (dv = d unless given), against autograd of the plain version
+    false), q (b, s, h, d), k (b, sk, m, d), v (b, sk, m, dv) and dO (b,
+    s, h, dv) (dv = d, sk = s unless given), against autograd of the plain
+    version
     (within
     FLASH_BWD_TOL of the largest |plain gradient|), two calls compared
     bitwise; in fp32 also against float64 gradients: each of dq, dk, dv
@@ -1921,8 +1979,9 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
     from repro_torch.kernels.flash_attention.ops import (
         FlashAttention, flash_attention_bwd_plain, flash_attention_plain)
     dv = d if dv is None else dv
-    q, k, v, do = _attn_inputs(gen, dtype, (b, s, h, d), (b, s, m, d),
-                               (b, s, m, dv), (b, s, h, dv))
+    sk = sk or s
+    q, k, v, do = _attn_inputs(gen, dtype, (b, s, h, d), (b, sk, m, d),
+                               (b, sk, m, dv), (b, s, h, dv))
     _o, lse = flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
 
     def kernel_fn():
@@ -1938,7 +1997,8 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
     err = max(float((a.float() - p.float()).abs().max())
               for a, p in zip(got, plain))
     widths = f"d{d}" if dv == d else f"dk{d} dv{dv}"
-    row = {"shape": f"b{b} s{s} h{h} m{m} {widths} "
+    seqs = f"s{s}" if sk == s else f"sq{s} sk{sk}"
+    row = {"shape": f"b{b} {seqs} h{h} m{m} {widths} "
                     f"{'causal' if causal else 'full'} {key}",
            "max_abs_err": err, "max_abs_grad": scale,
            "repeat_bitwise": all(_bits_equal(a, c)
@@ -1999,10 +2059,10 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
               "backward kernel's")
         del lib, fused
         es = q.element_size()
-        pairs = _causal_pairs(s, s) if causal else s * s
+        pairs = _causal_pairs(s, sk) if causal else s * sk
         flop = 2 * b * h * pairs * (3 * d + 2 * dv)
-        nbytes = es * (b * s * h * (d + dv) + b * s * m * (d + dv)) \
-            + 4 * b * h * s + es * (b * s * h * d + b * s * m * (d + dv))
+        nbytes = es * (b * s * h * (d + dv) + b * sk * m * (d + dv)) \
+            + 4 * b * h * s + es * (b * s * h * d + b * sk * m * (d + dv))
         b_ms, by = tf32x3_bound_ms(nbytes, flop)
         row.update(ms=time_ms(kernel_fn, reps=10),
                    launch_us=_launch_profile(kernel_fn),
@@ -2607,6 +2667,138 @@ def phase_attention_bf16() -> dict:
               decode_bf16_row(gen, 4, 16 + 32 + 1, 48, *_ZAMBA2_ATTN)]
     print(f"  bf16 attention phase: {time.time() - t0:.1f} s")
     return {"flash": flash, "decode": decode}
+
+
+# ------------------------------ phase 2: the vlm's and encoder's shapes ---
+
+#: llama-3.2-vision-90b's attention (self and cross alike): h 64 over m 8,
+#: head_dim 128, 1024 image tokens; hubert-xlarge's: h 16 over m 16, 80
+VLM_HEADS, VLM_KV_HEADS, VLM_HEAD_DIM, VLM_IMAGE = 64, 8, 128, 1024
+HUBERT_HEADS, HUBERT_HEAD_DIM = 16, 80
+_VLM_ATTN = (VLM_HEADS, VLM_KV_HEADS, VLM_HEAD_DIM)
+_HUBERT_ATTN = (HUBERT_HEADS, HUBERT_HEADS, HUBERT_HEAD_DIM)
+#: the flash forward at every shape phases 3k and 3l give it (b, sq, sk,
+#: h, m, d, causal), fp32 and (hubert's: 3l trains in bf16 too) bf16:
+#: 3k (a)'s forward at b 2 over 32 positions (self causal, cross full
+#: against the 1024 image keys), 3k (e)'s at b 1, 3k (f)'s gradient at b
+#: 4, s 64; 3l's forward at b 8, s 512 and its steps at b 2, s 128
+FLASH_VLM_ENC_PATH = (
+    (2, 32, 32, *_VLM_ATTN, True), (2, 32, VLM_IMAGE, *_VLM_ATTN, False),
+    (1, 32, 32, *_VLM_ATTN, True), (1, 32, VLM_IMAGE, *_VLM_ATTN, False),
+    (4, 64, 64, *_VLM_ATTN, True), (4, 64, VLM_IMAGE, *_VLM_ATTN, False),
+    (8, 512, 512, *_HUBERT_ATTN, False), (2, 128, 128, *_HUBERT_ATTN, False))
+#: the decode kernel at 3k's caches (b, S, lengths): (a)'s teacher-forced
+#: 32 steps, the Generator's 16 + 16 (S 33), (e)'s 8 steps at b 1, and
+#: the cross attention's image K/V, every one of the 1024 positions valid
+DECODE_VLM_PATH = ((2, 32, (1, 16, 32)), (2, 33, (1, 16, 32)),
+                   (1, 8, (1, 8)), (2, VLM_IMAGE, (VLM_IMAGE,)),
+                   (1, VLM_IMAGE, (VLM_IMAGE,)))
+#: the backward's sweep (FLASH_BWD_SWEEP's form) widened to these
+#: families: the encoder's full attention at d 80, the vlm's cross
+#: attention (64 queries against 1024 image keys) at d 128
+FLASH_BWD_SWEEP_VLM_ENC = ((2, 47, 47, 4, 4, 80, False),
+                           (1, 64, 1024, 8, 1, 128, False))
+#: the backward at 3k (f)'s and 3l's gradient shapes (b, sq, sk, h, m, d,
+#: causal, dtypes): the vlm's self and cross attention in fp32, hubert's
+#: in fp32 and bf16
+FLASH_BWD_VLM_ENC_PATH = (
+    (4, 64, 64, *_VLM_ATTN, True, ("float32",)),
+    (4, 64, VLM_IMAGE, *_VLM_ATTN, False, ("float32",)),
+    (2, 128, 128, *_HUBERT_ATTN, False, ("float32", "bfloat16")))
+#: timed (fp32; the kernel table's rows): the forward at 3k (f)'s cross
+#: and self shapes and 3l's forward, the backward at 3k (f)'s cross and
+#: 3l's shape, decode at the cross attention's 1024 image keys and at the
+#: Generator's last self-attention step
+FLASH_VLM_ENC_TIMED = (FLASH_VLM_ENC_PATH[5], FLASH_VLM_ENC_PATH[4],
+                       FLASH_VLM_ENC_PATH[6])
+FLASH_BWD_VLM_ENC_TIMED = (FLASH_BWD_VLM_ENC_PATH[1][:7],
+                           FLASH_BWD_VLM_ENC_PATH[2][:7])
+DECODE_VLM_TIMED = ((2, VLM_IMAGE, VLM_IMAGE), (2, 33, 32))
+
+
+def phase_vlm_encoder_kernels() -> dict:
+    """Phase 2 at phases 3k's and 3l's shapes: the flash forward
+    (FLASH_VLM_ENC_PATH) and decode kernel (DECODE_VLM_PATH) against their
+    plain versions (ATTN_TOL; bf16 also ``hold_bf16``), the backward over
+    FLASH_BWD_SWEEP_VLM_ENC as :func:`flash_bwd_sweep` holds it and at
+    FLASH_BWD_VLM_ENC_PATH as :func:`flash_bwd_row` does, then the
+    timed rows: FLASH_VLM_ENC_TIMED, FLASH_BWD_VLM_ENC_TIMED and
+    DECODE_VLM_TIMED, each beside its bound and SDPA's time."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_kernel)
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    bf16: dict = {}
+    for b, sq, sk, h, m, d, causal in FLASH_VLM_ENC_PATH:
+        dtypes = (torch.float32,) + ((torch.bfloat16,) if h == HUBERT_HEADS
+                                     else ())
+        for dtype in dtypes:
+            q, k, v = _attn_inputs(gen, dtype, (b, sq, h, d), (b, sk, m, d),
+                                   (b, sk, m, d))
+            out = flash_attention_kernel(q, k, v, causal=causal)
+            ref = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            what = (f"flash_attention b{b} sq{sq} sk{sk} h{h} m{m} d{d} "
+                    f"causal={causal}")
+            err = float((out.float() - ref.float()).abs().max())
+            if dtype == torch.float32:
+                check(err <= ATTN_TOL["flash_attention"]["float32"],
+                      f"{what}: max |kernel - plain| {err:.3e}")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+            else:
+                hold_bf16(what, [out], [ref], bf16,
+                          flash_rows(q, k, v, causal))
+            del q, k, v, out, ref
+    for b, S, lengths in DECODE_VLM_PATH:
+        q, k, v = _attn_inputs(gen, torch.float32, (b, VLM_HEADS,
+                                                    VLM_HEAD_DIM),
+                               (b, S, VLM_KV_HEADS, VLM_HEAD_DIM),
+                               (b, S, VLM_KV_HEADS, VLM_HEAD_DIM))
+        for length in lengths:
+            err = float((decode_attention_kernel(q, k, v, length)
+                         - decode_attention_plain(q, k, v, length))
+                        .abs().max())
+            check(err <= ATTN_TOL["decode_attention"]["float32"],
+                  f"decode_attention b{b} S{S} length{length} (vlm heads): "
+                  f"max |kernel - plain| {err:.3e}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+    sweep = flash_bwd_sweep(gen, FLASH_BWD_SWEEP_VLM_ENC)
+    bwd = []
+    for b, sq, sk, h, m, d, causal, dtypes in FLASH_BWD_VLM_ENC_PATH:
+        for dtype in dtypes:
+            row = flash_bwd_row(gen, b, sq, h, m, d, getattr(torch, dtype),
+                                causal=causal, sk=sk)
+            bwd.append({k: row[k] for k in ("shape", "max_abs_err",
+                                            "max_abs_grad")})
+    print(f"  vlm and encoder shapes: {len(FLASH_VLM_ENC_PATH)} flash, "
+          f"{sum(len(x[2]) for x in DECODE_VLM_PATH)} decode and "
+          f"{len(bwd)} backward holds; max |kernel - plain| fp32 "
+          + json.dumps(worst) + "; bf16 " + json.dumps(bf16))
+    flash = [flash_timed_row(gen, b, sq, h, m, d, sk=sk, causal=causal)
+             for b, sq, sk, h, m, d, causal in FLASH_VLM_ENC_TIMED]
+    flash_bwd = [flash_bwd_row(gen, b, sq, h, m, d, torch.float32,
+                               timed=True, causal=causal, sk=sk)
+                 for b, sq, sk, h, m, d, causal in FLASH_BWD_VLM_ENC_TIMED]
+    decode = [decode_timed_row(gen, b, S, length, heads=_VLM_ATTN)
+              for b, S, length in DECODE_VLM_TIMED]
+    for row in flash + decode:
+        check(row["repeat_bitwise"] and row["library_max_abs_err"] <= 1e-4
+              and row["max_abs_err"] <= 2e-5,
+              f"timed {row['shape']}: {json.dumps(row)}")
+    seconds = time.time() - t0
+    print(f"  vlm and encoder shapes: {seconds:.1f} s")
+    torch.cuda.empty_cache()
+    return {"flash": flash, "flash_bwd": flash_bwd, "decode": decode,
+            "max_abs_err": worst, "bf16_vs_plain": bf16,
+            "bwd_held": bwd, "bwd_sweep_rel_err": sweep,
+            "seconds": seconds}
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype, model_like: bool):
@@ -3622,15 +3814,25 @@ def _reset_path_launches() -> None:
     sk.reset_launches()
 
 
+def _attention_layers(cfg) -> int:
+    """The attention calls one pass makes: one per layer (the vlm's self
+    and cross layers alike, the encoder's), one per shared-block use
+    (hybrid), none (ssm)."""
+    layers = cfg.num_layers
+    return {"dense": layers, "moe": layers, "vlm": layers,
+            "encoder": layers, "ssm": 0,
+            "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
+
+
 def _want_launches(cfg, steps: int, forwards: int) -> dict:
     """Exact launch counts of ``steps`` decode steps and ``forwards``
     forwards: flash per attention layer per forward, decode attention per
     attention layer per step (none with MLA: its decode is plain products
-    in the latent space), the SSD scan per Mamba2 layer per forward (never
+    in the latent space; the vlm's cross attention is one of each in its
+    group's last layer), the SSD scan per Mamba2 layer per forward (never
     in a decode step: that is the single-step recurrence)."""
     layers = cfg.num_layers
-    attn = {"dense": layers, "moe": layers, "ssm": 0,
-            "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
+    attn = _attention_layers(cfg)
     mamba = layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn * forwards,
             "decode_attention": 0 if cfg.use_mla else attn * steps,
@@ -4098,6 +4300,11 @@ def _full_width(name: str, cpu: bool = True, layers: int | None = None):
                       if cfg.num_shared_experts else "")
                    + (f", {cfg.first_k_dense} dense first layer of "
                       f"{cfg.dense_d_ff}" if cfg.first_k_dense else ""))
+    elif cfg.family == "vlm":
+        widths += (f"; every {cfg.cross_attn_every}th layer cross attention "
+                   f"on {cfg.num_image_tokens} image tokens")
+    elif cfg.family == "encoder":
+        widths += ", bidirectional, frames in"
     elif cfg.family != "dense":
         widths = (f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
                   f"{cfg.ssm_state}" + (f"; every {cfg.attn_every} layers "
@@ -4545,8 +4752,7 @@ def _want_train_launches(cfg, grads: int, evals: int, syncs: int = 0) -> dict:
     Mamba2 layer per forward, their backward kernels per gradient, and
     quantize8_ef per int8 merge of a worker's update."""
     layers = cfg.num_layers
-    attn = {"dense": layers, "moe": layers, "ssm": 0,
-            "hybrid": layers // max(cfg.attn_every, 1)}[cfg.family]
+    attn = _attention_layers(cfg)
     mamba = layers if cfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": attn * (grads + evals),
             "flash_attention_bwd": attn * grads,
@@ -5198,13 +5404,15 @@ def _ssm_trials():
     return _zoo_trials(SSM_TRAIN_MODELS)
 
 
-def cpu_side(out: Path) -> None:
+def cpu_side(out: Path, side: Path) -> None:
     """3h's CPU sides, in a helper process (``python3 chip_smoke.py
-    --cpu-side PATH``) that runs beside phases 2-3g: first 3g (c)'s CPU
-    run (``PATH.3g``), then (b)'s full-width CPU gradients (both models,
-    fp32 and bf16; mamba2's fp32 also with the SSD in float64) and the CPU
-    run of (c)'s full-width fp32 trial; then, once the main process has
-    reached 3g (``PATH.go``: phases 2-3f time kernels and serving loops
+    --cpu-side PATH SIDE``) that runs beside phases 2-3g: first 3g (c)'s CPU
+    run (``PATH.3g``), then the CPU run of (c)'s full-width fp32 trial and
+    (b)'s full-width CPU gradients (both models, fp32 and bf16; mamba2's
+    fp32 also with the SSD in float64), the heavy part, once the third
+    helper (SIDE, its output) has left its card slot and freed the vlm's
+    host memory (``SIDE.slot``); then, once the main process has reached
+    3g (``PATH.go``: phases 2-3f time kernels and serving loops
     and must have the card alone), (b)'s card gradients, each with a
     second call read in situ, held against the CPU's
     (:func:`_vs_cpu_grad`), and mamba2's planted controls
@@ -5221,6 +5429,14 @@ def cpu_side(out: Path) -> None:
     _write_part(out, ".3g", smollm)
     seconds["3g_c"] = time.time() - t0
     t0 = time.time()
+    trial = _trial_run(_trial_spec(SSM_TRAIN_MODELS[0]), "cpu", "float32")
+    del trial["cfg"]
+    seconds["c"] = time.time() - t0
+    t0 = time.time()
+    while not side.with_suffix(".slot").exists():
+        time.sleep(0.5)
+    seconds["waited_slot"] = time.time() - t0
+    t0 = time.time()
     inits = {name: _arch_full(name, "float32").init(
         torch.Generator().manual_seed(0)) for name in SSM_TRAIN_MODELS}
     full = [(name, dtype) for name in SSM_TRAIN_MODELS
@@ -5230,10 +5446,6 @@ def cpu_side(out: Path) -> None:
     cpus[0]["ssd64"] = _cpu_grad(*full[0], inits[full[0][0]],
                                  ssd_float64=True)
     seconds["b_cpu"] = time.time() - t0
-    t0 = time.time()
-    trial = _trial_run(_trial_spec(SSM_TRAIN_MODELS[0]), "cpu", "float32")
-    del trial["cfg"]
-    seconds["c"] = time.time() - t0
     t0 = time.time()
     while not out.with_suffix(".go").exists():
         time.sleep(0.5)
@@ -5571,10 +5783,12 @@ class CpuSide:
     (:meth:`go`): :func:`cpu_side` (``--cpu-side``), its card work beside
     3g and 3h, waited for at 3h (:meth:`result`); or :func:`cpu_side_moe`
     (``--cpu-side-moe``, given the first helper's output, ``after``),
-    whose parts 3h reads (:meth:`part`) and which is waited for after 3i.
-    Stopped by :meth:`stop` whatever happens."""
+    whose parts 3h reads (:meth:`part`) and which is waited for after 3i;
+    or, started before phase 1's build, :func:`cpu_side_vlm`
+    (``--cpu-side-vlm``), let onto the card after 3c and waited for after
+    3k.  Stopped by :meth:`stop` whatever happens."""
 
-    PARTS = (".go", ".3g", ".3h", ".witness")
+    PARTS = (".go", ".3g", ".3h", ".witness", ".ready", ".slot")
 
     def __init__(self, flag: str = "--cpu-side", name: str = "cpu_side",
                  after: "CpuSide | None" = None):
@@ -5731,14 +5945,19 @@ class _flash_in_situ:
     each call's own inputs against the plain versions: fp32 within
     FLASH_BWD_TOL of the largest plain gradient (ATTN_TOL for the
     output), bf16 by ``hold_bf16`` (the output with the tie witness, the
-    gradients by the gradient rules).  Its launches are not the path's."""
+    gradients by the gradient rules).  Its launches are not the path's.
+    Only the entering thread's calls are kept (a CPU side may run the
+    models in another thread meanwhile)."""
 
     def __enter__(self):
         from repro_torch.models import attention as attn
         self._kept, self.calls = attn.sdpa, []
+        thread = threading.get_ident()
 
         def sdpa(q, k, v, *, causal):
             out = self._kept(q, k, v, causal=causal)
+            if threading.get_ident() != thread:
+                return out
             call = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
                     "causal": causal}
             self.calls.append(call)
@@ -6197,6 +6416,921 @@ def phase_train_moe(helper: "CpuSide", b: dict) -> dict:
     return out
 
 
+# ------------------------------------ 3k, 3l: the vlm and encoder families ---
+
+VLM = "llama-3.2-vision-90b"
+HUBERT = "hubert-xlarge"
+#: 3k serves llama-3.2-vision-90b at full width over its first VLM_GROUPS
+#: of 20 groups (a group: 4 self-attention blocks, then one cross-attention
+#: block on the image K/V): 10 of 100 layers, 10,657,898,496 parameters,
+#: 42.6 GB in fp32 (the whole model, 351 GB, fits no card); its decode
+#: crosses a group boundary of the stacked cache
+VLM_GROUPS = 2
+#: (a) the teacher-forced decode: b, positions (VLM_IMAGE image tokens)
+VLM_DECODE = (2, 32)
+#: (c) the Generator's request: b, prompt, new greedy tokens
+VLM_GENERATE = (2, 16, 16)
+#: (e) card vs CPU over the first group (5 layers, 6,379,626,496
+#: parameters, 25.5 GB a side): a forward at b 1 over 32 positions, then
+#: 8 decode steps
+VLM_CPU_FORWARD, VLM_CPU_STEPS = (1, 32), 8
+#: (f) one fp32 gradient of the first group, card vs CPU
+VLM_GRAD_BATCH = (4, 64)
+#: host memory (GiB) the first group's CPU gradient needs: its parameters
+#: and gradient (51 GB) and the activations.  With less available when the
+#: third helper starts, (f) is held on the card alone (every flash
+#: attention in situ) and card vs CPU on the reduced config only
+VLM_GRAD_HOST_GIB = 60
+#: (f) the reduced vlm's fp32 gradient card vs CPU (always): b, s
+VLM_REDUCED_GRAD_BATCH = (2, 16)
+#: 3l: hubert-xlarge at full width and depth (48 layers, 944,487,680
+#: parameters, 3.8 GB in fp32): a forward at b 8 over 512 frames, two steps
+#: of its own TrainConfig (AdamW, lr 3e-4, clip 1.0) at b 2 over 128
+HUBERT_FORWARD = (8, 512)
+HUBERT_TRAIN = (2, 128)
+#: the AdamW, 8-bit AdamW and SGD steps card vs CPU from the card's first
+#: gradient with the clip off, over the first layer of every stacked leaf
+#: and the other leaves whole (``_layer0``: the update is elementwise, so
+#: this is the whole step's arithmetic at 2.6% of its CPU time):
+#: parameters within this many ulps of their leaf's largest |p|.  From its
+#: own gradient the CPU's first AdamW step would part further: u = m^ /
+#: (sqrt(v^) + 1e-8) ~ sign(g) moves by up to dg / 4e-8 where |g| lies
+#: near 1e-8 (an H100 beside its host read |dp| / lr 1.4e-2 at full width)
+OPT_CARD_VS_CPU_ULPS = 1
+#: the card's first clipped step (hubert's TrainConfig: clip 1.0 against a
+#: gradient norm near 19) against the CPU's from the card's gradient: the
+#: CPU clips the whole gradient by its own global norm (each leaf's sum of
+#: squares in its own order, so the scale can part by an ulp) and steps
+#: ``_layer0``.  The global norm, the first moments (linear in the scale),
+#: the second moments and the parameters within this many ulps of each
+#: leaf's largest |x|: an H100 beside its host read 0 on all four (the
+#: norms equal bit for bit), and one ulp allows another summation order
+OPT_CLIP_ULPS = 1
+#: the planted wrong clip (each leaf clipped by its own norm) must miss
+#: OPT_CLIP_ULPS by at least this factor on the first moments
+OPT_CLIP_CONTROL_MARGIN = 100
+#: the third helper's CPU priority, the lowest: its CPU sides take the
+#: cores that the build, phases 2-3c and the other helpers leave idle
+VLM_SIDE_NICE = 19
+
+
+# --- parameters that are the same bits on the card and the CPU
+
+#: a counter-built leaf is a sequence of COUNTER_SEGMENT-element pieces of
+#: one pool of COUNTER_POOL uniform values, each piece at a hashed offset
+COUNTER_POOL = 2 ** 26
+COUNTER_SEGMENT = 1024
+#: the pool's half-width in units of a leaf's scale: the variance of the
+#: zoo's normal truncated to [-2, 2] (0.773741)
+COUNTER_HALF_WIDTH = (3 * 0.773741) ** 0.5
+
+
+def _counter_hash(start: int, n: int, salt: int, device: str):
+    """A 32-bit hash (int64 tensor) of the counters ``start .. start + n``
+    and ``salt``: integer steps only, each product below 2^63, so the
+    card and the CPU compute the same values."""
+    import torch
+    mask = 0xFFFFFFFF
+    x = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    x.mul_(0x6F4F2A35).add_(salt).bitwise_and_(mask)
+    for shift, mul in ((16, 0x7FEB352D), (15, 0x4B3B8E35)):
+        x.bitwise_xor_(x >> shift).mul_(mul).bitwise_and_(mask)
+    return x.bitwise_xor_(x >> 16)
+
+
+def _counter_params(cfg, device: str, seed: int = 0) -> dict:
+    """``cfg``'s parameters in fp32 on ``device``, the same bits on the card
+    and the CPU, so that a helper builds on the host what the card builds,
+    with no copy between them and no truncated normal drawn on the host
+    (slow there at the vlm group's 6.4 billion elements).  A pool of
+    COUNTER_POOL values uniform in (-1, 1) comes from
+    :func:`_counter_hash` by exact fp32 steps; a leaf of scale s is
+    COUNTER_SEGMENT-element pieces of the pool at hashed offsets, times
+    fp32(COUNTER_HALF_WIDTH x s) (one rounded product: the zoo's
+    truncated normal's variance); norm scales are ones and scale 0 zeros,
+    as :func:`init_params`."""
+    import torch
+    from repro_torch.models.common import is_spec, tree_map
+    from repro_torch.models.transformer import model_spec
+    seg, span = COUNTER_SEGMENT, COUNTER_POOL - COUNTER_SEGMENT + 1
+    chunk = 2 ** 20
+    pool = torch.empty(COUNTER_POOL, dtype=torch.float32, device=device)
+    for off in range(0, COUNTER_POOL, chunk):
+        torch.sub((_counter_hash(off, chunk, seed, device) >> 9).float(),
+                  4194303.5, out=pool[off:off + chunk])
+    pool.mul_(2.0 ** -22)                       # exact: (-1, 1)
+    pieces = pool.unfold(0, seg, 1)             # every piece, as views
+    place = iter(range(1, 1 << 30))
+
+    def one(s):
+        shape, _axes, scale = s
+        salt = (seed * 0x3C6EF35F + next(place) * 0x2545F491) & 0xFFFFFFFF
+        if scale == 0.0:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        if scale == 1.0 and len(shape) == 1:
+            return torch.ones(shape, dtype=torch.float32, device=device)
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        flat = out.view(-1)
+        rows = -(-flat.numel() // seg)
+        offs = _counter_hash(0, rows, salt, device) % span
+        whole = flat.numel() // seg
+        torch.index_select(pieces, 0, offs[:whole],
+                           out=flat[:whole * seg].view(whole, seg))
+        if whole < rows:
+            flat[whole * seg:] = pieces[int(offs[whole])][
+                :flat.numel() - whole * seg]
+        a = torch.tensor(COUNTER_HALF_WIDTH * scale,
+                         dtype=torch.float32).item()
+        return out.mul_(a)
+    return tree_map(one, model_spec(cfg), is_spec)
+
+
+def _counter_sample(params) -> str:
+    """sha256 of every 4099th element of every leaf (fp32 bits, the
+    leaves in order): the card's and the host's counter-built parameters
+    are held equal by it."""
+    digest = hashlib.sha256()
+    for _path, t in _paths(params):
+        digest.update(t.reshape(-1)[::4099].cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _paths(tree, path=()) -> list:
+    """[(path, leaf)] of a nested dict, keys in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _paths(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def _tree_gaps(a, ref) -> dict:
+    """max |a - ref| / max |ref| per leaf ("x/y"), on ``a``'s device."""
+    out = {}
+    for (path, x), (_, y) in zip(_paths(a), _paths(ref)):
+        x, y = x.float(), y.to(x.device).float()
+        big = float(y.abs().max())
+        out["/".join(path)] = float((x - y).abs().max()) / big if big else 0.0
+    return out
+
+
+#: the elements of a host tensor staged at a time through one pinned buffer
+#: to the card (:func:`_staged_gaps`)
+STAGE_CHUNK = 2 ** 26
+
+
+def _staged_gaps(card, host) -> dict:
+    """:func:`_tree_gaps` of a card tree against a host tree of fp32
+    leaves, each host leaf sent to the card in STAGE_CHUNK pieces through
+    one pinned buffer (the vlm group's gradient is 25.5 GB)."""
+    import torch
+    buf = torch.empty(STAGE_CHUNK, dtype=torch.float32, pin_memory=True)
+    out = {}
+    for (path, x), (_, y) in zip(_paths(card), _paths(host)):
+        xf, yf = x.reshape(-1), y.reshape(-1)
+        diff = big = 0.0
+        for off in range(0, yf.numel(), STAGE_CHUNK):
+            n = min(STAGE_CHUNK, yf.numel() - off)
+            buf[:n].copy_(yf[off:off + n])
+            ref = buf[:n].to(x.device, non_blocking=True)
+            diff = max(diff, float((xf[off:off + n] - ref).abs().max()))
+            big = max(big, float(ref.abs().max()))     # the buffer is free
+        out["/".join(path)] = diff / big if big else diff
+    return out
+
+
+def _train_steps(cfg, train, params, batches) -> dict:
+    """One step of ``train``'s optimizer per batch: the losses, the grad
+    norms, the first gradient, the parameters and state after the first
+    step."""
+    from repro_torch.models.transformer import value_and_grad
+    from repro_torch.optim import make_optimizer
+    opt = make_optimizer(train)
+    state = opt.init(params)
+    out = {"losses": [], "grad_norms": []}
+    for batch in batches:
+        loss, grads = value_and_grad(params, batch, cfg)
+        params, state, stats = opt.update(grads, state, params)
+        out["losses"].append(float(loss))
+        out["grad_norms"].append(float(stats["grad_norm"]))
+        out.setdefault("first_grad", grads)
+        out.setdefault("first_params", params)
+        out.setdefault("first_state", state)
+        del grads
+    return out
+
+
+def _host_gib() -> float:
+    """MemAvailable of the host, GiB (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def _layer0(params) -> dict:
+    """The first layer's slice of every stacked leaf (``blocks``), the
+    other leaves whole, as views."""
+    from repro_torch.models.common import tree_map
+    return dict(params, blocks=tree_map(lambda a: a[:1], params["blocks"]))
+
+
+def _loss(cfg, params, batch):
+    from repro_torch.models.transformer import loss_fn
+    return loss_fn(params, batch, cfg)[0]
+
+
+def _ulps(x, ref) -> float:
+    """max |x - ref| in ulps of the largest |ref| (fp32)."""
+    import math
+    import torch
+    big = float(ref.abs().max())
+    if not big:
+        return 0.0 if not bool(x.any()) else float("inf")
+    ulp = torch.finfo(torch.float32).eps * 2.0 ** math.floor(math.log2(big))
+    return float((x.float() - ref.float()).abs().max()) / ulp
+
+
+def _tree_ulps(a, ref) -> float:
+    """The largest :func:`_ulps` over the leaves."""
+    return max(_ulps(x, y.to(x.device))
+               for (_, x), (_, y) in zip(_paths(a), _paths(ref)))
+
+
+def _teacher_forced(model, toks, img, max_seq: int):
+    """Every decode step's logits (b, s, V) over ``toks`` (b, s), the
+    cross cache primed from ``img`` (None: left zero)."""
+    import torch
+    b, s = toks.shape
+    steps = []
+    with torch.no_grad():
+        cache = model.init_cache(b, max_seq)
+        if img is not None:
+            model.prime_cross_cache(cache, img)
+        for pos in range(s):
+            logits, cache = model.decode_step(cache, toks[:, pos], pos)
+            steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
+def _vlm_arch(groups: int = 1, reduced: bool = False):
+    """The vlm in fp32 at full width over its first ``groups`` groups, or
+    its reduced config."""
+    from repro_torch.configs import get_arch, get_reduced
+    arch = (get_reduced if reduced else get_arch)(VLM)
+    cfg = arch.model
+    layers = cfg.num_layers if reduced else groups * cfg.cross_attn_every
+    return arch.replace(model=cfg.replace(dtype="float32", num_layers=layers))
+
+
+def _hubert_arch():
+    from repro_torch.configs import get_arch
+    arch = get_arch(HUBERT)
+    return arch.replace(model=arch.model.replace(dtype="float32"))
+
+
+def _vlm_batches(device: str) -> dict:
+    """(e)'s, (f)'s and the reduced gradient's batches."""
+    from repro_torch.launch.specs import make_batch
+    return {"e": make_batch(_vlm_arch(), *VLM_CPU_FORWARD, seed=8,
+                            device=device),
+            "f": make_batch(_vlm_arch(), *VLM_GRAD_BATCH, seed=10,
+                            device=device),
+            "reduced": make_batch(_vlm_arch(reduced=True),
+                                  *VLM_REDUCED_GRAD_BATCH, seed=11,
+                                  device=device)}
+
+
+def _vlm_cpu_side() -> dict:
+    """3k (e)'s and (f)'s CPU sides, in the third helper before the slot:
+    the first group counter-built on the host, its forward and decode
+    steps, its fp32 gradient (when the host had VLM_GRAD_HOST_GIB free at
+    the start), and the reduced config's gradient."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import value_and_grad
+    out, seconds = {"host_gib": _host_gib()}, {}
+    t0 = time.time()
+    cfg = _vlm_arch().model
+    params = _counter_params(cfg, "cpu")
+    out["sample"] = _counter_sample(params)
+    batches = _vlm_batches("cpu")
+    seconds["init"] = time.time() - t0
+    t0 = time.time()
+    model = Model(cfg, params)
+    eb = batches["e"]
+    with torch.no_grad():
+        out["forward"] = model.forward(eb)[0]
+    out["steps"] = _teacher_forced(model, eb["tokens"][:, :VLM_CPU_STEPS],
+                                   eb["image_embeds"], VLM_CPU_STEPS)
+    seconds["e"] = time.time() - t0
+    if out["host_gib"] >= VLM_GRAD_HOST_GIB:
+        t0 = time.time()
+        loss, out["grad"] = value_and_grad(params, batches["f"], cfg)
+        out["loss"] = float(loss)
+        seconds["f"] = time.time() - t0
+    del model, params
+    rcfg = _vlm_arch(reduced=True).model
+    loss, grad = value_and_grad(_counter_params(rcfg, "cpu"),
+                                batches["reduced"], rcfg)
+    out["reduced"] = {"loss": float(loss), "grad": grad}
+    out["seconds"] = seconds
+    return out
+
+
+def _vlm_card_side(cpu: dict) -> dict:
+    """3k (e), (f) in the slot: the first group counter-built on the card
+    (its sampled bits equal the host's), (e) its forward and decode steps
+    against the CPU's within SERVE_TOL, (f) its fp32 gradient with every
+    flash attention held in situ, against the CPU's (FULL_LOSS_RTOL, each
+    leaf FULL_FP32_GRAD_TOL) where the host could hold it, and the reduced
+    config's gradient card vs CPU at the same limits; launches exact."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import value_and_grad
+    t0 = time.time()
+    cfg = _vlm_arch().model
+    params = _counter_params(cfg, "cuda")
+    check(_counter_sample(params) == cpu["sample"],
+          "3k (e): the card's counter-built parameters differ from the "
+          "host's")
+    group = Model(cfg, params)
+    batches = {k: {n: t.cuda() for n, t in b.items()}
+               for k, b in _vlm_batches("cpu").items()}
+    init_s = time.time() - t0
+    t0 = time.time()
+    eb = batches["e"]
+    _reset_path_launches()
+    with torch.no_grad():
+        fwd = group.forward(eb)[0]
+    steps = _teacher_forced(group, eb["tokens"][:, :VLM_CPU_STEPS],
+                            eb["image_embeds"], VLM_CPU_STEPS)
+    launches = _path_launches()
+    want = _want_launches(cfg, VLM_CPU_STEPS, 1)
+    check(launches == want, f"3k (e): launches {launches}, want {want}")
+    e_err = float((fwd.cpu() - cpu["forward"]).abs().max())
+    s_err = float((steps.cpu() - cpu["steps"]).abs().max())
+    e_scale = float(cpu["forward"].abs().max())
+    rows = {"e": {"batch": VLM_CPU_FORWARD[0],
+                  "positions": VLM_CPU_FORWARD[1], "steps": VLM_CPU_STEPS,
+                  "forward_max_abs_err": e_err, "steps_max_abs_err": s_err,
+                  "logits_max_abs": e_scale, "seconds": time.time() - t0,
+                  "launches": dict(launches)}}
+    print(f"  3k (e) the first group card vs CPU: forward b"
+          f"{VLM_CPU_FORWARD[0]} s{VLM_CPU_FORWARD[1]} {e_err:.3e}, "
+          f"{VLM_CPU_STEPS} decode steps {s_err:.3e} (largest |logit| "
+          f"{e_scale:.3f})", flush=True)
+    check(max(e_err, s_err) <= SERVE_TOL * max(1.0, e_scale),
+          f"3k (e): card vs CPU logits differ by {max(e_err, s_err):.3e}")
+    del fwd, steps
+    gb, gs = VLM_GRAD_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    t0 = time.time()
+    with _flash_in_situ() as situ:
+        loss, grads = value_and_grad(params, batches["f"], cfg)
+    torch.cuda.synchronize()
+    f_s = time.time() - t0
+    got = _train_launches()
+    want = _want_train_launches(cfg, grads=1, evals=0)
+    check(got == want, f"3k (f): launches {got}, want {want}")
+    _add(launches, got)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    in_situ = situ.hold("3k (f)")
+    f = {"batch": gb, "positions": gs, "card_s": f_s, "peak_gib": peak,
+         "loss_card": float(loss), "flash_in_situ": in_situ,
+         "launches": got, "host_gib": cpu["host_gib"]}
+    if "grad" in cpu:
+        t0 = time.time()
+        gaps = _staged_gaps(grads, cpu["grad"])
+        worst = max(gaps, key=gaps.get)
+        f.update(loss_cpu=cpu["loss"], rel_loss=abs(float(loss) - cpu["loss"])
+                 / abs(cpu["loss"]), worst_leaf=worst,
+                 worst_leaf_rel=gaps[worst], compare_s=time.time() - t0)
+    rows["f"] = f
+    print(f"  3k (f) the first group's gradient b{gb} s{gs}: {f_s:.2f} s on "
+          f"the card, peak {peak:.2f} GiB, loss card {float(loss)!r}"
+          + (f" cpu {f['loss_cpu']!r} (rel {f['rel_loss']:.3e}), worst leaf "
+             f"{f['worst_leaf']} {f['worst_leaf_rel']:.3e} (compared in "
+             f"{f['compare_s']:.1f} s)" if "grad" in cpu else
+             f"; the host had {cpu['host_gib']:.1f} GiB free at the start, "
+             f"under VLM_GRAD_HOST_GIB {VLM_GRAD_HOST_GIB}: held in situ and "
+             f"on the reduced config only")
+          + f"; flash in situ {json.dumps(in_situ)}", flush=True)
+    if "grad" in cpu:
+        check(f["rel_loss"] <= FULL_LOSS_RTOL,
+              f"3k (f): loss rel {f['rel_loss']:.3e}")
+        check(f["worst_leaf_rel"] <= FULL_FP32_GRAD_TOL,
+              f"3k (f): gradient leaf {worst} {f['worst_leaf_rel']:.3e}")
+    del grads, params, group, loss
+    torch.cuda.empty_cache()
+    rcfg = _vlm_arch(reduced=True).model
+    rparams = _counter_params(rcfg, "cuda")
+    _reset_train_launches()
+    loss, grads = value_and_grad(rparams, batches["reduced"], rcfg)
+    got = _train_launches()
+    want = _want_train_launches(rcfg, grads=1, evals=0)
+    check(got == want, f"3k (f) reduced: launches {got}, want {want}")
+    _add(launches, got)
+    ref = cpu["reduced"]
+    gaps = _tree_gaps(grads, ref["grad"])
+    worst = max(gaps, key=gaps.get)
+    rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    rows["reduced"] = {"batch": VLM_REDUCED_GRAD_BATCH, "rel_loss": rel,
+                       "worst_leaf": worst, "worst_leaf_rel": gaps[worst],
+                       "launches": got}
+    print(f"  3k (f) the reduced vlm's gradient card vs CPU: loss rel "
+          f"{rel:.3e}, worst leaf {worst} {gaps[worst]:.3e}", flush=True)
+    check(rel <= FULL_LOSS_RTOL and gaps[worst] <= FULL_FP32_GRAD_TOL,
+          f"3k (f) reduced: loss rel {rel:.3e}, leaf {worst} "
+          f"{gaps[worst]:.3e}")
+    return {"runs": rows, "launches": launches, "init_s": init_s}
+
+
+class _optim_arith:
+    """Inside the block the optimizers' fused multiply-adds and square
+    roots are ``fma(a, b, c)`` and ``sqrt(x)`` in place of the port's
+    (:data:`FLOAT64`: the CPU's route through float64 on every device;
+    :data:`PLAIN_FP32`: ``a * b + c`` rounded twice and PyTorch's sqrt):
+    what the port's card arithmetic is timed and held against."""
+
+    def __init__(self, fma, sqrt):
+        self.fma, self.sqrt = fma, sqrt
+
+    def __enter__(self):
+        from repro_torch import optim
+        self._kept = optim._fma, optim._sqrt
+        optim._fma, optim._sqrt = self.fma, self.sqrt
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import optim
+        optim._fma, optim._sqrt = self._kept
+
+
+def _plain_fma(a, b, c):
+    return b * a + c
+
+
+def _torch_sqrt(x):
+    return x.sqrt()
+
+
+def _float64_route():
+    from repro_torch import optim
+    return optim._fma64, optim._sqrt64
+
+
+PLAIN_FP32 = (_plain_fma, _torch_sqrt)
+
+
+def _update_ms(opt, grads, state, params, reps: int = 3) -> float:
+    """Median CUDA-event time of ``opt.update`` alone, ms."""
+    import torch
+    times = []
+    for _ in range(reps + 1):                 # the first call warms up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = opt.update(grads, state, params)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    return statistics.median(times[1:])
+
+
+def _encoder_card_side() -> dict:
+    """3l's card side in the slot: hubert-xlarge counter-built on the card,
+    a forward at HUBERT_FORWARD, two steps of its own TrainConfig at
+    HUBERT_TRAIN in fp32 and bf16, the AdamW, 8-bit AdamW and SGD steps
+    from the first fp32 gradient with the clip off (``_layer0``), launches
+    exact, and the optimizer update alone timed with the port's card
+    arithmetic (held equal bit for bit to the CPU's float64 route) and in
+    plain fp32.  What the CPU holds afterwards goes to the host
+    (``host``)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import Model
+    from repro_torch.models.common import DTYPES, tree_map
+    from repro_torch.models.transformer import value_and_grad
+    from repro_torch.optim import make_optimizer
+    t_phase = time.time()
+    arch = _hubert_arch()
+    cfg = arch.model
+    params32 = _counter_params(cfg, "cuda")
+    model = Model(cfg, params32)
+    host = {"sample": _counter_sample(params32)}
+    launches: dict = {}
+    b, s = HUBERT_FORWARD
+    batch = make_batch(arch, b, s, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _reset_train_launches()
+    t0 = time.time()
+    with torch.no_grad():
+        logits, _ = model.forward(batch)
+    torch.cuda.synchronize()
+    fwd_s = time.time() - t0
+    got = _train_launches()
+    check(got == _want_train_launches(cfg, grads=0, evals=1),
+          f"3l forward: launches {got}")
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+          and bool(logits.isfinite().all()), f"3l forward: {logits.shape}")
+    _add(launches, got)
+    del logits, batch
+    b, s = HUBERT_TRAIN
+    batches = [make_batch(arch, b, s, seed=1 + i, device="cuda")
+               for i in range(2)]
+    runs, card = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        a = arch.replace(model=cfg.replace(dtype=dtype))
+        params = tree_map(lambda t: t.to(DTYPES[dtype]), params32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_train_launches()
+        t0 = time.time()
+        run = _train_steps(a.model, a.train, params, batches)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = _train_launches()
+        want = _want_train_launches(a.model, grads=2, evals=0)
+        check(got == want, f"3l {dtype} steps: launches {got}, want {want}")
+        check(all(x == x for x in run["losses"] + run["grad_norms"]),
+              f"3l {dtype}: losses {run['losses']}")
+        _add(launches, got)
+        runs[dtype] = {"losses": run["losses"],
+                       "grad_norms": run["grad_norms"], "seconds": seconds,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches": got}
+        card[dtype] = run
+        print(f"  3l two {a.train.optimizer} steps (lr "
+              f"{a.train.learning_rate:g}, clip {a.train.grad_clip:g}) in "
+              f"{dtype} at b{b} s{s}: losses {run['losses']}, grad norms "
+              f"{run['grad_norms']}, {seconds:.2f} s, peak "
+              f"{runs[dtype]['peak_gib']:.2f} GiB", flush=True)
+    g32 = card["float32"]["first_grad"]
+    first = card["float32"]
+    host.update(
+        grad=tree_map(lambda t: t.cpu(), g32),
+        first=tree_map(lambda t: t.cpu(), {
+            "params": _layer0(first["first_params"]),
+            "m": _layer0(first["first_state"]["m"]),
+            "v": _layer0(first["first_state"]["v"])}),
+        bf16_p1=tree_map(lambda t: t.cpu(),
+                         card["bfloat16"]["first_params"]),
+        losses={d: r["losses"] for d, r in runs.items()},
+        grad_norm=first["grad_norms"][0])
+    del card, first
+    # the three optimizers' steps from the card's first fp32 gradient
+    sub_p, sub_g = _layer0(params32), _layer0(g32)
+    opts = {}
+    for name in ("adamw", "adamw8bit", "sgd"):
+        tc = TrainConfig(optimizer=name, learning_rate=arch.train.learning_rate,
+                         weight_decay=arch.train.weight_decay, grad_clip=1e9)
+        opt = make_optimizer(tc)
+        new, state, _ = opt.update(sub_g, opt.init(sub_p), sub_p)
+        opts[name] = tree_map(lambda t: t.cpu(),
+                              {"params": new, "state": state})
+    host["opts"] = opts
+    # the update alone (the arch's AdamW over the whole model), with the
+    # port's arithmetic and with plain fp32, beside one gradient's time
+    opt = make_optimizer(arch.train)
+    state = opt.init(params32)
+    update_ms = {"port": _update_ms(opt, g32, state, params32)}
+    with _optim_arith(*PLAIN_FP32):
+        update_ms["plain_fp32"] = _update_ms(opt, g32, state, params32)
+    with _optim_arith(*_float64_route()):
+        update_ms["float64"] = _update_ms(opt, g32, state, params32)
+        f64 = opt.update(g32, state, params32)
+    port = opt.update(g32, state, params32)
+    update_ms["port_is_float64_bitwise"] = all(
+        _bits_equal(x, y) for (_, x), (_, y) in zip(
+            _paths({"p": port[0], "s": port[1]}),
+            _paths({"p": f64[0], "s": f64[1]})))
+    del state, f64, port
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        value_and_grad(params32, batches[0], cfg)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    update_ms["gradient"] = statistics.median(times)
+    print(f"  3l the AdamW update alone over {model.param_count():,} "
+          f"parameters: {update_ms['port']:.2f} ms with the port's card "
+          f"arithmetic, {update_ms['float64']:.2f} ms through float64 as on "
+          f"the CPU (bit for bit the same: "
+          f"{update_ms['port_is_float64_bitwise']}), "
+          f"{update_ms['plain_fp32']:.2f} ms in plain fp32; one gradient at "
+          f"b{b} s{s} {update_ms['gradient']:.2f} ms (CUDA events)",
+          flush=True)
+    check(update_ms["port_is_float64_bitwise"],
+          "3l: the card's AdamW update parts from the float64 route's")
+    del model, params32, g32, sub_p, sub_g, batches
+    return {"runs": runs, "forward_s": fwd_s, "launches": launches,
+            "update_ms": update_ms, "card_s": time.time() - t_phase,
+            "host": host}
+
+
+def _encoder_hold(card: dict) -> dict:
+    """3l held on the CPU, after the slot, against the card's results: the
+    fp32 loss within FULL_LOSS_RTOL and each gradient leaf within
+    FULL_FP32_GRAD_TOL; the bf16 losses (the second at the card's own
+    parameters after its first step) within FULL_BF16_LOSS_RTOL; the
+    AdamW, 8-bit AdamW and SGD steps from the card's gradient with the
+    clip off (parameters within OPT_CARD_VS_CPU_ULPS, AdamW's moments and
+    the 8-bit codes and scales equal); the first clipped step (the arch's
+    TrainConfig) from the card's gradient within OPT_CLIP_ULPS, and a
+    planted wrong clip that must miss it."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import value_and_grad
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    arch = _hubert_arch()
+    cfg = arch.model
+    seconds, t0 = {}, time.time()
+    params = _counter_params(cfg, "cpu")
+    check(_counter_sample(params) == card["sample"],
+          "3l: the card's counter-built parameters differ from the host's")
+    b, s = HUBERT_TRAIN
+    batches = [make_batch(arch, b, s, seed=1 + i, device="cpu")
+               for i in range(2)]
+    loss, grads = value_and_grad(params, batches[0], cfg)
+    seconds["fp32_grad"] = time.time() - t0
+    losses = card["losses"]
+    rel = abs(losses["float32"][0] - float(loss)) / abs(float(loss))
+    gaps = _tree_gaps(card["grad"], grads)
+    worst_g = max(gaps, key=gaps.get)
+    del grads
+    t0 = time.time()
+    bcfg = cfg.replace(dtype="bfloat16")
+    with torch.no_grad():
+        cpu16 = [float(_loss(bcfg, tree_map(lambda t: t.bfloat16(), params),
+                             batches[0])),
+                 float(_loss(bcfg, card["bf16_p1"], batches[1]))]
+    seconds["bf16_losses"] = time.time() - t0
+    bf16 = [abs(a - c) / abs(c) for a, c in zip(losses["bfloat16"], cpu16)]
+    out = {"fp32_rel_loss": rel, "worst_grad_leaf": worst_g,
+           "worst_grad_rel": gaps[worst_g], "bf16_rel_losses": bf16,
+           "bf16_cpu_losses": cpu16}
+    t0 = time.time()
+    sub_p, sub_g = _layer0(params), _layer0(card["grad"])
+    opts = {}
+    for name in ("adamw", "adamw8bit", "sgd"):
+        tc = TrainConfig(optimizer=name, learning_rate=arch.train.learning_rate,
+                         weight_decay=arch.train.weight_decay, grad_clip=1e9)
+        opt = make_optimizer(tc)
+        new, state, _ = opt.update(sub_g, opt.init(sub_p), sub_p)
+        c = card["opts"][name]
+        bitwise = all(_bits_equal(x, y) for (_, x), (_, y) in zip(
+            _paths(c["params"]), _paths(new)))
+        states: dict = {}
+        for (path, x), (_, y) in zip(_paths(c["state"]), _paths(state)):
+            kind = path[-1] if name == "adamw8bit" else path[0]
+            states[kind] = states.get(kind, True) and _bits_equal(x, y)
+        opts[name] = {"params_bitwise": bitwise,
+                      "params_ulps": _tree_ulps(c["params"], new),
+                      "states_equal": states}
+    out["optimizers"] = opts
+    # the first clipped step: the CPU clips the card's whole gradient by its
+    # own global norm, then steps the first layer with the clip off
+    noclip = make_optimizer(TrainConfig(
+        optimizer=arch.train.optimizer,
+        learning_rate=arch.train.learning_rate,
+        weight_decay=arch.train.weight_decay, grad_clip=1e9))
+
+    def clipped_step(clipped) -> dict:
+        new, state, _ = noclip.update(_layer0(clipped), noclip.init(sub_p),
+                                      sub_p)
+        return {"params": new, "m": state["m"], "v": state["v"]}
+
+    clipped, gnorm = clip_by_global_norm(card["grad"], arch.train.grad_clip)
+    cpu_step = clipped_step(clipped)
+    ulp = torch.finfo(torch.float32).eps * 2.0 ** torch.floor(
+        torch.log2(gnorm)).item()
+    clip = {"grad_norm_card": card["grad_norm"], "grad_norm_cpu": float(gnorm),
+            "grad_norm_ulps": abs(card["grad_norm"] - float(gnorm)) / ulp,
+            **{f"{k}_ulps": _tree_ulps(card["first"][k], cpu_step[k])
+               for k in ("params", "m", "v")}}
+
+    def per_leaf(g):
+        n = g.float().square().sum().sqrt()
+        return g * torch.minimum(torch.ones(()), arch.train.grad_clip / n)
+    planted = clipped_step(tree_map(per_leaf, card["grad"]))
+    clip["planted_m_ulps"] = _tree_ulps(card["first"]["m"], planted["m"])
+    out["clipped_step"] = clip
+    seconds["optimizers"] = time.time() - t0
+    out["seconds"] = seconds
+    print(f"  3l card vs CPU: fp32 loss rel {rel:.3e}, worst gradient leaf "
+          f"{worst_g} {gaps[worst_g]:.3e} of its largest |g|; bf16 losses "
+          f"card {losses['bfloat16']} cpu {cpu16} (rel {bf16}); optimizer "
+          f"steps from the card's gradient, clip off (first layer): "
+          + json.dumps(opts) + "; the first clipped AdamW step: "
+          + json.dumps(clip) + "; CPU seconds "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}),
+          flush=True)
+    check(rel <= FULL_LOSS_RTOL, f"3l fp32 loss: card vs CPU rel {rel:.3e}")
+    check(gaps[worst_g] <= FULL_FP32_GRAD_TOL,
+          f"3l fp32 gradient: {worst_g} {gaps[worst_g]:.3e}")
+    check(max(bf16) <= FULL_BF16_LOSS_RTOL, f"3l bf16 losses: rel {bf16}")
+    for name, o in opts.items():
+        check(all(o["states_equal"].values())
+              and o["params_ulps"] <= OPT_CARD_VS_CPU_ULPS,
+              f"3l {name} step card vs CPU: {o}")
+    check(max(clip[k] for k in ("grad_norm_ulps", "params_ulps", "m_ulps",
+                                "v_ulps")) <= OPT_CLIP_ULPS,
+          f"3l the first clipped step card vs CPU: {clip}")
+    check(clip["planted_m_ulps"] >= OPT_CLIP_CONTROL_MARGIN * OPT_CLIP_ULPS,
+          f"3l a planted wrong clip (each leaf by its own norm) is not "
+          f"caught: {clip}")
+    return out
+
+
+def cpu_side_vlm(out: Path) -> None:
+    """The third helper process (``python3 chip_smoke.py --cpu-side-vlm
+    PATH``), started before phase 1's build at CPU priority VLM_SIDE_NICE,
+    so it takes the cores the build, phases 2-3c and the other helpers
+    leave idle while the host's memory is free: 3k (e)'s and (f)'s CPU
+    sides (:func:`_vlm_cpu_side`, ``PATH.ready``); then, given the card
+    after 3c (``PATH.go``) while the main process waits, 3k (e), (f) and
+    3l's card sides and the holds that need both
+    (:func:`_vlm_card_side`, :func:`_encoder_card_side`; ``PATH.slot``
+    once the card is free again); then, beside phase 3d on, the CPU work
+    on the card's results (:func:`_encoder_hold`).  Writes PATH as JSON;
+    a failed check exits non-zero."""
+    import torch
+    os.nice(VLM_SIDE_NICE)
+    sys.path.insert(0, str(ROOT / "src"))
+    seconds = {}
+    t0 = time.time()
+    cpu = _vlm_cpu_side()
+    seconds["cpu"] = time.time() - t0
+    seconds.update({f"cpu_{k}": v for k, v in cpu["seconds"].items()})
+    _write_part(out, ".ready", {"host_gib": cpu["host_gib"],
+                                "seconds": seconds})
+    torch.zeros(1, device="cuda")       # the context, before the slot
+    t0 = time.time()
+    while not out.with_suffix(".go").exists():
+        time.sleep(0.2)
+    seconds["waited"] = time.time() - t0
+    t0 = time.time()
+    vlm = _vlm_card_side(cpu)
+    del cpu
+    torch.cuda.empty_cache()
+    enc = _encoder_card_side()
+    host = enc.pop("host")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    seconds["slot"] = time.time() - t0
+    _write_part(out, ".slot", {"vlm": vlm, "encoder": enc,
+                               "seconds": seconds})
+    t0 = time.time()
+    held = _encoder_hold(host)
+    seconds["held"] = time.time() - t0
+    out.write_text(json.dumps({"encoder_held": held, "seconds": seconds}))
+
+
+def phase_vlm_encoder_slot(side: "CpuSide") -> dict:
+    """3k (e), (f) and 3l's card sides, between 3c and 3d: the card is the
+    third helper's (:func:`cpu_side_vlm`) while the main process waits,
+    first for the helper's CPU sides if they are not done.  Returns the
+    helper's readings and launches, and the main process's seconds."""
+    import torch
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ready = side.part(".ready")
+    waited = time.time() - t0
+    side.go()
+    slot = side.part(".slot")
+    seconds = time.time() - t0
+    print(f"  the slot: {seconds:.1f} s of the main process ({waited:.1f} s "
+          f"waiting for the helper's CPU sides; host memory free at its "
+          f"start {ready['host_gib']:.1f} GiB); the helper's seconds "
+          + json.dumps({k: round(v, 1) for k, v in slot["seconds"].items()}))
+    return {**slot, "main_s": seconds, "waited_s": waited}
+
+
+def phase_vlm() -> dict:
+    """3k (a)-(d) (see the module docstring): llama-3.2-vision-90b's first
+    VLM_GROUPS groups at full width on the card, seeded there, with no CPU
+    side running.  Returns the readings and launch totals."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.serving import Generator
+    t_phase = time.time()
+    rows: dict = {}
+    totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    arch, model, _ = _full_width(VLM, cpu=False, layers=VLM_GROUPS
+                                 * _vlm_arch().model.cross_attn_every)
+    cfg = arch.model
+    print(f"  {VLM}: layers 0-{cfg.num_layers - 1} of 100 ran (the first "
+          f"{VLM_GROUPS} of 20 groups), full width")
+    b, s = VLM_DECODE
+    batch = make_batch(arch, b, s, seed=7, device="cuda")
+    toks, img = batch["tokens"], batch["image_embeds"]
+    # (a) the forward against the teacher-forced decode steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_path_launches()
+    t0 = time.time()
+    with torch.no_grad():
+        fwd = model.forward({"tokens": toks, "image_embeds": img})[0]
+    steps = _teacher_forced(model, toks, img, s)
+    torch.cuda.synchronize()
+    a_s = time.time() - t0
+    got = _path_launches()
+    want = _want_launches(cfg, s, 1)
+    check(got == want, f"3k (a): launches {got}, want {want}")
+    _add(totals, got)
+    scale = float(fwd.abs().max())
+    err = float((fwd - steps).abs().max())
+    check(err <= SERVE_TOL * max(1.0, scale),
+          f"3k (a): the forward vs its decode steps differ by {err:.3e}")
+    # (b) the control: zeroed image embeddings move the logits past it
+    _reset_path_launches()
+    with torch.no_grad():
+        fwd0 = model.forward({"tokens": toks,
+                              "image_embeds": torch.zeros_like(img)})[0]
+    _add(totals, _path_launches())
+    moved = float((fwd0 - fwd).abs().max())
+    check(moved > 10 * SERVE_TOL * max(1.0, scale),
+          f"3k (b): zeroed image embeddings move the logits by only "
+          f"{moved:.3e}")
+    rows["a"] = {"batch": b, "positions": s, "seconds": a_s,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "forward_vs_decode_max_abs_err": err,
+                 "logits_max_abs": scale, "launches": got,
+                 "zero_image_moves": moved}
+    print(f"  3k (a) at {time.time() - t_phase:.1f} s: forward and {s} "
+          f"decode steps at b{b} (image primed, {cfg.num_image_tokens} "
+          f"tokens): {a_s:.3f} s, forward vs decode {err:.3e} (largest "
+          f"|logit| {scale:.3f}), launches {got}; (b) zeroed image "
+          f"embeddings move the logits {moved:.3e}")
+    del fwd, steps
+    # (c) the Generator: no image primed, as the JAX package's
+    gb, prompt_len, new = VLM_GENERATE
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, cfg.vocab_size, (gb, prompt_len)).astype(
+        np.int32)
+    gen = Generator(arch, model, max_seq=prompt_len + new + 1, device="cuda")
+    recorded = _StepLogits(gen, gb, prompt_len + new)
+    _reset_path_launches()
+    t0 = time.time()
+    try:
+        out = gen.generate(prompts, max_new_tokens=new)
+    finally:
+        recorded.stop()
+    torch.cuda.synchronize()
+    c_s = time.time() - t0
+    got = _path_launches()
+    want = _want_launches(cfg, prompt_len + new, 0)
+    check(gen.decode_steps == prompt_len + new and got == want,
+          f"3k (c): {gen.decode_steps} steps, launches {got}, want {want}")
+    _add(totals, got)
+    card = recorded.logits(prompt_len + new - 1)
+    out_t = torch.from_numpy(out).long().cuda()
+    _reset_path_launches()
+    with torch.no_grad():
+        fwd0 = model.forward({"tokens": out_t[:, :-1],
+                              "image_embeds": torch.zeros(
+                                  gb, cfg.num_image_tokens, cfg.d_model,
+                                  device="cuda")})[0].cpu()
+    _add(totals, _path_launches())
+    gerr = float((fwd0 - card).abs().max())
+    check(gerr <= SERVE_TOL * max(1.0, float(card.abs().max())),
+          f"3k (c): the zero-image forward vs the Generator's steps differ "
+          f"by {gerr:.3e}")
+    check(bool((card[:, prompt_len - 1:].argmax(-1)
+                == torch.from_numpy(out[:, prompt_len:]).long()).all()),
+          "3k (c): generated tokens are not the step logits' argmax")
+    rows["c"] = {"batch": gb, "prompt": prompt_len, "new_tokens": new,
+                 "wall_s": c_s, "ms_per_decode_step":
+                 c_s / gen.decode_steps * 1e3,
+                 "zero_image_forward_vs_steps": gerr, "launches": got}
+    print(f"  3k (c) at {time.time() - t_phase:.1f} s: Generator {gb}x{new} "
+          f"greedy tokens after a prompt of {prompt_len}: {c_s:.3f} s "
+          f"({rows['c']['ms_per_decode_step']:.3f} ms/step), the zero-image "
+          f"forward vs its steps {gerr:.3e}, launches {got}")
+    del gen, card, fwd0
+    # (d) a profile of the decode steps
+    prof = _profile_decode(model, torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, 4))).cuda(), steps=6)
+    rows["d_profile"] = prof
+    print(f"  3k (d) at {time.time() - t_phase:.1f} s: decode-step profile "
+          + json.dumps(prof))
+    del model
+    torch.cuda.empty_cache()
+    seconds = time.time() - t_phase
+    print(f"  3k (a)-(d): {seconds:.1f} s")
+    return {"runs": rows, "launches": totals, "seconds": seconds}
+
+
 # ----------------------------------------------------------------- main ----
 
 KERNELS = [
@@ -6236,24 +7370,30 @@ def main() -> int:
         print(f"phase {name} (at {time.time() - t0:.1f} s)")
 
     phase("1: device")
-    card = phase_device()
-    import torch
-    helper = CpuSide()
-    moe_helper = CpuSide("--cpu-side-moe", "cpu_side_moe", after=helper)
+    require_card()
+    # its CPU sides beside the build, while the host's memory is free
+    vlm_side = CpuSide("--cpu-side-vlm", "cpu_side_vlm")
+    sides = [vlm_side]
     try:
-        return _phases(t0, phase, card, helper, moe_helper)
+        card = phase_device()
+        helper = CpuSide(after=vlm_side)
+        sides.append(helper)
+        moe_helper = CpuSide("--cpu-side-moe", "cpu_side_moe", after=helper)
+        sides.append(moe_helper)
+        return _phases(t0, phase, card, helper, moe_helper, vlm_side)
     finally:
-        helper.stop()
-        moe_helper.stop()
+        for side in sides:
+            side.stop()
 
 
-def _phases(t0, phase, card, helper, moe_helper) -> int:
+def _phases(t0, phase, card, helper, moe_helper, vlm_side) -> int:
     import torch
     phase("2: kernels")
     kern = phase_kernels()
     attn = phase_attention_kernels()
     bwd = phase_flash_bwd()
     bwd_wide = phase_flash_bwd_wide()
+    vlm_enc = phase_vlm_encoder_kernels()
     attn_bf16 = phase_attention_bf16()
     fp32_bits = attention_fp32_sha256()
     check(fp32_bits == ATTN_FP32_SHA256_PARENT,
@@ -6279,6 +7419,9 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
     print(json.dumps({"profile": phase_profile(preset)}))
     phase("3c: presets")
     phase_presets()
+    phase("3k, 3l: the vlm group's and hubert-xlarge's card sides (the third "
+          "helper's; its CPU sides ran beside phases 1-3c)")
+    slot = phase_vlm_encoder_slot(vlm_side)
     phase("3d: serve")
     serve = phase_serve()
     print(json.dumps({"serve": serve}))
@@ -6306,8 +7449,31 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
     phase("3j: train the MoE family (held)")
     train_moe = phase_train_moe(moe_helper, moe_b)
     print(json.dumps({"train_moe": train_moe}))
+    phase("3k: llama-3.2-vision-90b, the vlm family (a)-(d)")
+    vlm = phase_vlm()
+    phase("3k, 3l: held (the third helper's CPU work on the card's results)")
+    t_held = time.time()
+    held = vlm_side.result()
+    encoder = slot["encoder"]
+    _add(vlm["launches"], slot["vlm"]["launches"])
+    main_s = slot["main_s"] + vlm["seconds"] + time.time() - t_held
+    print(f"  3k + 3l: {main_s:.1f} s of the main process (the slot "
+          f"{slot['main_s']:.1f} s, {slot['waited_s']:.1f} s of it waiting "
+          f"for the helper's CPU sides; (a)-(d) {vlm['seconds']:.1f} s; the "
+          f"hold {time.time() - t_held:.1f} s, waited {held['waited_s']:.1f} "
+          f"s)")
+    print(json.dumps({"encoder": {k: encoder[k] for k in (
+        "runs", "forward_s", "launches", "update_ms", "card_s")},
+        "encoder_held": held["encoder_held"],
+        "vlm": {"runs": {**vlm["runs"], **slot["vlm"]["runs"]},
+                "launches": vlm["launches"], "seconds": vlm["seconds"]},
+        "seconds": {"main": main_s, "slot": slot["main_s"],
+                    "slot_waited": slot["waited_s"],
+                    "helper": held["seconds"]}}))
     trained = {k: train["launches"].get(k, 0) + train_ssm["launches"].get(k, 0)
                + train_moe["launches"].get(k, 0)
+               + encoder["launches"].get(k, 0)
+               + vlm["launches"].get(k, 0)
                for k in train_ssm["launches"]}
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
         + elastic["launches"] + trained["quantize8_ef"]
@@ -6316,6 +7482,13 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         check(serve_launches[name] > 0,
               f"{name} never launched on the serving path")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(encoder["launches"].get(name, 0) > 0,
+              f"{name} never launched on 3l's path")
+    for name in ("flash_attention", "flash_attention_bwd", "decode_attention"):
+        check(vlm["launches"].get(name, 0) > 0,
+              f"{name} never launched on 3k's path")
+    serve_launches["decode_attention"] += vlm["launches"]["decode_attention"]
     serve_launches["flash_attention"] += trained["flash_attention"]
     serve_launches["ssd_scan"] += trained["ssd_scan"]
     phase("4: summary")
@@ -6355,6 +7528,8 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
                                 for r in attn_bf16["flash"]]
                                if name == "flash_attention"
                                else attn_bf16["decode"]),
+                 "vlm_encoder": vlm_enc["flash" if name == "flash_attention"
+                                        else "decode"],
                  "fp32_sha256": fp32_bits[name],
                  **({"bf16_sha256": bf16_bits}
                     if name == "flash_attention" else {}),
@@ -6395,6 +7570,7 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
                       "worst_rel": bwd_wide["worst_rel"],
                       "gradient": bwd_wide["gradient"]},
              "ptxas": PTXAS_BWD,
+             "vlm_encoder": vlm_enc["flash_bwd"],
              "held_against_plain": True}
     summary.append(entry)
     print(f"  {name:16s} held within {FLASH_BWD_TOL} of its plain version; "
@@ -6449,7 +7625,9 @@ def _phases(t0, phase, card, helper, moe_helper) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-side"]:
-        raise SystemExit(cpu_side(Path(sys.argv[2])))
+        raise SystemExit(cpu_side(Path(sys.argv[2]), Path(sys.argv[3])))
     if sys.argv[1:2] == ["--cpu-side-moe"]:
         raise SystemExit(cpu_side_moe(Path(sys.argv[2]), Path(sys.argv[3])))
+    if sys.argv[1:2] == ["--cpu-side-vlm"]:
+        raise SystemExit(cpu_side_vlm(Path(sys.argv[2])))
     raise SystemExit(main())

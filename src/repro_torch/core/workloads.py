@@ -73,18 +73,14 @@ def _lm_arch(name: str) -> bool:
 
 def check_pairing(name: str, dataset: str) -> None:
     """Raise unless model ``name`` can train on ``dataset``: architectures
-    on the LM corpus, study stand-ins on a feature dataset.  A family the
-    port does not build raises ``NotImplementedError`` naming its
-    ROADMAP.md item, so a sweep rejects it at expansion; encoder/VLM names
-    raise ``ValueError`` at construction, as in the JAX package."""
+    on the LM corpus, study stand-ins on a feature dataset.  Encoder/VLM
+    names raise ``ValueError`` at construction, as in the JAX package."""
     if is_arch_workload(name):
         if dataset != TOKEN_DATASET:
             raise ValueError(
                 f"architecture workload {name!r} trains on the synthetic "
                 f"LM corpus; set dataset={TOKEN_DATASET!r} "
                 f"(got {dataset!r})")
-        if _lm_arch(name):
-            tfm.check_family(get_arch(arch_key(name)).model)
     elif dataset == TOKEN_DATASET:
         raise ValueError(
             f"dataset={TOKEN_DATASET!r} is the architecture workloads' "
@@ -157,28 +153,6 @@ def _put(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _stack_depth(path: tuple, cfg) -> int:
-    """How many leading layer dims a leaf at ``path`` carries: 1 under
-    ``blocks`` and under the moe family's dense ``first`` layers, 2 under
-    a hybrid group's ``ssm``, else 0."""
-    if path[0] == "first":
-        return 1
-    if path[0] != "blocks":
-        return 0
-    return 2 if cfg.family == "hybrid" and path[1] == "ssm" else 1
-
-
-def _split(t: torch.Tensor, depth: int):
-    """A stacked leaf as nested lists of its per-layer slices (views)."""
-    if depth == 0:
-        return t
-    return [_split(t[i], depth - 1) for i in range(t.shape[0])]
-
-
-def _flatten(x) -> list:
-    return [y for v in x for y in _flatten(v)] if isinstance(x, list) else [x]
-
-
 class ArchWorkload:
     """A model-zoo architecture as an engine workload.
 
@@ -215,10 +189,9 @@ class ArchWorkload:
         self.dtype = DTYPES[cfg.dtype]
 
     # ---- the flat parameter tensor ----
-    def _views(self, flat: torch.Tensor, split: bool = False):
-        """The parameter dict over ``flat`` (views, no copies).  With
-        ``split``, stacked leaves become nested lists of per-layer views,
-        each a leaf of its own (see :meth:`grad`).  -> (tree, leaves)."""
+    def _views(self, flat: torch.Tensor):
+        """The parameter dict over ``flat`` and its leaves in ``layout``
+        order (views, no copies).  -> (tree, leaves)."""
         tree: dict = {}
         leaves = []
         off = 0
@@ -226,8 +199,6 @@ class ArchWorkload:
             n = math.prod(shape)
             leaf = flat[off:off + n].view(shape)
             off += n
-            if split:
-                leaf = _split(leaf, _stack_depth(path, self.cfg))
             leaves.append(leaf)
             _put(tree, path, leaf)
         return tree, leaves
@@ -264,23 +235,17 @@ class ArchWorkload:
         return loss
 
     def grad(self, params: torch.Tensor, batch: dict):
-        """-> (loss, flat gradient in the params' dtype).  Each per-layer
-        slice of the flat tensor is its own autograd leaf, so the backward
-        never materialises a full-size zero tensor per layer, and each
-        leaf's ``.grad`` is preset to its zeroed slice of the flat gradient,
-        into which autograd accumulates in place: at its peak the call
-        holds the parameters, one gradient and the activations."""
+        """-> (loss, flat gradient in the params' dtype), by
+        :func:`repro_torch.models.transformer.value_and_grad` over views of
+        the flat parameters, accumulating into views of one zeroed flat
+        gradient: at its peak the call holds the parameters, one gradient
+        and the activations."""
         flat = params.detach()
-        tree, leaves = self._views(flat, split=True)
         g = torch.zeros_like(flat)
-        _, g_leaves = self._views(g, split=True)
-        for t, dst in zip(_flatten(leaves), _flatten(g_leaves)):
-            t.requires_grad_(True)
-            t.grad = dst
-        with torch.enable_grad():
-            loss = self._loss(tree, batch)
-            loss.backward()
-        return loss.detach(), g
+        loss, _ = tfm.value_and_grad(
+            self.params(flat), {"tokens": batch["x"], "labels": batch["y"]},
+            self.cfg, grads=self.params(g))
+        return loss, g
 
     @torch.no_grad()
     def eval_loss(self, params: torch.Tensor, data: dict,

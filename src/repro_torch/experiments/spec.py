@@ -20,9 +20,8 @@ The spec is the JAX package's, field for field and default for default,
 with the same :data:`HASH_SCHEMA`, so one spec hashes the same in both
 packages.  The device a spec runs on is NOT a spec field: it is an
 argument of :func:`repro_torch.experiments.run_experiment`.  The model
-axis takes the study models and the model zoo's LM architectures; the MoE
-family, which the port serves but does not train (ROADMAP.md queue A6, MoE
-training), raises ``NotImplementedError``.
+axis takes the study models and the model zoo's LM architectures; the
+encoder and vlm archs are no training workload, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Serving launcher: batched generation against a zoo arch of the
-families the port builds (dense, moe, ssm, hybrid).
+"""Serving launcher: batched generation against any zoo arch that decodes
+(every family but the encoder).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --reduced --device cpu --batch 4 --prompt-len 16 --new-tokens 32
@@ -13,7 +13,10 @@ The flags are the JAX launcher's plus ``--device`` (default: the card;
 without one it raises and says to pass ``--device cpu``).  The model runs
 in fp32, as the JAX launcher forces, with parameters from a
 ``torch.Generator`` seeded with 0.  Per request it prints the tokens, the
-seconds, tok/s and the perplexity of the generated sequences.
+seconds, tok/s and the perplexity of the generated sequences.  As in
+the JAX launcher, nothing passes an image: a vlm (llama-3.2-vision-90b)
+decodes against a zero image cache, and its perplexity, a forward
+without ``image_embeds``, raises ``KeyError``.
 """
 from __future__ import annotations
 

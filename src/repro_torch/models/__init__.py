@@ -50,7 +50,7 @@ class Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.weights.embed.device
+        return self.weights.final_norm.device      # every family has one
 
     @property
     def spec(self):
@@ -73,6 +73,10 @@ class Model(nn.Module):
 
     def prefill(self, batch, max_seq=None):
         return tfm.prefill(self.params, batch, self.cfg, max_seq=max_seq)
+
+    def prime_cross_cache(self, cache, image_embeds):
+        return tfm.prime_cross_cache(self.params, cache, image_embeds,
+                                     self.cfg)
 
 
 def _cfg(arch: ArchConfig | ModelConfig) -> ModelConfig:

@@ -1,5 +1,6 @@
-"""Attention blocks: GQA (causal/bidirectional self-attention and the
-one-token decode path against a KV cache) and MLA (DeepSeek's latent
+"""Attention blocks: GQA (causal/bidirectional self-attention, the vlm's
+cross attention on image K/V, and the one-token decode paths against a KV
+cache and the primed image K/V) and MLA (DeepSeek's latent
 attention: the prefill materialises per-head K/V from the latent, the
 decode attends in the latent space with the absorbed projections).
 
@@ -67,22 +68,34 @@ def sdpa(q, k, v, *, causal: bool):
     return flash_attention(q, k, v, causal=causal)
 
 
-def gqa_prefill_kv(x, p, cfg: ModelConfig, *, positions):
-    """K/V as stored in the decode cache: (b, t, m, dk) each."""
+def gqa_prefill_kv(x, p, cfg: ModelConfig, *, positions,
+                   use_rope: bool = True):
+    """K/V as stored in the decode cache: (b, t, m, dk) each (k rotated
+    unless ``use_rope`` is off: cross attention's image K/V)."""
     k = torch.einsum("btd,dmk->btmk", x, p["wk"])
     v = torch.einsum("btd,dmk->btmk", x, p["wv"])
-    return rotary(positions, cfg.rope_theta)(k), v
+    if use_rope:
+        k = rotary(positions, cfg.rope_theta)(k)
+    return k, v
 
 
 def gqa_attention(x, p, cfg: ModelConfig, *, causal: bool, positions,
-                  kv=None):
-    """Self-attention of x (b, s, d) -> (b, s, d).  ``kv``: this layer's
-    (k, v) already computed by :func:`gqa_prefill_kv` (prefill stores them
-    in the cache and reuses them here)."""
-    rot = rotary(positions, cfg.rope_theta)
-    q = rot(torch.einsum("bsd,dhk->bshk", x, p["wq"]))
-    k, v = kv if kv is not None else gqa_prefill_kv(x, p, cfg, positions=rot)
-    out = sdpa(q, k, v, causal=causal)
+                  kv=None, kv_src=None, use_rope: bool = True):
+    """Self- or cross-attention of x (b, s, d) -> (b, s, d).  ``kv``: this
+    layer's (k, v) already computed by :func:`gqa_prefill_kv` (prefill
+    stores them in the cache and reuses them here).  ``kv_src``: the
+    sequence (b, t, d) K/V are taken from for cross attention (the vlm's
+    image embeddings); ``use_rope`` off rotates neither q nor k, and
+    ``positions`` is then unused."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    rot = None
+    if use_rope:
+        rot = rotary(positions, cfg.rope_theta)
+        q = rot(q)
+    if kv is None:
+        src = x if kv_src is None else kv_src
+        kv = gqa_prefill_kv(src, p, cfg, positions=rot, use_rope=use_rope)
+    out = sdpa(q, *kv, causal=causal)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -111,6 +124,23 @@ def gqa_decode(x1, p, cfg: ModelConfig, cache_k, cache_v, pos: int,
     out = decode_attention(q.reshape(b, h, dk), cache_k, cache_v, pos + 1)
     out = out.reshape(b, 1, h, cache_v.shape[-1])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def cross_decode(x1, p, cfg: ModelConfig, cache_xk, cache_xv):
+    """One token's cross attention against the primed image K/V. x1
+    (b,1,d); cache_xk/xv (b,T,m,dk) -> (b,1,d).  The JAX model computes it
+    inline in its vlm ``decode_step`` (no rope, every image position
+    valid): ``gqa_decode``'s function at ``length = T``, so it goes
+    through :func:`decode_attention`, the kernel on the card and its plain
+    version on the CPU.  In bf16 the rounding is the same: scores divided
+    by bf16(sqrt(dk)), an fp32 softmax, probabilities rounded to bf16."""
+    b = x1.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x1, p["wq"])
+    h, dk = q.shape[2], q.shape[3]
+    out = decode_attention(q.reshape(b, h, dk), cache_xk, cache_xv,
+                           cache_xk.shape[1])
+    out = out.reshape(b, 1, h, cache_xv.shape[-1])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ------------------------------------------------------------- MLA block -----

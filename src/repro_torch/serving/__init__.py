@@ -65,7 +65,8 @@ class Generator:
     def _prefill_loop(self, tokens: torch.Tensor):
         """Generic prefill: feed prompt tokens through decode_step.  The
         cache is made anew for every call, so one call never sees another's
-        (it is updated in place)."""
+        (it is updated in place).  As in the JAX package, a vlm's image
+        K/V are not primed: it decodes against a zero image cache."""
         b, s = tokens.shape
         cache = self.model.init_cache(b, self.max_seq)
         logits = None
@@ -99,7 +100,9 @@ class Generator:
 
 @torch.no_grad()
 def perplexity(model: Model, tokens) -> float:
-    """Teacher-forced ppl via the training forward (consistency checks)."""
+    """Teacher-forced ppl via the training forward (consistency checks).
+    Tokens only, as in the JAX package: a vlm's forward wants
+    ``image_embeds`` and raises ``KeyError``."""
     tokens = torch.as_tensor(np.asarray(tokens), device=model.device).long()
     loss, _ = model.loss({"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
     return float(torch.exp(loss))

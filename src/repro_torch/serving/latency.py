@@ -70,9 +70,10 @@ class LatencyModel:
     def from_arch(cls, name: str, *, flops: float, mem_bandwidth: float,
                   reduced: bool = False) -> "LatencyModel":
         """Build from a zoo arch (accepts ``smollm_360m`` or ``smollm-360m``).
-        The parameter count comes from the port's model spec, so the
-        families the port builds (dense, moe, ssm, hybrid) are the ones it
-        can size; the vlm family raises ``NotImplementedError``."""
+        The parameter count comes from the port's model spec; every family
+        that decodes is sized (the vlm's K/V per token counts its
+        self-attention and cross-attention layers alike, as the JAX
+        package's does); an encoder raises ``ValueError``."""
         from repro_torch.configs import arch_key, get_arch, get_reduced
         from repro_torch.models.common import param_count
         from repro_torch.models.transformer import model_spec

@@ -20,6 +20,7 @@ FORBIDDEN = re.compile(
 
 _BLOCKED_RUN = """
 import importlib, pkgutil, sys
+import torch
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 import repro_torch
@@ -38,6 +39,17 @@ assert logits.shape == (2, 256) and bool(logits.isfinite().all())
 model = build_model(get_reduced("mamba2-370m"), device="cpu")
 logits, _ = model.forward({"tokens": [[3, 5, 7]]})
 assert logits.shape == (1, 3, 256) and bool(logits.isfinite().all())
+from repro_torch.launch.specs import make_batch
+from repro_torch.models.transformer import value_and_grad
+from repro_torch.optim import make_optimizer
+for name in ("hubert-xlarge", "llama-3.2-vision-90b"):
+    arch = get_reduced(name)
+    params = build_model(arch, device="cpu").params
+    loss, grads = value_and_grad(
+        params, make_batch(arch, 2, 5, device="cpu"), arch.model)
+    opt = make_optimizer(arch.train)
+    new, _, stats = opt.update(grads, opt.init(params), params)
+    assert bool(stats["grad_norm"].isfinite()) and bool(loss.isfinite())
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names))
@@ -84,7 +96,8 @@ def test_every_module_is_listed():
                 "core.elastic.planner", "core.elastic.telemetry",
                 "core.trace.export", "core.ckpt.localfs", "core.faas",
                 "core.iaas", "core.workloads", "data.tokens",
-                "serving.arrivals", "serving.sim", "experiments.serving"):
+                "serving.arrivals", "serving.sim", "experiments.serving",
+                "optim", "launch.specs"):
         assert f"repro_torch.{sub}" in names
 
 
@@ -140,6 +153,12 @@ def _generator():
     Generator(get_reduced("smollm-360m"), max_seq=8)
 
 
+def _make_batch():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.specs import make_batch
+    make_batch(get_reduced("hubert-xlarge"), 2, 4)
+
+
 def _serve():
     from repro_torch.launch.serve import main
     main(["--reduced", "--requests", "1", "--new-tokens", "2"])
@@ -147,13 +166,13 @@ def _serve():
 
 @pytest.mark.parametrize(
     "entry", [_run_experiment, _train, _cli, _build_model, _generator,
-              _serve, _sweep, _estimate_epochs,
+              _serve, _sweep, _estimate_epochs, _make_batch,
               _cli_command(["list"]), _cli_command(["plan", "lr_higgs"]),
               _cli_command(["sweep", "fig8_sync", "--no-cache", "--set",
                             "rows=400", "--grid", "sync=bsp,asp"]),
               _cli_command(["trace", "fig10_trace", "--set", "rows=400"])],
     ids=["run_experiment", "train", "cli", "build_model", "generator",
-         "serve", "sweep", "estimate_epochs", "cli_list", "cli_plan",
+         "serve", "sweep", "estimate_epochs", "make_batch", "cli_list", "cli_plan",
          "cli_sweep", "cli_trace"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     """No silent CPU fallback: without CUDA and without device='cpu',

@@ -265,19 +265,36 @@ def test_grad_accumulates_into_one_flat_gradient(name):
     """ArchWorkload.grad fills the flat gradient in place (autograd adds
     into views of it, no third copy): the same values as autograd.grad of
     the loss over the per-layer leaves, bit for bit."""
-    from repro_torch.core.workloads import _flatten
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import is_spec
     wl = ArchWorkload(name)
     flat = wl.init(torch.Generator().manual_seed(1))
     b = wl.make_data(4, seed=2)
     batch = {"x": torch.from_numpy(b.x), "y": torch.from_numpy(b.y)}
     loss, g = wl.grad(flat, batch)
-    tree, leaves = wl._views(flat.detach(), split=True)
-    leaves = _flatten(leaves)
-    for t in leaves:
-        t.requires_grad_(True)
+
+    def per_layer(spec, tree, leaf):
+        """``tree`` with each stacked leaf as nested lists of its per-layer
+        slices, ``leaf`` applied to each slice."""
+        if not is_spec(spec):
+            return {k: per_layer(spec[k], tree[k], leaf) for k in spec}
+
+        def split(t, axes):
+            if axes and axes[0] in ("layers", "inner"):
+                return [split(t[i], axes[1:]) for i in range(t.shape[0])]
+            return leaf(t)
+        return split(tree, spec[1])
+
+    spec = tfm.model_spec(wl.cfg)
+    leaves, got = [], []
+
+    def live(t):
+        leaves.append(t.detach().requires_grad_(True))
+        return leaves[-1]
+    tree = per_layer(spec, wl.params(flat.detach()), live)
     with torch.enable_grad():
         want = torch.autograd.grad(wl._loss(tree, batch), leaves)
-    got = _flatten(wl._views(g, split=True)[1])
+    per_layer(spec, wl.params(g), got.append)
     assert len(got) == len(want) and all(
         torch.equal(a, b) for a, b in zip(got, want))
     assert g.dtype == flat.dtype == wl.dtype

@@ -174,7 +174,7 @@ def test_perplexity_matches_jax_ssm_families(name):
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE + MOE + SSM)
+@pytest.mark.parametrize("name", DENSE + MOE + SSM + ["llama-3.2-vision-90b"])
 def test_latency_model_fields_equal_jax(name, reduced):
     for key in (name, spec_name(name)):
         kw = dict(flops=2.5e14, mem_bandwidth=1.6e12, reduced=reduced)
@@ -183,11 +183,19 @@ def test_latency_model_fields_equal_jax(name, reduced):
 
 
 def test_latency_model_refuses_what_the_port_does_not_build():
-    with pytest.raises(ValueError, match="encoder"):
-        LatencyModel.from_arch("hubert-xlarge", flops=1.0, mem_bandwidth=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LatencyModel.from_arch("llama_3_2_vision_90b", flops=1.0,
-                               mem_bandwidth=1.0)
+    """An encoder does not decode, so it has no step to price (as in the
+    JAX package); the vlm, built since the port's vlm slice, is sized."""
+    for name in ("hubert-xlarge", "hubert_xlarge"):
+        with pytest.raises(ValueError, match="encoder") as got:
+            LatencyModel.from_arch(name, flops=1.0, mem_bandwidth=1.0)
+        with pytest.raises(ValueError, match="encoder") as want:
+            JLatencyModel.from_arch(name, flops=1.0, mem_bandwidth=1.0)
+        assert str(got.value) == str(want.value)
+    kw = dict(flops=1.0, mem_bandwidth=1.0)
+    lat = LatencyModel.from_arch("llama_3_2_vision_90b", **kw)
+    assert lat.n_params == 87_666_794_496
+    assert dataclasses.asdict(lat) == dataclasses.asdict(
+        JLatencyModel.from_arch("llama_3_2_vision_90b", **kw))
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):

@@ -1,6 +1,8 @@
-"""The port's model zoo (the dense, moe, ssm and hybrid families) against
-the JAX package, on the CPU, with the JAX parameters carried across
-(``params_from_numpy``).  The reduced configs of both packages run with
+"""The port's model zoo (every family: dense, moe, encoder, vlm, ssm and
+hybrid) against the JAX package, on the CPU, with the JAX parameters
+carried across (``params_from_numpy``).  The encoder and vlm families
+have files of their own too (tests/test_torch_encoder.py,
+tests/test_torch_vlm.py).  The reduced configs of both packages run with
 ``ssm_chunk=4``, so that the whole-model tests cross chunk borders and
 carry the SSM state.
 
@@ -36,8 +38,11 @@ BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 DENSE = ["smollm-360m", "stablelm-3b", "phi3-medium-14b", "llama3-405b"]
 MOE = ["grok-1-314b", "deepseek-v2-lite-16b"]  # deepseek: MLA, shared experts
 SSM = ["mamba2-370m", "zamba2-2.7b"]           # the ssm and hybrid families
-BUILT = DENSE + MOE + SSM
-OTHER = [a for a in jconfigs.ARCH_IDS if a not in BUILT]
+VLM, ENCODER = "llama-3.2-vision-90b", "hubert-xlarge"
+BUILT = DENSE + MOE + SSM + [VLM, ENCODER]
+DECODE = [a for a in BUILT if a != ENCODER]
+#: the archs that are no training workload, as in the JAX package
+OTHER = [VLM, ENCODER]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -144,19 +149,20 @@ def test_params_from_numpy_carries_every_leaf(name):
 
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise_naming_their_roadmap_item(name):
-    arch = tconfigs.get_reduced(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(arch, device="cpu")
-    # training: LM families the port cannot build raise at spec time;
-    # encoder/VLM archs are no training workload at all, as in JAX
-    from repro_torch.experiments import ExperimentSpec
-    model = tconfigs.spec_name(name)
-    if model in tworkloads.list_workloads():
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ExperimentSpec(model=model, dataset="tokens")
-    else:
-        with pytest.raises(ValueError, match="encoder/VLM"):
-            tworkloads.ArchWorkload(model)
+    """The encoder and vlm archs build (no ROADMAP.md item is named any
+    more), and are still no training workload, as in the JAX package:
+    their batches are not the LM corpus's."""
+    model = build_model(tconfigs.get_reduced(name), device="cpu")
+    assert model.param_count() == jbuild(jconfigs.get_reduced(name)) \
+        .param_count()
+    spec_model = tconfigs.spec_name(name)
+    assert spec_model not in tworkloads.list_workloads()
+    assert spec_model not in jworkloads.list_workloads()
+    with pytest.raises(ValueError, match="encoder/VLM") as got:
+        tworkloads.ArchWorkload(spec_model)
+    with pytest.raises(ValueError, match="encoder/VLM") as want:
+        jworkloads.ArchWorkload(spec_model)
+    assert str(got.value) == str(want.value)
 
 
 # -------------------------------------------------------------- numerics ----
@@ -327,12 +333,28 @@ def _tokens(cfg, b=2, s=9, seed=0):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _lm_batch(cfg, name, s=10):
+    """A batch of s - 1 positions as numpy arrays: tokens and next-token
+    labels; an encoder's frames, labels and mask; the vlm's image
+    embeddings beside its tokens."""
+    toks = _tokens(cfg, s=s)
+    rng = np.random.default_rng(11)
+    if name == ENCODER:
+        return {"frames": _rand((2, s - 1, cfg.d_model), 12),
+                "labels": toks[:, 1:], "mask": rng.random((2, s - 1)) < 0.5}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if name == VLM:
+        batch["image_embeds"] = _rand((2, cfg.num_image_tokens,
+                                       cfg.d_model), 13)
+    return batch
+
+
 @pytest.mark.parametrize("name", BUILT)
 def test_forward_and_loss_match_jax(name):
     cfg, jm, params, model = _pair(name)
-    toks = _tokens(cfg, s=10)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = _lm_batch(cfg, name)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     logits, aux = model.forward(batch)
     jlogits, jaux = jm.forward(params, jbatch)
     assert logits.shape == jlogits.shape and aux.dtype == torch.float32
@@ -350,10 +372,12 @@ def test_forward_and_loss_match_jax(name):
     _close(parts["aux"], jparts["aux"])
 
 
-@pytest.mark.parametrize("name", BUILT)
+@pytest.mark.parametrize("name", DECODE)
 def test_decode_steps_over_a_prompt_match_jax(name):
     """Every step's logits and, at the end, every cache leaf (K/V; conv
-    inputs and SSM state; the shared block's K/V) equal JAX's."""
+    inputs and SSM state; the shared block's K/V; the vlm's image K/V,
+    never primed here: zeros, as a forward on zero image embeddings
+    sees them) equal JAX's."""
     cfg, jm, params, model = _pair(name)
     toks = _tokens(cfg, s=9, seed=1)
     jc, tc = jm.init_cache(2, 12), model.init_cache(2, 12)
@@ -373,7 +397,11 @@ def test_decode_steps_over_a_prompt_match_jax(name):
     # capacity that drops assignments, a decode step only its b tokens
     # (the JAX model's function too)
     if name not in MOE:
-        full, _ = model.forward({"tokens": toks})
+        batch = {"tokens": toks}
+        if name == VLM:
+            batch["image_embeds"] = torch.zeros(2, cfg.num_image_tokens,
+                                                cfg.d_model)
+        full, _ = model.forward(batch)
         _close(tl, full[:, -1])
 
 
@@ -402,7 +430,7 @@ def test_prefill_raises_for_the_ssm_families_as_jax_does(name):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("name", MOE + SSM)
+@pytest.mark.parametrize("name", MOE + SSM + [VLM])
 def test_cache_struct_matches_jax(name):
     """Leaf names, shapes, logical axes and dtypes of the decode cache."""
     from repro.models import transformer as jtfm
