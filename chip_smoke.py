@@ -49,9 +49,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of the largest gradient) over FLASH_BWD_SWEEP (head dims 20 to 128,
    GQA groups, causal and full, ragged lengths, sq != sk), at the
    training path's shapes (b 8, s 64; h 3 / m 1, d 20 and h 15 / m 5, d
-   64) in fp32 and bf16 and at b 4, s 2048, each fp32 gradient within
-   twice the plain version's error against float64 gradients, two calls
-   bitwise equal, and ``FlashAttention``'s gradient equal to the
+   64) in fp32 and bf16 and at b 4, s 2048, each fp32 gradient, there
+   and at every swept shape, within the bound that the kernel's 3xTF32
+   arithmetic allows it against float64 gradients, element by element
+   (``ref.bwd_error_bound``: each product's dropped lo x lo term and
+   truncated lo bits, fp32 sums over the row's length, the softmax's
+   rounding, carried through the backward's steps), two calls bitwise
+   equal, and ``FlashAttention``'s gradient equal to the
    kernel's; timed backward alone (the kernel, the plain version's
    autograd backward, SDPA's backward as the library yardstick; the
    kernel's time by launch) and forward + backward, against the 3xTF32
@@ -77,15 +81,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    shapes within twice the replaced kernel's error (SSD_BWD_FP64_PARENT);
    bf16 attention, which rounds where the JAX model does, against its
    plain version at every bf16 shape above and at the training path's
-   (FLASH_BWD_PATH, with zamba2's shared block) by ``hold_bf16``: the
+   (FLASH_BWD_PATH, with zamba2's shared block) and the train launcher's
+   (LAUNCHER_ATTN: b 8, s 128, smollm's heads) by ``hold_bf16``: the
    whole tensor norm-wise, the shares of elements and rows that differ,
    and every element of a forward output within the tie witness's reach
    (the values that rounding its row's near-tie scores and probabilities
-   either way can give), timed at ATTN_BF16_TIMED and DECODE_BF16_TIMED
-   beside SDPA in bf16 (a yardstick, not the same function), planted
-   copies of the three attention kernels without the rounding (PLANTED)
-   missing the norm-wise limits, and a quarter of a forward's rows taken
-   from them missing a limit; and the attention
+   either way can give), timed at ATTN_BF16_TIMED, LAUNCHER_ATTN and
+   DECODE_BF16_TIMED beside SDPA in bf16 (a yardstick, not the same
+   function), planted copies of the three attention kernels without the
+   rounding (PLANTED) missing the norm-wise limits, and a quarter of a
+   forward's rows taken from them missing a limit; and the attention
    kernels' fp32 output bits equal to those of the kernels before the
    bf16 repair (ATTN_FP32_SHA256_PARENT); the flash forward widened to
    dk != dv and dk up to 192 against its plain version in fp32 and bf16
@@ -138,7 +143,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    through ``run_experiment`` on the card and on the CPU, records
    compared (the two presets that train a zoo architecture are 3g's);
 3d. serve -- full-width smollm-360m (fp32, random weights from a seeded
-   ``torch.Generator``) through ``Generator`` and ``perplexity`` on
+   ``torch.Generator``; the runs over its first SERVE_LAYERS of 32
+   layers) through ``Generator`` and ``perplexity`` on
    ``device="cuda"``: (a) the launcher's defaults (2 requests of batch 4,
    prompt 16, 32 new tokens at temperature 0.8), (b) batch 8, prompt 512,
    64 new greedy tokens, (c) ``Model.prefill`` at batch 4, s 2048 against
@@ -149,13 +155,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    perplexity must match the same model's on the CPU, teacher-forced with
    those tokens, within SERVE_TOL; greedy tokens must be the card logits'
    argmax, and the CPU's wherever its top-two margin exceeds twice
-   SERVE_TOL; then a profile of 16 decode steps; first, the model's fp32
+   SERVE_TOL; then a profile of 16 decode steps; first, over all 32
+   layers, the model's fp32
    logits over decode steps, a forward and a prefill hash as the port's
    before rope's tables were shared (SERVE_FP32_SHA256_PARENT);
-3e. serve -- full-width mamba2-370m and zamba2-2.7b (fp32, seeded random
-   weights): mamba2 (a) the launcher's defaults, (b) batch 8, prompt 449,
-   64 greedy tokens (perplexity's forward over 512 positions, two of the
-   model's 256-position chunks), then a teacher-forced forward at batch 2
+3e. serve -- full-width mamba2-370m (over its first MAMBA2_SERVE_LAYERS
+   of 48 layers) and zamba2-2.7b (fp32, seeded random weights): mamba2
+   (a) the launcher's defaults, (b) batch 8, prompt 449, 64 greedy tokens
+   (perplexity's forward over 512 positions, two of the model's
+   256-position chunks), then a teacher-forced forward at batch 2
    over 575 positions (one chunk of 575 on the CPU) and a profile of 16
    decode steps; zamba2 (a) one request.  Each run as in 3d, and the
    card's forward logits held against its own decode steps' too;
@@ -303,6 +311,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    package) held against the forward on zero image embeddings, (d) a
    profile of the decode steps.  Launches exact (the cross attention's
    decode through the decode kernel at length 1024);
+3m. train through the launcher -- smollm-360m at full width (32 layers,
+   409,007,040 parameters, its config's bf16 and AdamW) through
+   ``launch.train.main`` in this process at the launcher's defaults (b 8,
+   s 128, mesh 1x1): (a) 6 steps without a checkpoint against 4 steps
+   that checkpoint, a resume to 5 with ``--lifetime 0`` (the guard fires
+   and writes step 5), and a resume from the guard's checkpoint to 6:
+   losses, parameters and AdamW state equal bit for bit; (b) a one-rank
+   NCCL process group (a ``FileStore`` under ``build/``): the
+   ``allreduce`` and the ``scatter_reduce`` steps over it equal the steps
+   without a group bit for bit, and one step profiled (device busy and
+   idle share); (c) two pods stacked on the card, ``--mesh 2x1x1
+   --algorithm diloco --compress --sync-period 2``, 4 inner steps: each
+   pod's loss per step, and after each outer step the replicas equal and
+   the int8 residuals non-zero; (d) the reduced config's 6 launcher steps
+   and its two-pod DiLoCo run, card vs CPU from one init, and two
+   full-width steps from counter-built parameters against the third
+   helper's CPU run, within LAUNCHER_CPU_RTOL; (e) flash attention's
+   forward and backward launched exactly once per attention layer per
+   step; they join the kernels line's counts.  Its seconds are printed;
 4. summary -- one JSON line listing every ported kernel and the two
    backward kernels.
 
@@ -1882,6 +1909,34 @@ def _bwd_kernel(q, k, v, do, causal: bool = True, with_o: bool = False):
     return (o, grads) if with_o else grads
 
 
+def flash_bwd_within_bound(what: str, q, k, v, do, causal: bool, got,
+                           plain=None) -> dict:
+    """The backward kernel's fp32 gradients against float64 gradients:
+    every element's error within ``ref.bwd_error_bound``, the bound that
+    the kernel's 3xTF32 products (lo x lo dropped, fp32 sums that may
+    truncate) and the softmax's rounding allow it (queue C 5: it replaces
+    the rule "within twice the plain version's error", which a sound
+    kernel can miss at d 20, where both errors are small).  Returns each
+    gradient's largest error, the plain version's (read), and the
+    largest error over its bound (must be at most 1)."""
+    from repro_torch.kernels.flash_attention.ref import bwd_error_bound
+    exact, bound = bwd_error_bound(q, k, v, do, causal=causal)
+    out = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        err = (got[i].double() - exact[i]).abs()
+        out[name] = {"kernel": float(err.max()),
+                     "bound_ratio": float((err / bound[i]).max()),
+                     "bound_at_max": float(bound[i].max())}
+        if plain is not None:
+            out[name]["plain"] = float((plain[i].double() - exact[i])
+                                       .abs().max())
+        check(out[name]["bound_ratio"] <= 1.0,
+              f"{what} {name}: an element errs {out[name]['bound_ratio']:.3g}"
+              f"x its 3xTF32 bound against float64")
+    del exact, bound
+    return out
+
+
 def flash_bwd_sweep(gen, shapes=FLASH_BWD_SWEEP) -> float:
     """The backward kernel against autograd of the plain version at every
     shape of ``shapes`` (FLASH_BWD_SWEEP's form) in fp32 and bf16 (within
@@ -1891,7 +1946,7 @@ def flash_bwd_sweep(gen, shapes=FLASH_BWD_SWEEP) -> float:
     import torch
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd_plain, flash_attention_plain)
-    worst = 0.0
+    worst = worst_bound = 0.0
     bf16 = {"forward": {}, "backward": {}}
     for b, sq, sk, h, m, d, causal in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1912,6 +1967,9 @@ def flash_bwd_sweep(gen, shapes=FLASH_BWD_SWEEP) -> float:
                   f"{FLASH_BWD_TOL[key]:g} x {scale:.3e}")
             if dtype == torch.float32:
                 worst = max(worst, err / scale)
+                bound = flash_bwd_within_bound(what, q, k, v, do, causal, got)
+                worst_bound = max(worst_bound, *(e["bound_ratio"]
+                                                 for e in bound.values()))
             else:
                 hold_bf16(f"{what} forward", [o], [flash_attention_plain(
                     q, k, v, causal=causal)], bf16["forward"],
@@ -1920,7 +1978,8 @@ def flash_bwd_sweep(gen, shapes=FLASH_BWD_SWEEP) -> float:
                           inputs=(q, k, v, do, causal))
     print(f"  flash_attention_bwd sweep: {len(shapes)} shapes x "
           f"fp32/bf16 within FLASH_BWD_TOL (fp32 worst {worst:.3e} of the "
-          f"largest gradient); bf16 against the plain versions (worst; "
+          f"largest gradient; against float64 at most {worst_bound:.3e} of "
+          f"the 3xTF32 bound); bf16 against the plain versions (worst; "
           f"counts summed): {json.dumps(bf16)}")
     return worst
 
@@ -2018,17 +2077,9 @@ def flash_bwd_row(gen, b: int, s: int, h: int, m: int, d: int, dtype,
                                   plain, grads=True,
                                   inputs=(q, k, v, do, causal))}
     if dtype == torch.float32:
-        exact = _attention_f64_grads(q, k, v, do, causal)
-        row["vs_float64"] = {
-            name: {"kernel": float((a.double() - x).abs().max()),
-                   "plain": float((p.double() - x).abs().max())}
-            for name, a, p, x in zip(("dq", "dk", "dv"), got, plain, exact)}
-        del exact
-        for name, e in row["vs_float64"].items():
-            check(e["kernel"] <= 2 * e["plain"],
-                  f"flash_attention_bwd {row['shape']} {name}: "
-                  f"{e['kernel']:.3e} from float64, over twice the plain "
-                  f"version's {e['plain']:.3e}")
+        row["vs_float64"] = flash_bwd_within_bound(
+            f"flash_attention_bwd {row['shape']}", q, k, v, do, causal, got,
+            plain)
     if timed:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
@@ -2654,8 +2705,9 @@ def attention_fp32_sha256() -> dict:
 
 
 def phase_attention_bf16() -> dict:
-    """bf16 attention at the training path's shapes (ATTN_BF16_TIMED:
-    forward and backward) and decode at DECODE_BF16_TIMED, timed, and
+    """bf16 attention at the training path's shapes (ATTN_BF16_TIMED and
+    the launcher's LAUNCHER_ATTN: forward and backward) and decode at
+    DECODE_BF16_TIMED, timed, and
     decode at zamba2's cache of phase 3e (a): each kernel against its
     plain version and its planted copy without the rounding points."""
     import torch
@@ -2665,6 +2717,9 @@ def phase_attention_bf16() -> dict:
     b, S, length = DECODE_BF16_TIMED
     decode = [decode_bf16_row(gen, b, S, length, *_SMOLLM_ATTN, timed=True),
               decode_bf16_row(gen, 4, 16 + 32 + 1, 48, *_ZAMBA2_ATTN)]
+    # the train launcher's shape (3m; rows 5u, 5v), last: the rows above
+    # keep their inputs
+    flash.append(attention_bf16_row(gen, *LAUNCHER_ATTN, controls=False))
     print(f"  bf16 attention phase: {time.time() - t0:.1f} s")
     return {"flash": flash, "decode": decode}
 
@@ -4350,6 +4405,13 @@ def serve_fp32_sha256(model=None) -> str:
     return digest
 
 
+#: 3d serves full-width smollm-360m over its first this many of 32
+#: layers (the fp32 hash runs all 32): the decode loops are bound by the
+#: host's launches, about 4 s a layer over 3d's steps (cut to keep the
+#: script within its time with phase 3m added)
+SERVE_LAYERS = 20
+
+
 def phase_serve() -> dict:
     """Full-width smollm-360m served on the card (see the module docstring,
     3d); returns the runs' numbers and the launch totals."""
@@ -4357,10 +4419,15 @@ def phase_serve() -> dict:
     import torch
     from repro_torch.serving import Generator
     arch, model, cpu_model = _full_width("smollm-360m")
-    cfg = arch.model
     check(serve_fp32_sha256(model) == SERVE_FP32_SHA256_PARENT,
           "smollm-360m's fp32 logits differ from the bits of the port "
           "before rope's tables were shared (SERVE_FP32_SHA256_PARENT)")
+    model, cpu_model = _cut(model, SERVE_LAYERS), _cut(cpu_model,
+                                                        SERVE_LAYERS)
+    arch = arch.replace(model=model.cfg)
+    cfg = arch.model
+    print(f"  served over the first {SERVE_LAYERS} of its 32 layers "
+          f"({model.param_count():,} parameters)")
     rows = {}
     totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     rng = np.random.default_rng(0)
@@ -4452,6 +4519,12 @@ def _ragged_forward(model, cpu_model, rng, b: int, s: int) -> dict:
             "logits_max_abs": scale, "launches": launches}
 
 
+#: 3e serves mamba2-370m over its first this many of 48 layers: its
+#: decode steps and the CPU's teacher-forced checks take time in
+#: proportion (cut, with 3d, to keep the script within its time)
+MAMBA2_SERVE_LAYERS = 32
+
+
 def phase_serve_ssm() -> dict:
     """Full-width mamba2-370m and zamba2-2.7b served on the card (see the
     module docstring, 3e); returns the runs' numbers and launch totals."""
@@ -4462,6 +4535,11 @@ def phase_serve_ssm() -> dict:
     totals = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     rng = np.random.default_rng(1)
     arch, model, cpu_model = _full_width("mamba2-370m")
+    model, cpu_model = (_cut(model, MAMBA2_SERVE_LAYERS),
+                        _cut(cpu_model, MAMBA2_SERVE_LAYERS))
+    arch = arch.replace(model=model.cfg)
+    print(f"  mamba2 served over the first {MAMBA2_SERVE_LAYERS} of its 48 "
+          f"layers ({model.param_count():,} parameters)")
     vocab = arch.model.vocab_size
     gen = Generator(arch, model, max_seq=16 + 32 + 1, device="cuda")
     for r in range(2):                   # (a) the launcher's defaults
@@ -4513,8 +4591,9 @@ MOE_FORWARD = (2, 512)
 
 
 def _cut(model, layers: int):
-    """A moe model's first ``layers`` layers with its embed, final norm and
-    unembed, as a Model of that depth over views of its parameters."""
+    """A dense or moe model's first ``layers`` layers with its embed, final
+    norm and unembed, as a Model of that depth over views of its
+    parameters."""
     from repro_torch.models import Model
     from repro_torch.models.common import tree_map
     cfg = model.cfg
@@ -5788,7 +5867,7 @@ class CpuSide:
     (``--cpu-side-vlm``), let onto the card after 3c and waited for after
     3k.  Stopped by :meth:`stop` whatever happens."""
 
-    PARTS = (".go", ".3g", ".3h", ".witness", ".ready", ".slot")
+    PARTS = (".go", ".3g", ".3h", ".witness", ".ready", ".slot", ".3m")
 
     def __init__(self, flag: str = "--cpu-side", name: str = "cpu_side",
                  after: "CpuSide | None" = None):
@@ -7155,7 +7234,9 @@ def cpu_side_vlm(out: Path) -> None:
     PATH``), started before phase 1's build at CPU priority VLM_SIDE_NICE,
     so it takes the cores the build, phases 2-3c and the other helpers
     leave idle while the host's memory is free: 3k (e)'s and (f)'s CPU
-    sides (:func:`_vlm_cpu_side`, ``PATH.ready``); then, given the card
+    sides (:func:`_vlm_cpu_side`, ``PATH.ready``), then 3m (d)'s
+    full-width launcher steps on the CPU (:func:`_launcher_cpu_side`,
+    ``PATH.3m``) while it waits for the card; then, given the card
     after 3c (``PATH.go``) while the main process waits, 3k (e), (f) and
     3l's card sides and the holds that need both
     (:func:`_vlm_card_side`, :func:`_encoder_card_side`; ``PATH.slot``
@@ -7172,6 +7253,11 @@ def cpu_side_vlm(out: Path) -> None:
     seconds.update({f"cpu_{k}": v for k, v in cpu["seconds"].items()})
     _write_part(out, ".ready", {"host_gib": cpu["host_gib"],
                                 "seconds": seconds})
+    # 3m (d)'s CPU side in the time it waits for the slot (after 3c): it
+    # would take cores from 3d and 3e's CPU sides later on
+    t0 = time.time()
+    _write_part(out, ".3m", _launcher_cpu_side())
+    seconds["launcher"] = time.time() - t0
     torch.zeros(1, device="cuda")       # the context, before the slot
     t0 = time.time()
     while not out.with_suffix(".go").exists():
@@ -7331,6 +7417,354 @@ def phase_vlm() -> dict:
     return {"runs": rows, "launches": totals, "seconds": seconds}
 
 
+# --------------------------------------------- phase 3m: the train launcher ---
+
+#: phase 3m: smollm-360m at full width through ``launch/train.py`` (its
+#: config's bf16, AdamW, one card), at the launcher's defaults
+LAUNCHER_ARCH = "smollm-360m"
+LAUNCHER = ["--arch", LAUNCHER_ARCH, "--mesh", "1x1", "--batch", "8",
+            "--seq", "128", "--log-every", "1"]
+LAUNCHER_SHAPE = (8, 128)
+#: the launcher's attention: rows 5u (forward) and 5v (backward) in bf16
+LAUNCHER_ATTN = (*LAUNCHER_SHAPE, *_SMOLLM_ATTN)
+#: the third helper's threads for 3m (d)'s CPU steps, beside phases 2-3c
+LAUNCHER_CPU_THREADS = 4
+#: card vs CPU of zoo training (PERF.md section 2): losses in fp32 / bf16
+LAUNCHER_CPU_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+#: (a) runs at full width over the first this many of the 32 layers: a
+#: checkpoint holds 10 bytes a parameter (bf16 weights, fp32 moments), 4.1
+#: GB at full depth, where (a)'s four saves and two loads took about 60 s
+#: of its 67.8 s (an H100 80GB HBM3 at 700 W); over 2 layers 1.13 GB
+LAUNCHER_CKPT_LAYERS = 2
+#: (c): two pods stacked on the card, DiLoCo with int8 deltas
+LAUNCHER_PODS = ["--mesh", "2x1x1", "--algorithm", "diloco", "--compress",
+                 "--sync-period", "2", "--steps", "4"]
+
+
+def _launch(argv, params=None, device=None, quiet: bool = False) -> dict:
+    """``launch.train.main(argv)`` in this process (``--device`` when
+    given), its output echoed (or, ``quiet``, returned as "log")."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launcher
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = launcher.main(argv + (["--device", device] if device else []),
+                            params=params)
+    out["log"] = buf.getvalue()
+    if not quiet:
+        print("    " + out["log"].rstrip().replace("\n", "\n    "))
+    return out
+
+
+class _launcher_layers:
+    """The launcher's ``get_arch`` over the first ``n`` layers of each arch
+    (its widths unchanged) within the block."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        from repro_torch.launch import train as launcher
+        self.get = get = launcher.get_arch
+
+        def cut(name):
+            arch = get(name)
+            return arch.replace(model=arch.model.replace(num_layers=self.n))
+        launcher.get_arch = cut
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train as launcher
+        launcher.get_arch = self.get
+
+
+def _trees_bit_equal(a, b) -> bool:
+    pa, pb = _paths(a), _paths(b)
+    return len(pa) == len(pb) and all(
+        x == y and _bits_equal(ta, tb) for (x, ta), (y, tb) in zip(pa, pb))
+
+
+def _launcher_full_params(device: str) -> dict:
+    """Full-width smollm-360m's parameters built alike on the card and the
+    host (``_counter_params``), in the config's dtype; and the fp32
+    sample hash that holds the two equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import DTYPES, tree_map
+    cfg = get_arch(LAUNCHER_ARCH).model
+    p32 = _counter_params(cfg, device)
+    sample = _counter_sample(p32)
+    dt = DTYPES[cfg.dtype]
+    return tree_map(lambda t: t.to(dt), p32), sample
+
+
+def _launcher_cpu_side() -> dict:
+    """3m (d)'s full-width CPU side (in the third helper): two launcher
+    steps on the CPU from the counter-built parameters."""
+    import torch
+    t0 = time.time()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(LAUNCHER_CPU_THREADS)    # cores for the main one
+    try:
+        params, sample = _launcher_full_params("cpu")
+        out = _launch([*LAUNCHER, "--steps", "2"], params, "cpu",
+                      quiet=True)
+    finally:
+        torch.set_num_threads(threads)
+    return {"losses": out["losses"], "sample": sample,
+            "seconds": time.time() - t0}
+
+
+def _profile_train_step(step, params, opt_state, batch) -> dict:
+    """torch.profiler over one launcher train step (after ``step`` has run
+    once): wall, device busy and idle share, device time by class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step.fn(params, opt_state, batch)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"wall_s": wall, "device_busy_s": "not measured"}
+    busy, lo_, hi_ = 0.0, spans[0][0], spans[0][1]
+    by_class: dict[str, float] = {}
+    for lo, hi, name in spans:
+        cls = _decode_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + (hi - lo) / 1e6
+        if lo > hi_:
+            busy += (hi_ - lo_) / 1e6
+            lo_, hi_ = lo, hi
+        else:
+            hi_ = max(hi_, hi)
+    busy += (hi_ - lo_) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, "kernels": len(spans),
+            "device_s_by_class": dict(sorted(by_class.items(),
+                                             key=lambda kv: -kv[1]))}
+
+
+def phase_train_launcher(side: "CpuSide") -> dict:
+    """3m (see the module docstring): smollm-360m at full width through
+    ``launch.train.main``; returns the readings, the launches and the main
+    process's seconds."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import local_sgd as lsgd
+    from repro_torch.distributed.step import COMM_LOG, build_train_step
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import make_optimizer
+    t0 = time.time()
+    arch = get_arch(LAUNCHER_ARCH)
+    cfg = arch.model
+    rows, seconds, steps = {}, {}, {"full": 0, "cut": 0, "reduced": 0}
+    _reset_train_launches()
+
+    # (a) resume bit for bit; the guard's checkpoint resumes
+    ts = time.time()
+    ckdir = ROOT / "build" / "ckpt_3m"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    with _launcher_layers(LAUNCHER_CKPT_LAYERS):
+        whole = _launch([*LAUNCHER, "--steps", "6"])
+        first = _launch([*LAUNCHER, "--steps", "4", "--ckpt-dir",
+                         str(ckdir)])
+        guard = _launch([*LAUNCHER, "--steps", "5", "--ckpt-dir",
+                         str(ckdir), "--lifetime", "0"])
+        kept = ckpt.list_steps(ckdir)
+        last = _launch([*LAUNCHER, "--steps", "6", "--ckpt-dir", str(ckdir)])
+    steps["cut"] += 6 + 4 + 1 + 1
+    shutil.rmtree(ckdir, ignore_errors=True)
+    check((first["step0"], guard["step0"], last["step0"]) == (0, 4, 5),
+          f"3m (a): resumed from {guard['step0']}, {last['step0']}; want 4, "
+          f"5")
+    check("lifetime deadline -- checkpointed" in guard["log"]
+          and kept == [4, 5], f"3m (a): the guard did not checkpoint step 5 "
+          f"(steps kept {kept})")
+    losses = first["losses"] + guard["losses"] + last["losses"]
+    check(losses == whole["losses"], f"3m (a): the resumed losses {losses} "
+          f"differ from the uninterrupted run's {whole['losses']}")
+    check(_trees_bit_equal(last["params"], whole["params"])
+          and _trees_bit_equal(last["opt"], whole["opt"]),
+          "3m (a): the resumed parameters or optimizer state differ from "
+          "the uninterrupted run's")
+    rows["a"] = {"losses": whole["losses"], "resumed_equal_bitwise": True,
+                 "guard_kept": kept}
+    del whole, first, guard, last
+    torch.cuda.empty_cache()
+    seconds["a"] = time.time() - ts
+    print(f"  3m (a), full width over the first {LAUNCHER_CKPT_LAYERS} "
+          f"layers: 6 steps = 4 + 1 (the guard's) + 1 resumed, bit for "
+          f"bit; losses {rows['a']['losses']}; {seconds['a']:.1f} s")
+
+    # (b) DDP and FSDP over a one-rank NCCL group vs no group, bit for bit
+    ts = time.time()
+    shape = ShapeConfig("3m", LAUNCHER_SHAPE[1], LAUNCHER_SHAPE[0], "train")
+    params = build_model(arch, device="cuda", seed=0).params
+    opt0 = make_optimizer(arch.train).init(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg.vocab_size, seed=0).batch(*LAUNCHER_SHAPE).items()}
+    lone = Mesh(("data", "model"), {"data": 1, "model": 1},
+                device=torch.device("cuda"))
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    tb = {"setup": time.time() - ts}
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(store) / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        tb["group_mesh"] = time.time() - ts - tb["setup"]
+        for pattern in ("allreduce", "scatter_reduce"):
+            a = arch.replace(train=dataclasses.replace(
+                arch.train, comm_pattern=pattern))
+            ref = build_train_step(a, lone, shape)
+            grp = build_train_step(a, mesh, shape)
+            check(ref.comm.group is None and grp.comm.group is not None,
+                  "3m (b): the step's group")
+            want = ref.fn(params, opt0, batch)
+            COMM_LOG.clear()
+            got = grp.fn(grp.shard(params), grp.shard(opt0, 1), batch)
+            torch.cuda.synchronize()
+            calls = {op: n for (g, op), n in COMM_LOG.items()
+                     if g == "train" and op != "bytes"}
+            same = (_trees_bit_equal(got[0], want[0])
+                    and _trees_bit_equal(got[1], want[1])
+                    and _trees_bit_equal(got[2], want[2]))
+            check(same, f"3m (b): {pattern} over a one-rank NCCL group "
+                        f"differs from the step without a group")
+            rows[f"b_{pattern}"] = {"loss": float(got[2]["loss"]),
+                                    "equal_bitwise": same,
+                                    "collectives": calls}
+            steps["full"] += 2
+            tb[pattern] = time.time() - ts - sum(tb.values())
+            if pattern == "allreduce":
+                rows["profile"] = _profile_train_step(ref, params, opt0,
+                                                      batch)
+                steps["full"] += 1
+                tb["profile"] = time.time() - ts - sum(tb.values())
+            del want, got
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del params, opt0
+    torch.cuda.empty_cache()
+    seconds["b"] = time.time() - ts
+    print(f"  3m (b): allreduce and scatter_reduce over a one-rank NCCL "
+          f"group equal the steps without one bit for bit: "
+          + json.dumps({k: v for k, v in rows.items() if k.startswith("b_")})
+          + f"; one step profiled: {json.dumps(rows['profile'])}; "
+          f"{seconds['b']:.1f} s ({json.dumps(tb)})")
+
+    # (c) two stacked pods, DiLoCo with int8 deltas
+    ts = time.time()
+    outer_reads = []
+    build = lsgd.build_local_sgd
+
+    def reading(*args, **kw):
+        ls = build(*args, **kw)
+        outer = ls.outer_fn
+
+        def read_outer(params_st, state):
+            new_p, new_s = outer(params_st, state)
+            leaves = [x for _p, x in _paths(new_p)]
+            res = [x for _p, x in _paths(new_s["residual"])]
+            outer_reads.append({
+                "replicas_equal": all(bool(torch.equal(x[0], x[1]))
+                                      for x in leaves),
+                "residual_leaves_nonzero": sum(bool(r.abs().max() > 0)
+                                               for r in res),
+                "leaves": len(res)})
+            return new_p, new_s
+        ls.outer_fn = read_outer
+        return ls
+
+    lsgd.build_local_sgd = reading
+    try:
+        pods = _launch([*LAUNCHER, *LAUNCHER_PODS])
+    finally:
+        lsgd.build_local_sgd = build
+    steps["full"] += 4 * 2
+    check(len(outer_reads) == 2 and all(
+        r["replicas_equal"] and 2 * r["residual_leaves_nonzero"] > r["leaves"]
+        for r in outer_reads), f"3m (c): after the outer steps {outer_reads}")
+    check(all(x == x for pl in pods["pod_losses"] for x in pl),
+          "3m (c): a pod's loss is not finite")
+    rows["c"] = {"pod_losses": pods["pod_losses"], "outer": outer_reads}
+    del pods
+    torch.cuda.empty_cache()
+    seconds["c"] = time.time() - ts
+    print(f"  3m (c): {json.dumps(rows['c'])}; {seconds['c']:.1f} s")
+
+    # (d) card vs CPU: the reduced config's runs, one full-width step
+    ts = time.time()
+    reduced = get_reduced(LAUNCHER_ARCH)
+    rp = build_model(reduced, device="cpu", seed=0).params
+    gaps = {}
+    rtol = LAUNCHER_CPU_RTOL[reduced.model.dtype]
+    for name, argv, n in (("reduced", ["--steps", "6"], 6),
+                          ("reduced_pods", LAUNCHER_PODS, 8)):
+        argv = ["--reduced", *LAUNCHER[:2], "--log-every", "1",
+                "--batch", "8", "--seq", "128"] + (
+            ["--mesh", "1x1"] if name == "reduced" else []) + argv
+        card = _launch(argv, tree_map(lambda t: t.cuda(), rp), quiet=True)
+        host = _launch(argv, rp, "cpu", quiet=True)
+        key = "pod_losses" if name == "reduced_pods" else "losses"
+        a, b = (torch.tensor(card[key], dtype=torch.float64),
+                torch.tensor(host[key], dtype=torch.float64))
+        gaps[name] = float(((a - b).abs() / b.abs()).max())
+        check(gaps[name] <= rtol, f"3m (d): {name} card vs CPU losses part "
+                                  f"by {gaps[name]:.3e} > {rtol:g}")
+        steps["reduced"] += n
+    params, sample = _launcher_full_params("cuda")
+    full = _launch([*LAUNCHER, "--steps", "2"], params)
+    steps["full"] += 2
+    del params
+    torch.cuda.empty_cache()
+    cpu = side.part(".3m")
+    check(cpu["sample"] == sample, "3m (d): the helper's counter-built "
+                                   "parameters differ from the card's")
+    rtol = LAUNCHER_CPU_RTOL[cfg.dtype]
+    gaps["full"] = max(abs(a - b) / abs(b) for a, b in zip(full["losses"],
+                                                          cpu["losses"]))
+    check(gaps["full"] <= rtol, f"3m (d): full-width launcher losses card "
+                                f"{full['losses']} vs CPU {cpu['losses']}")
+    rows["d"] = {"rel_gaps": gaps, "full_losses": full["losses"],
+                 "full_cpu_losses": cpu["losses"],
+                 "cpu_side_s": cpu["seconds"]}
+    seconds["d"] = time.time() - ts
+    print(f"  3m (d): card vs CPU {json.dumps(rows['d'])}; "
+          f"{seconds['d']:.1f} s")
+
+    # (e) launches: every step's flash forward and backward
+    launches = _train_launches()
+    want = _want_train_launches(cfg, steps["full"], 0)
+    _add(want, _want_train_launches(cfg.replace(
+        num_layers=LAUNCHER_CKPT_LAYERS), steps["cut"], 0))
+    _add(want, _want_train_launches(reduced.model, steps["reduced"], 0))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(launches[name] == want[name],
+              f"3m (e): {name} launched {launches[name]} times, want "
+              f"{want[name]} ({steps} steps)")
+    seconds["main"] = time.time() - t0
+    print(f"  3m: {seconds['main']:.1f} s of the main process; launches "
+          + json.dumps({k: launches[k] for k in ("flash_attention",
+                                                 "flash_attention_bwd")}))
+    return {"runs": rows, "launches": launches, "seconds": seconds,
+            "steps": steps}
+
+
 # ----------------------------------------------------------------- main ----
 
 KERNELS = [
@@ -7470,10 +7904,15 @@ def _phases(t0, phase, card, helper, moe_helper, vlm_side) -> int:
         "seconds": {"main": main_s, "slot": slot["main_s"],
                     "slot_waited": slot["waited_s"],
                     "helper": held["seconds"]}}))
+    phase("3m: train smollm-360m through the launcher")
+    launcher = phase_train_launcher(vlm_side)
+    print(json.dumps({"train_launcher": {k: launcher[k] for k in (
+        "runs", "seconds", "steps")}}))
     trained = {k: train["launches"].get(k, 0) + train_ssm["launches"].get(k, 0)
                + train_moe["launches"].get(k, 0)
                + encoder["launches"].get(k, 0)
                + vlm["launches"].get(k, 0)
+               + launcher["launches"].get(k, 0)
                for k in train_ssm["launches"]}
     launches["quantize8_ef"] = launches.get("quantize8_ef", 0) \
         + elastic["launches"] + trained["quantize8_ef"]

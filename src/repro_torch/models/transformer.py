@@ -251,8 +251,12 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss + AUX_COEF * aux, {"loss": loss, "aux": aux}
 
 
-def value_and_grad(params, batch, cfg: ModelConfig, grads=None):
-    """-> (loss, gradient of :func:`loss_fn`, a tree of ``params``' shape).
+def value_and_grad(params, batch, cfg: ModelConfig, grads=None,
+                   with_metrics: bool = False):
+    """-> (loss, gradient of :func:`loss_fn`, a tree of ``params``' shape),
+    and with ``with_metrics`` also :func:`loss_fn`'s metrics ({"loss": the
+    cross entropy, "aux"}, detached), as ``jax.value_and_grad(...,
+    has_aux=True)`` gives them.
 
     Each stacked leaf (its leading "layers" / "inner" axes in the spec)
     enters the model as nested lists of its per-layer slices, each an
@@ -280,8 +284,11 @@ def value_and_grad(params, batch, cfg: ModelConfig, grads=None):
 
     live = split(model_spec(cfg), params, grads)
     with torch.enable_grad():
-        loss, _ = loss_fn(live, batch, cfg)
+        loss, metrics = loss_fn(live, batch, cfg)
         loss.backward()
+    if with_metrics:
+        return loss.detach(), grads, {k: v.detach()
+                                      for k, v in metrics.items()}
     return loss.detach(), grads
 
 

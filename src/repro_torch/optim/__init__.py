@@ -94,7 +94,9 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], tuple]
+    #: (grads, state, params, sq_sums=None): ``sq_sums`` as
+    #: :func:`clip_by_global_norm`'s
+    update: Callable[..., tuple]
     state_axes: Callable[[Any], Any]  # param axes tree -> state axes tree
 
 
@@ -122,14 +124,19 @@ def _map_n(fn, n: int, *trees) -> tuple:
     return fn(*trees)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq_sums=None):
     """-> (clipped grads, the global norm).  The norm is accumulated in
     fp32 (each leaf's sum of squares, added in JAX's leaf order); the
-    clipped grads keep their input dtype (x bf16(scale) for bf16 grads)."""
-    gsq = None
-    for _path, g in _flat(grads):
-        s = g.float().square().sum()
-        gsq = s if gsq is None else gsq + s
+    clipped grads keep their input dtype (x bf16(scale) for bf16 grads).
+    ``sq_sums``: a function from the leaves' own sums of squares (a list
+    in JAX's leaf order) to the ones to add, where the leaves are shards
+    (``distributed.step`` sums each shard's over its ranks)."""
+    sums = [g.float().square().sum() for _path, g in _flat(grads)]
+    if sq_sums is not None:
+        sums = sq_sums(sums)
+    gsq = sums[0]
+    for s in sums[1:]:
+        gsq = gsq + s
     gnorm = torch.sqrt(gsq)
     scale = torch.minimum(_weak(1.0, gnorm),
                           _weak(max_norm, gnorm)
@@ -204,8 +211,8 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
         def init(params):
             return {"step": zero_step(params)}
 
-        def update(grads, state, params):
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        def update(grads, state, params, sq_sums=None):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sq_sums)
             new = _map(lambda p, g: _descend(p, g, lr), params, grads)
             return new, {"step": _step(state)}, {"grad_norm": gnorm}
 
@@ -219,8 +226,8 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
             return {"m": _map(z, params), "v": _map(z, params),
                     "step": zero_step(params)}
 
-        def update(grads, state, params):
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        def update(grads, state, params, sq_sums=None):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sq_sums)
             t = _step(state).float()
 
             def f(p, g, m, v):
@@ -246,8 +253,8 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
             return {"m": _map(qz, params), "v": _map(qz, params),
                     "step": zero_step(params)}
 
-        def update(grads, state, params):
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        def update(grads, state, params, sq_sums=None):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sq_sums)
             t = _step(state).float()
 
             def f(p, g, mq, vq):

@@ -22,6 +22,9 @@ decode steps, on the CPU at the reduced configs.
   order-free values), the staged comparison of a card tree with a host
   tree (``_staged_gaps``), and the optimizer arithmetic swapped for a
   timing and put back (``_optim_arith``).
+- Phase 3m: the launcher's config cut in depth within
+  ``_launcher_layers`` and put back after it, ``_trees_bit_equal`` (paths
+  and bits), and the launches a launcher run makes per step.
 """
 from __future__ import annotations
 
@@ -329,3 +332,49 @@ def test_optim_arith_swaps_and_restores_the_update_arithmetic():
     assert float(port) == pytest.approx(exact, rel=2 ** -24)
     assert torch.equal(port, route)
     assert float(plain) != float(port)
+
+
+def test_launcher_layers_cuts_depth_and_puts_the_lookup_back():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launcher
+    before = launcher.get_arch
+    with chip_smoke._launcher_layers(2):
+        cut = launcher.get_arch("smollm-360m")
+        assert cut.model.num_layers == 2
+        assert cut.model.replace(num_layers=32) == \
+            get_arch("smollm-360m").model
+    assert launcher.get_arch is before
+
+
+def test_trees_bit_equal_reads_paths_and_bits():
+    a = {"x": torch.tensor([1.0, -0.0]), "y": {"z": torch.ones(2)}}
+    b = {"x": torch.tensor([1.0, 0.0]), "y": {"z": torch.ones(2)}}
+    assert chip_smoke._trees_bit_equal(a, a)
+    assert not chip_smoke._trees_bit_equal(a, b)       # -0.0 vs 0.0
+    assert not chip_smoke._trees_bit_equal(a, {"x": a["x"], "w": a["y"]})
+
+
+def test_a_launcher_step_launches_flash_once_per_layer(capsys):
+    """A launcher step takes flash attention once per attention layer
+    (on the CPU its plain version, counted here), which 3m (e)'s expected
+    launches assume for the kernel and its backward."""
+    from repro_torch.kernels.flash_attention import ops
+    calls = {"fwd": 0}
+    fwd = ops.flash_attention_plain
+
+    def count_fwd(*a, **k):
+        calls["fwd"] += 1
+        return fwd(*a, **k)
+    ops.flash_attention_plain = count_fwd
+    try:
+        out = chip_smoke._launch(["--reduced", "--mesh", "1x1", "--steps",
+                                  "2", "--seq", "8"], device="cpu",
+                                 quiet=True)
+    finally:
+        ops.flash_attention_plain = fwd
+    cfg = get_reduced("smollm-360m").model
+    want = chip_smoke._want_train_launches(cfg, 2, 0)
+    assert len(out["losses"]) == 2 and "done: step 2" in out["log"]
+    assert want["flash_attention"] == want["flash_attention_bwd"] == \
+        2 * cfg.num_layers
+    assert calls["fwd"] == want["flash_attention"]

@@ -50,6 +50,17 @@ for name in ("hubert-xlarge", "llama-3.2-vision-90b"):
     opt = make_optimizer(arch.train)
     new, _, stats = opt.update(grads, opt.init(params), params)
     assert bool(stats["grad_norm"].isfinite()) and bool(loss.isfinite())
+from repro_torch.launch.train import main as train_main
+out = train_main(["--reduced", "--device", "cpu", "--mesh", "1x1",
+                  "--steps", "2", "--seq", "8"])
+assert len(out["losses"]) == 2 and all(x == x for x in out["losses"])
+out = train_main(["--reduced", "--device", "cpu", "--mesh", "2x1x1",
+                  "--algorithm", "diloco", "--compress", "--steps", "2",
+                  "--seq", "8", "--sync-period", "1"])
+assert len(out["pod_losses"]) == 2
+from repro_torch import checkpoint
+from repro_torch.distributed import local_sgd, sharding, step
+assert checkpoint.PreemptionGuard(lifetime_s=0.0).should_checkpoint()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(names))
@@ -97,7 +108,9 @@ def test_every_module_is_listed():
                 "core.trace.export", "core.ckpt.localfs", "core.faas",
                 "core.iaas", "core.workloads", "data.tokens",
                 "serving.arrivals", "serving.sim", "experiments.serving",
-                "optim", "launch.specs"):
+                "optim", "launch.specs", "checkpoint", "distributed",
+                "distributed.sharding", "distributed.step",
+                "distributed.local_sgd", "launch.mesh", "launch.train"):
         assert f"repro_torch.{sub}" in names
 
 
@@ -164,16 +177,27 @@ def _serve():
     main(["--reduced", "--requests", "1", "--new-tokens", "2"])
 
 
+def _train_launcher():
+    from repro_torch.launch.train import main
+    main(["--reduced", "--mesh", "1x1", "--steps", "1"])
+
+
+def _mesh():
+    from repro_torch.launch.mesh import make_local_mesh
+    make_local_mesh()
+
+
 @pytest.mark.parametrize(
     "entry", [_run_experiment, _train, _cli, _build_model, _generator,
               _serve, _sweep, _estimate_epochs, _make_batch,
               _cli_command(["list"]), _cli_command(["plan", "lr_higgs"]),
               _cli_command(["sweep", "fig8_sync", "--no-cache", "--set",
                             "rows=400", "--grid", "sync=bsp,asp"]),
-              _cli_command(["trace", "fig10_trace", "--set", "rows=400"])],
+              _cli_command(["trace", "fig10_trace", "--set", "rows=400"]),
+              _train_launcher, _mesh],
     ids=["run_experiment", "train", "cli", "build_model", "generator",
          "serve", "sweep", "estimate_epochs", "make_batch", "cli_list", "cli_plan",
-         "cli_sweep", "cli_trace"])
+         "cli_sweep", "cli_trace", "train_launcher", "mesh"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     """No silent CPU fallback: without CUDA and without device='cpu',
     every entry point raises and says how to ask for the CPU."""
